@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (gnerf_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--frames 8] [--profile FILE]
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+  1. device:  requires CUDA; prints the card's name and power limit.
+  2. build:   compiles every kernel of the main path from csrc/ with nvcc.
+  3. kernels: each kernel vs its plain PyTorch version on the card, at the
+              main-path shapes and at the edge cases, with its time, its
+              bound and the plain version's time.
+  4. small:   a tiny generator on the card (fp32) vs the same weights on
+              the CPU, through render + 8XDC.
+  5. main:    `generate_videos` at the full width of the default
+              TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
+              bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
+              must have launched (osg_decode: twice per frame).
+  6. timing:  identity prep, render and SR ms, frames/s and peak memory.
+Prints a {"kernels": [...]} line, then as its last line
+{"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
+table of one frame to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Optional
+
+H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
+H100_BF16_FLOPS = 989e12     # dense tensor cores
+H100_FP32_FLOPS = 67e12      # outside the tensor cores
+FRAMES_DEFAULT = 8
+MAIN_M = 64 * 64 * 96        # points per decoder pass at 64^2 rays x 96 samples
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+
+def phase_build():
+    from gnerf_tpu_torch.ops import cuda_build
+
+    secs = cuda_build.build(["osg_decode"])
+    for name, out in cuda_build.build_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] built in {secs:.2f} s")
+
+
+def decoder_bound_ms(n, m, c, h, d, bf16: bool) -> tuple[float, str]:
+    """Least time on an H100: every input byte read once and every output
+    byte written once at the HBM rate, vs the operations at the peak rate
+    of their type (the first product on bf16 tensor cores when the features
+    are bf16; the plane sum, the second product and the rest in fp32)."""
+    elem = 2 if bf16 else 4
+    nbytes = n * 3 * m * c * elem + c * h * elem + (h + h * d + d) * 4 + n * m * d * 4
+    l1 = 2.0 * n * m * c * h
+    fp32_ops = 2.0 * n * m * c + 2.0 * n * m * h * d
+    t_ops = l1 / (H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS) + fp32_ops / H100_FP32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels():
+    """osg_decode vs osg_decode_ref on the card. Tolerance rtol 1e-4 /
+    atol 1e-5 for fp32 and bf16 alike: both versions widen the same bf16
+    values to fp32 exactly and accumulate in fp32 (TF32 off), so they differ
+    only in summation order."""
+    import torch
+
+    from gnerf_tpu_torch.models import OSGDecoder
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode, osg_decode_ref
+
+    cases = [  # name, N, M, C, out_dim, lr_mul, dtype, timed
+        ("main_bf16", 1, MAIN_M, 32, 32, 1.0, torch.bfloat16, True),
+        ("main_f32", 1, MAIN_M, 32, 32, 1.0, torch.float32, True),
+        ("ragged_f32", 2, 5000, 32, 32, 1.0, torch.float32, False),
+        ("ragged_bf16", 1, 5000, 32, 32, 1.0, torch.bfloat16, False),
+        ("narrow_lr_mul", 1, 4096, 8, 8, 0.5, torch.float32, False),
+    ]
+    results = {}
+    for name, n, m, c, out_dim, lr, dtype, timed in cases:
+        gen = torch.Generator().manual_seed(m + c)
+        dec = OSGDecoder(n_features=c, decoder_output_dim=out_dim, decoder_lr_mul=lr,
+                         generator=gen).cuda()
+        weights = [w.detach() for w in dec.folded_weights(dtype)]
+        feats = torch.randn((n, 3, m, c), generator=gen).to("cuda", dtype)
+        got = osg_decode(feats, *weights)
+        want = osg_decode_ref(feats, *weights)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-5) and bool(torch.isfinite(got).all())
+        row = {"max_abs_err": err, "shape": [n, 3, m, c], "dtype": str(dtype)}
+        msg = f"[kernel] osg_decode {name} N={n} M={m} C={c} D={out_dim + 1} {dtype}: " \
+              f"max_abs_err={err:.3e} (rtol 1e-4, atol 1e-5)"
+        if timed:
+            h, d = weights[2].shape
+            row["ms"] = cuda_ms(lambda: osg_decode(feats, *weights), iters=50, warmup=5)
+            row["plain_ms"] = cuda_ms(lambda: osg_decode_ref(feats, *weights), iters=10, warmup=2)
+            row["bound_ms"], row["bound_by"] = decoder_bound_ms(
+                n, m, c, h, d, dtype == torch.bfloat16)
+            msg += (f" kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                    f"roofline={row['bound_ms'] / row['ms']:.3f}")
+        log(msg)
+        if not ok:
+            raise SystemExit(f"chip_smoke: osg_decode {name} disagrees with its plain version")
+        results[name] = row
+    return results
+
+
+def phase_small():
+    """Tiny G rendered on the card vs the same weights on the CPU (fp32,
+    TF32 off). Tolerance atol 1e-4 on [-1, 1] images: cuDNN, cuBLAS and the
+    kernel sum in other orders than the CPU, and the importance resampling
+    and two SR blocks carry those differences through (the CPU parity tests
+    hold the port to the JAX package at the same bound)."""
+    import torch
+
+    from gnerf_tpu_torch.infer.gen_videos import orbit_label
+    from gnerf_tpu_torch.models import DEFAULT_RENDERING_KWARGS, TriPlaneGenerator
+
+    cfg = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=512, plane_resolution=16,
+               channel_base=512, channel_max=64, mapping_layers=2,
+               neural_rendering_resolution=8,
+               rendering_kwargs=dict(DEFAULT_RENDERING_KWARGS, depth_resolution=6,
+                                     depth_resolution_importance=6, sr_input_resolution=16))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        g = TriPlaneGenerator(**cfg, device=dev, generator=torch.Generator().manual_seed(3))
+        g.requires_grad_(False)
+        z = torch.randn((1, 32), generator=torch.Generator().manual_seed(4)).to(dev)
+        c = orbit_label(2, 8, "ffhq", g.rendering_kwargs).to(dev)
+        with torch.inference_mode():
+            outs[dev] = {k: v.float().cpu() for k, v in g.apply(z, c).items()}
+    for k in ("image", "image_raw", "image_depth"):
+        err = (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+        log(f"[small] {k} {tuple(outs['cuda'][k].shape)} cuda vs cpu max_abs_err={err:.3e} "
+            "(atol 1e-4)")
+        if not (err <= 1e-4 and torch.isfinite(outs["cuda"][k]).all()):
+            raise SystemExit(f"chip_smoke: tiny {k} on the card disagrees with the CPU")
+
+
+def phase_main(frames: int):
+    import torch
+
+    from gnerf_tpu_torch.infer.gen_videos import generate_videos
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+
+    with tempfile.TemporaryDirectory() as tmp:
+        osg_decode.launches = 0
+        t0 = time.perf_counter()
+        res = generate_videos(None, seed_init=0, frames=frames, res=64,
+                              video_out_path=tmp, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = osg_decode.launches
+        video_ok = os.path.exists(res["video"]) and os.path.exists(res["video_raw"])
+    f = res["frames"]
+    log(f"[main] generate_videos: {frames} frames {f.shape} {f.dtype} in {wall:.2f} s "
+        f"(first call, setup and warm-up included); finite={res['finite']} "
+        f"video={os.path.basename(res['video'])} osg_decode launches={launches}")
+    if f.shape != (frames, 512, 512, 3) or f.dtype.name != "uint8":
+        raise SystemExit(f"chip_smoke: frames are {f.shape} {f.dtype}")
+    if res["frames_raw"].shape != (frames, 64, 64, 3):
+        raise SystemExit(f"chip_smoke: raw frames are {res['frames_raw'].shape}")
+    if not res["finite"] or not video_ok or f.std() == 0:
+        raise SystemExit("chip_smoke: non-finite frames, constant frames or no video")
+    if launches != 2 * frames:
+        raise SystemExit(f"chip_smoke: osg_decode launched {launches} times, "
+                         f"want {2 * frames}")
+    return launches
+
+
+def phase_timing(frames: int, profile: Optional[str]):
+    import torch
+
+    from gnerf_tpu_torch.infer import gen_videos as gv
+
+    torch.cuda.reset_peak_memory_stats()
+    g, enc = gv.load_networks(None, seed_init=0, device="cuda")
+    ids = gv._load_images(None, None)
+    dtype = torch.bfloat16
+    prep_ms = cuda_ms(lambda: gv.prepare_identity(g, enc, ids, dtype=dtype), iters=3, warmup=1)
+    ws, planes = gv.prepare_identity(g, enc, ids, dtype=dtype)
+    labels = [gv.orbit_label(i, frames, "ffhq", g.rendering_kwargs).cuda() for i in range(frames)]
+
+    with torch.inference_mode():
+        feats = {}
+
+        def render(i):
+            feats[i] = g.render_planes(planes, labels[i], ws, neural_rendering_resolution=64,
+                                       dtype=dtype, superres=False)["feature_image"]
+
+        def sr(i):
+            x = feats[i]
+            return g.superresolution(x[:, :3], x, ws, noise_mode="none", dtype=dtype)
+
+        for i in range(frames):  # warm-up
+            render(i)
+            sr(i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        render_ms = sr_ms = 0.0
+        for i in range(frames):
+            ev[0].record()
+            render(i)
+            ev[1].record()
+            sr(i)
+            ev[2].record()
+            torch.cuda.synchronize()
+            render_ms += ev[0].elapsed_time(ev[1]) / frames
+            sr_ms += ev[1].elapsed_time(ev[2]) / frames
+
+    def chunk():  # the generate_videos loop body: frames + one host copy
+        outs = [gv.render_frame(g, planes, ws, labels[i], 64, dtype)[0] for i in range(frames)]
+        return torch.stack(outs).cpu()
+
+    chunk()
+    fps_runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        fps_runs.append(frames / (time.perf_counter() - t0))
+    fps = sorted(fps_runs)[1]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[timing] identity_prep_ms={prep_ms:.3f} render_ms={render_ms:.3f} "
+        f"sr_ms={sr_ms:.3f} frames_per_s={fps:.3f} (median of "
+        f"{', '.join(f'{x:.3f}' for x in fps_runs)}; chunks of {frames}, uint8 on host) "
+        f"max_memory_allocated={peak} bytes")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gv.render_frame(g, planes, ws, labels[0], 64, dtype)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        os.makedirs(os.path.dirname(os.path.abspath(profile)), exist_ok=True)
+        with open(profile, "w") as fh:
+            fh.write(table)
+        log("[profile] one frame, top device ops:\n" + "\n".join(table.splitlines()[:18]))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
+    ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
+    ap.add_argument("--profile", metavar="FILE", default=None,
+                    help="write a torch.profiler table of one frame to FILE")
+    args = ap.parse_args(argv)
+
+    phase_device()
+    import torch
+
+    from gnerf_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # TF32 off for fp32 products
+    phase_build()
+    kern = phase_kernels()
+    phase_small()
+    launches = phase_main(args.frames)
+    phase_timing(args.frames, args.profile)
+
+    main_row = kern["main_bf16"]
+    print(json.dumps({"kernels": [{
+        "name": "osg_decode", "route": "cuda",
+        "source": "gnerf_tpu_torch/csrc/osg_decode.cu",
+        "replaces": "gnerf_tpu/ops/fused_decoder.py:45",
+        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,260 @@
+"""Single-image -> pose-swept novel-view video (the flagship workload).
+
+Port of `gnerf_tpu/infer/gen_videos.py` for one CUDA device: encode the
+identity photo(s) with E, map to ws and build the tri-planes ONCE, then
+render the camera orbit frame by frame (8 frames per host round trip, uint8
+conversion on the device) and write `<name>.mp4` + `<name>_raw.mp4` (or the
+fallback formats of `video_io`). Sampling density is doubled at load, as in
+the reference. Real-photo decoding with alignment and `--gen_shapes` come in
+a later slice and raise `NotImplementedError` until then.
+
+    python -m gnerf_tpu_torch.infer.gen_videos --seed-init 0 --frames 8
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Optional
+
+import click
+import numpy as np
+import torch
+
+from ..utils import camera
+from ..utils.device import resolve_device
+
+CHUNK = 8  # frames per device -> host copy
+
+
+def _load_images(id_image: Optional[str], prepared: Optional[str],
+                 align_lm: str = "", size: int = 512) -> np.ndarray:
+    """Identity photos -> [N, 3, size, size] uint8.
+
+    With no photo, a deterministic synthetic identity (as the JAX CLI's
+    --seed-init smoke runs). Photos are decoded with PIL when it is
+    installed and must already be size x size crops; resizing and landmark
+    alignment need the native loader, which is not ported yet."""
+    if align_lm:
+        raise NotImplementedError("landmark alignment (--align_lm) is not ported yet")
+    if prepared:
+        paths = sorted(os.path.join(prepared, f) for f in os.listdir(prepared)
+                       if f.endswith(".jpg") or f.endswith(".png"))
+    elif id_image is None:
+        return np.random.RandomState(0).randint(
+            0, 256, size=(1, 3, size, size), dtype=np.uint8).astype(np.uint8)
+    else:
+        paths = [id_image]
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise NotImplementedError(
+            "decoding photos needs PIL or the native loader (not ported yet)") from e
+    imgs = []
+    for p in paths:
+        img = np.asarray(Image.open(p).convert("RGB"))
+        if img.shape[:2] != (size, size):
+            raise NotImplementedError(
+                f"{p} is {img.shape[1]}x{img.shape[0]}; resizing to {size}^2 needs the "
+                "native loader, which is not ported yet")
+        imgs.append(img.transpose(2, 0, 1)[None])
+    return np.concatenate(imgs, axis=0)
+
+
+def orbit_label(i: int, frame_num: int, dataset: str, rendering_kwargs,
+                id_image: str = "") -> torch.Tensor:
+    """Frame i's [1, 25] camera label on the reference's orbit."""
+    if dataset == "shapenet":
+        yaw = 2 * math.pi * i / (frame_num - 1)
+        radius = 1.3 if "cars" in id_image else 2.0
+        c2w = camera.lookat_sample_srn(yaw, math.pi / 3, radius=radius)
+        intr = camera.SHAPENET_INTRINSICS
+    else:
+        pitch_range, yaw_range = 0.3, 0.7
+        c2w = camera.lookat_sample(
+            3.14 / 2 + yaw_range * np.sin(2 * 3.14 * i / frame_num),
+            3.14 / 2 - 0.05 + pitch_range * np.cos(2 * 3.14 * i / frame_num),
+            radius=rendering_kwargs["avg_camera_radius"])
+        intr = camera.FFHQ_INTRINSICS
+    return camera.pose_to_label(c2w, intr)
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """[-1,1] NCHW float -> NHWC uint8 (reference `gen_videos.py:173`)."""
+    img = np.asarray(img) * 127.5 + 128
+    return np.clip(img, 0, 255).astype(np.uint8).transpose(0, 2, 3, 1)
+
+
+def normalize_depth(depth: np.ndarray) -> np.ndarray:
+    hi, lo = depth.max(), depth.min()
+    d = (depth - lo) * (255 / max(hi - lo, 1e-8))
+    return np.clip(d, 0, 255).astype(np.uint8)
+
+
+def u8(img: torch.Tensor) -> torch.Tensor:
+    """On-device [-1,1] -> uint8, same layout: `* 127.5 + 128`, clip, and a
+    truncating cast."""
+    return (img.float() * 127.5 + 128).clamp(0, 255).to(torch.uint8)
+
+
+def load_networks(network: Optional[str], seed_init: Optional[int] = None, device=None):
+    """(G, E) for inference, from an npz checkpoint or random init from
+    `seed_init`; G's sampling density is doubled, as the reference does at
+    inference. Parameters are frozen."""
+    from ..models import ResNeXt50Encoder, TriPlaneGenerator
+    from ..utils import checkpoint as ckpt
+
+    device = resolve_device(device)
+    if network:
+        trees, config = ckpt.load_checkpoint(network)
+        config = config or {}
+        g = TriPlaneGenerator(**config.get("generator", {}), device="cpu")
+        # The port also reads an optional `encoder` entry (e.g. `layers`).
+        enc = ResNeXt50Encoder(out_dim=g.z_dim, **config.get("encoder", {}), device="cpu")
+        ckpt.load_jax_params(g, trees["G_ema"])
+        state_e = trees.get("E_state")
+        if state_e is None:  # default BN statistics
+            state_e = {k: v for k, v in ckpt.module_params(enc).items()
+                       if k.endswith(("/mean", "/var"))}
+        ckpt.load_jax_params(enc, trees["E"], state_e)
+        g.to(device)
+        enc.to(device)
+    else:
+        if seed_init is None:
+            raise ValueError("--network or --seed-init required")
+        g = TriPlaneGenerator(device=device,
+                              generator=torch.Generator().manual_seed(seed_init))
+        enc = ResNeXt50Encoder(out_dim=g.z_dim, device=device,
+                               generator=torch.Generator().manual_seed(seed_init + 1))
+    rk = g.rendering_kwargs
+    rk["depth_resolution"] = int(rk["depth_resolution"] * 2)
+    rk["depth_resolution_importance"] = int(rk["depth_resolution_importance"] * 2)
+    g.requires_grad_(False).eval()
+    enc.requires_grad_(False).eval()
+    return g, enc
+
+
+@torch.inference_mode()
+def prepare_identity(g, enc, id_images: np.ndarray, truncation_psi: float = 1.0,
+                     dtype: torch.dtype = torch.bfloat16):
+    """Identity-level compute, once: uint8 photos -> (ws, planes)."""
+    device = next(g.parameters()).device
+    imgs = torch.as_tensor(id_images, device=device).float() / 127.5 - 1.0
+    z = enc.apply(imgs, train=False)
+    c0 = torch.zeros((z.shape[0], 25), device=device)
+    ws = g.mapping(z, c0, truncation_psi=truncation_psi)
+    planes = g.backbone_planes(ws, noise_mode="const", dtype=dtype)
+    return ws, planes
+
+
+@torch.inference_mode()
+def render_frame(g, planes, ws, c, res: int, dtype: torch.dtype = torch.bfloat16):
+    """One camera label [1, 25] -> (image, image_raw) as uint8 NCHW on the
+    device, and whether both float images were finite (a device bool)."""
+    c = c.to(planes.device).expand(planes.shape[0], -1)
+    out = g.render_planes(planes, c, ws, neural_rendering_resolution=res,
+                          noise_mode="const", dtype=dtype)
+    finite = torch.isfinite(out["image"]).all() & torch.isfinite(out["image_raw"]).all()
+    return u8(out["image"]), u8(out["image_raw"]), finite
+
+
+def generate_videos(
+    network: Optional[str],
+    id_image: Optional[str] = None,
+    prepared: Optional[str] = None,
+    video_out_path: str = "video_results/",
+    outdir: str = "video_results/",
+    res: int = 64,
+    frames: int = 120,
+    dataset: str = "ffhq",
+    gen_shapes: bool = False,
+    seed_init: Optional[int] = None,
+    shape_res: int = 512,
+    truncation_psi: float = 1.0,
+    fp32: bool = False,
+    label_path: Optional[str] = None,
+    ray_shards: int = 1,
+    align_lm: str = "",
+    device=None,
+) -> dict:
+    """Render the orbit video(s). Runs on CUDA unless `device` names another
+    device. Returns {'video', 'video_raw': output paths, 'frames',
+    'frames_raw': uint8 [F, H, W * n_ids, 3], 'finite': bool}."""
+    from .video_io import VideoWriter
+
+    if gen_shapes:
+        raise NotImplementedError("--gen_shapes (shape extraction) is not ported yet")
+    device = resolve_device(device)
+    id_images = _load_images(id_image, prepared, align_lm=align_lm)
+    g, enc = load_networks(network, seed_init, device)
+    if ray_shards > 1:
+        print(f"--ray_shards {ray_shards} ignored: single device attached")
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    ws, planes = prepare_identity(g, enc, id_images, truncation_psi, dtype)
+
+    if label_path:
+        with open(label_path) as f:
+            raw = json.load(f)
+        vals = list(raw.values()) if isinstance(raw, dict) else raw
+        labels = torch.as_tensor(np.asarray(vals, dtype=np.float32))
+        frames = labels.shape[0]
+    else:
+        labels = torch.cat([orbit_label(i, frames, dataset, g.rendering_kwargs, id_image or "")
+                            for i in range(frames)], dim=0)
+
+    name = os.path.basename(prepared or id_image or "seedinit").split(".")[0]
+    os.makedirs(video_out_path, exist_ok=True)
+    writer = VideoWriter(os.path.join(video_out_path, name + ".mp4"), fps=30)
+    writer_raw = VideoWriter(os.path.join(video_out_path, name + "_raw.mp4"), fps=30)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    all_imgs, all_raws = [], []
+    for start in range(0, frames, CHUNK):
+        imgs, raws = [], []
+        for i in range(start, min(start + CHUNK, frames)):
+            img, raw, ok = render_frame(g, planes, ws, labels[i: i + 1], res, dtype)
+            imgs.append(img)
+            raws.append(raw)
+            finite &= ok
+        # One device -> host copy per chunk; identities side by side.
+        imgs = torch.stack(imgs).permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+        raws = torch.stack(raws).permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+        for img, raw in zip(imgs, raws):
+            writer.append_data(img)
+            writer_raw.append_data(raw)
+        all_imgs.append(imgs)
+        all_raws.append(raws)
+    writer.close()
+    writer_raw.close()
+    print(f"wrote {writer.output_path} ({frames} frames)")
+    return {"video": writer.output_path, "video_raw": writer_raw.output_path,
+            "frames": np.concatenate(all_imgs), "frames_raw": np.concatenate(all_raws),
+            "finite": bool(finite.item())}
+
+
+@click.command()
+@click.option("--network", "network", help="Checkpoint (.npz)", default=None)
+@click.option("--id_image", "id_image", help="Identity reference image", default=None)
+@click.option("--prepared", "prepared", help="Folder of identity images", default=None)
+@click.option("--gen_shapes", "gen_shapes", type=bool, default=False)
+@click.option("--video_out_path", type=str, default="video_results/")
+@click.option("--outdir", type=str, default="video_results/")
+@click.option("--res", type=int, default=64, help="Neural render resolution")
+@click.option("--frames", type=int, default=120)
+@click.option("--dataset", type=str, default="ffhq")
+@click.option("--seed-init", "seed_init", type=int, default=None,
+              help="Random-init networks instead of loading a checkpoint")
+@click.option("--shape-res", "shape_res", type=int, default=512)
+@click.option("--fp32", is_flag=True, default=False,
+              help="Full fp32 compute (default: bf16 backbone/SR)")
+@click.option("--label_path", default=None,
+              help="JSON of 25-dim camera labels to render instead of the orbit")
+@click.option("--ray_shards", type=int, default=1, help="Ignored: one device")
+@click.option("--align_lm", default="", help="Landmark folder (not ported yet)")
+@click.option("--device", default=None, help="Device to run on (default: cuda)")
+def main(**kwargs):
+    generate_videos(**kwargs)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""OSG tri-plane point decoder: the hand-written Hopper kernel and its plain version.
+
+Replaces `gnerf_tpu/ops/fused_decoder.py::fused_osg_decode` (Pallas, TPU).
+`osg_decode` launches `csrc/osg_decode.cu` on CUDA tensors and calls the
+plain PyTorch version `osg_decode_ref` on CPU tensors; there is no other
+route. At the main-path shape (one frame pass: N=1, M=64*64*96, C=32, H=64,
+D=33, bf16 features) the call is memory-bound on an H100: 75.5 MB of
+features in and 51.9 MB out against ~3.3 GFLOP, ~38 us at 3.35 TB/s. See the
+kernel source for what its design does about that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_MAX_C, _MAX_H, _MAX_D = 64, 64, 64
+
+
+def osg_decode_ref(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
+                   w2e: torch.Tensor, b2e: torch.Tensor) -> torch.Tensor:
+    """Plain version: [N, 3, M, C] features -> [N, M, D] fp32 [sigma | rgb].
+
+    Inputs are widened to fp32 exactly (bf16 -> fp32 is lossless), so on the
+    same bf16 inputs this differs from the kernel only in summation order."""
+    f = feats.float()
+    w1 = w1e.float()
+    acc = f[:, 0] @ w1 + f[:, 1] @ w1 + f[:, 2] @ w1
+    x = acc / 3.0 + b1e.float()
+    h = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    o = h @ w2e.float() + b2e.float()
+    rgb = torch.sigmoid(o[..., 1:]) * (1 + 2 * 0.001) - 0.001
+    return torch.cat([o[..., :1], rgb], dim=-1)
+
+
+def _check(feats, w1e, b1e, w2e, b2e):
+    if feats.dim() != 4 or feats.shape[1] != 3:
+        raise ValueError(f"feats must be [N, 3, M, C], got {tuple(feats.shape)}")
+    n, _, m, c = feats.shape
+    h = w1e.shape[-1]
+    d = w2e.shape[-1]
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"feats must be float32 or bfloat16, got {feats.dtype}")
+    if w1e.dtype != feats.dtype:
+        raise TypeError(f"w1e must have the features' dtype {feats.dtype}, got {w1e.dtype}")
+    for name, t in (("b1e", b1e), ("w2e", w2e), ("b2e", b2e)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if (tuple(w1e.shape) != (c, h) or tuple(b1e.shape) != (h,)
+            or tuple(w2e.shape) != (h, d) or tuple(b2e.shape) != (d,)):
+        raise ValueError(
+            f"weight shapes {tuple(w1e.shape)}, {tuple(b1e.shape)}, "
+            f"{tuple(w2e.shape)}, {tuple(b2e.shape)} do not fit C={c}")
+    if c % 8 or c > _MAX_C or h > _MAX_H or d > _MAX_D or n > 65535:
+        raise ValueError(
+            f"kernel limits: C % 8 == 0, C <= {_MAX_C}, H <= {_MAX_H}, "
+            f"D <= {_MAX_D}, N <= 65535; got N={n} C={c} H={h} D={d}")
+    for name, t in (("feats", feats), ("w1e", w1e), ("b1e", b1e), ("w2e", w2e), ("b2e", b2e)):
+        if t.device != feats.device:
+            raise ValueError(f"{name} is on {t.device}, feats on {feats.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if feats.data_ptr() % 16:
+        raise ValueError("feats must be 16-byte aligned")
+
+
+def _library():
+    from .cuda_build import load
+
+    lib = load("osg_decode")
+    fn = lib.osg_decode_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def osg_decode(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
+               w2e: torch.Tensor, b2e: torch.Tensor) -> torch.Tensor:
+    """[N, 3, M, C] features (fp32 or bf16) -> [N, M, D] fp32 [sigma | rgb].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    `osg_decode_ref`. `osg_decode.launches` counts kernel launches."""
+    _check(feats, w1e, b1e, w2e, b2e)
+    if feats.device.type == "cpu":
+        return osg_decode_ref(feats, w1e, b1e, w2e, b2e)
+    if feats.device.type != "cuda":
+        raise ValueError(f"osg_decode runs on cuda or cpu, not {feats.device}")
+    n, _, m, c = feats.shape
+    h, d = w2e.shape
+    out = torch.empty((n, m, d), dtype=torch.float32, device=feats.device)
+    fn = _library()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = fn(feats.data_ptr(), w1e.data_ptr(), b1e.data_ptr(), w2e.data_ptr(),
+                 b2e.data_ptr(), out.data_ptr(), n, m, c, h, d,
+                 int(feats.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"osg_decode kernel launch failed: CUDA error {err}")
+    osg_decode.launches += 1
+    return out
+
+
+osg_decode.launches = 0

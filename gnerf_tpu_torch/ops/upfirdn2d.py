@@ -1,0 +1,132 @@
+"""Up-FIR-down 2D resampling as plain PyTorch.
+
+Port of `gnerf_tpu/ops/upfirdn2d.py` (forward only; inference needs no
+VJP): zero-insert upsample -> pad/crop -> FIR filter (convolution unless
+`flip_filter`) scaled by `gain` -> keep every `down`-th sample. Padding is
+given w.r.t. the upsampled image; negative padding crops. The helpers
+`filter2d` / `upsample2d` / `downsample2d` keep the reference padding
+conventions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _parse_scaling(scaling) -> tuple[int, int]:
+    if isinstance(scaling, (int, np.integer)):
+        scaling = [int(scaling), int(scaling)]
+    sx, sy = scaling
+    if sx < 1 or sy < 1:
+        raise ValueError(f"scaling must be >= 1, got {scaling}")
+    return int(sx), int(sy)
+
+
+def _parse_padding(padding) -> tuple[int, int, int, int]:
+    if isinstance(padding, (int, np.integer)):
+        padding = [int(padding), int(padding)]
+    padding = list(padding)
+    if len(padding) == 2:
+        padx, pady = padding
+        padding = [padx, padx, pady, pady]
+    padx0, padx1, pady0, pady1 = padding
+    return int(padx0), int(padx1), int(pady0), int(pady1)
+
+
+def _get_filter_size(f: Optional[torch.Tensor]) -> tuple[int, int]:
+    if f is None:
+        return 1, 1
+    return int(f.shape[-1]), int(f.shape[0])
+
+
+def setup_filter(f, normalize: bool = True, flip_filter: bool = False,
+                 gain: float = 1, separable: Optional[bool] = None,
+                 device=None) -> torch.Tensor:
+    """FIR filter for `upfirdn2d`: float32, normalized to unit DC gain.
+    Accepts [taps] (separable if >= 8 taps), [h, w], a scalar or None."""
+    if f is None:
+        f = 1
+    f = torch.as_tensor(f, dtype=torch.float32, device=device)
+    if f.dim() == 0:
+        f = f[None]
+    if separable is None:
+        separable = f.dim() == 1 and f.numel() >= 8
+    if f.dim() == 1 and not separable:
+        f = torch.outer(f, f)
+    if normalize:
+        f = f / f.sum()
+    if flip_filter:
+        f = f.flip(list(range(f.dim())))
+    return f * (gain ** (f.dim() / 2))
+
+
+def upfirdn2d(
+    x: torch.Tensor,
+    f: Optional[torch.Tensor],
+    up: Union[int, Sequence[int]] = 1,
+    down: Union[int, Sequence[int]] = 1,
+    padding: Union[int, Sequence[int]] = 0,
+    flip_filter: bool = False,
+    gain: float = 1,
+) -> torch.Tensor:
+    """Pad, upsample, filter and downsample [N, C, H, W] images."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N, C, H, W], got {tuple(x.shape)}")
+    if f is None:
+        f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    n, c, h, w = x.shape
+
+    # Zero-insert after every sample.
+    x = x.reshape(n, c, h, 1, w, 1)
+    x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
+    x = x.reshape(n, c, h * upy, w * upx)
+    # Pad, or crop for negative padding.
+    x = F.pad(x, [max(padx0, 0), max(padx1, 0), max(pady0, 0), max(pady1, 0)])
+    x = x[:, :, max(-pady0, 0): x.shape[2] - max(-pady1, 0),
+          max(-padx0, 0): x.shape[3] - max(-padx1, 0)]
+
+    f = (f * (gain ** (f.dim() / 2))).to(x.dtype)
+    if not flip_filter:
+        f = f.flip(list(range(f.dim())))
+    f = f[None, None].repeat([c, 1] + [1] * f.dim())
+    if f.dim() == 4:
+        x = F.conv2d(x, f, groups=c)
+    else:
+        x = F.conv2d(x, f.unsqueeze(2), groups=c)
+        x = F.conv2d(x, f.unsqueeze(3), groups=c)
+    return x[:, :, ::downy, ::downx]
+
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1):
+    """FIR-filter images; output is padded to match the input shape."""
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = (padx0 + fw // 2, padx1 + (fw - 1) // 2, pady0 + fh // 2, pady1 + (fh - 1) // 2)
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
+    """Upsample images by `up` with FIR smoothing (output = input * up)."""
+    upx, upy = _parse_scaling(up)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = (padx0 + (fw + upx - 1) // 2, padx1 + (fw - upx) // 2,
+         pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2)
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter, gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """Downsample images by `down` with FIR anti-aliasing."""
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = (padx0 + (fw - downx + 1) // 2, padx1 + (fw - downx) // 2,
+         pady0 + (fh - downy + 1) // 2, pady1 + (fh - downy) // 2)
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

@@ -1,0 +1,1 @@
+"""Host helpers: checkpoints and the JAX weight bridge, cameras, devices."""

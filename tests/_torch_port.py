@@ -1,0 +1,58 @@
+"""Shared helpers for the gnerf_tpu_torch parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages;
+parameters are made with the JAX `init` and bridged into the port with
+`load_jax_params`. Everything runs on the CPU in fp32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Six xdist workers share the host: one intra-op thread each while a
+    port test module runs (imported by each tests/test_torch_*.py)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def tiny_gen_cfg(depth=6, **overrides):
+    """The tiny G of tests/test_models.py, with the 8XDC SR module fed at
+    16^2 (so the SR output is 64^2)."""
+    from gnerf_tpu.models.triplane import DEFAULT_RENDERING_KWARGS
+
+    cfg = dict(
+        z_dim=32, c_dim=25, w_dim=32, img_resolution=512,
+        plane_resolution=16, plane_channels=32, channel_base=512,
+        channel_max=64, mapping_layers=2, neural_rendering_resolution=8,
+        rendering_kwargs=dict(
+            DEFAULT_RENDERING_KWARGS,
+            superresolution_module="SuperresolutionHybrid8XDC",
+            sr_input_resolution=16,
+            depth_resolution=depth, depth_resolution_importance=depth,
+        ),
+    )
+    cfg.update(overrides)
+    return cfg
+
+
+def with_noise_strength(params, value=0.5):
+    """Copy of a JAX param tree with every `noise_strength` leaf set, so that
+    noise_mode='const' actually adds the constant noise."""
+    if isinstance(params, dict):
+        return {k: (np.float32(value) if k == "noise_strength"
+                    else with_noise_strength(v, value)) for k, v in params.items()}
+    return params
+
+
+def to_np(x):
+    return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def t(x):
+    """numpy -> fp32 CPU tensor."""
+    return torch.from_numpy(np.array(x, dtype=np.float32))

@@ -1,0 +1,136 @@
+"""Port networks vs gnerf_tpu.models (fp32, CPU, bridged JAX params)."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from _torch_port import one_torch_thread, t, tiny_gen_cfg, to_np, with_noise_strength  # noqa: F401
+from gnerf_tpu.models import ResNeXt50Encoder as JEncoder
+from gnerf_tpu.models import TriPlaneGenerator as JGen
+from gnerf_tpu.models import stylegan2 as jsg
+from gnerf_tpu.models.superresolution import SuperresolutionHybrid8XDC as JSR
+from gnerf_tpu.ops import setup_filter as jsetup_filter
+from gnerf_tpu.utils import camera as jcam
+from gnerf_tpu_torch.models import ResNeXt50Encoder, TriPlaneGenerator, stylegan2
+from gnerf_tpu_torch.models.superresolution import SuperresolutionHybrid8XDC
+from gnerf_tpu_torch.ops import setup_filter
+from gnerf_tpu_torch.utils.checkpoint import load_jax_params
+
+
+@pytest.mark.parametrize("up,demodulate,noise", [(1, True, False), (2, True, True),
+                                                 (1, False, False)])
+def test_modulated_conv2d_matches_jax(up, demodulate, noise):
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 6, 8, 8).astype(np.float32)
+    w = rng.randn(5, 6, 3, 3).astype(np.float32)
+    s = rng.randn(2, 6).astype(np.float32)
+    res = 8 * up
+    nz = rng.randn(res, res).astype(np.float32) if noise else None
+    kw = dict(up=up, padding=1, demodulate=demodulate, flip_weight=up == 1)
+    want = jsg.modulated_conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                                noise=None if nz is None else jnp.asarray(nz),
+                                resample_filter=jsetup_filter([1, 3, 3, 1]) if up > 1 else None,
+                                **kw)
+    got = stylegan2.modulated_conv2d(t(x), t(w), t(s), noise=None if nz is None else t(nz),
+                                     resample_filter=setup_filter([1, 3, 3, 1]) if up > 1 else None,
+                                     **kw)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("psi,cutoff", [(1.0, None), (0.7, None), (0.5, 2)])
+def test_mapping_network_matches_jax(psi, cutoff):
+    jmap = jsg.MappingNetwork(z_dim=16, c_dim=25, w_dim=24, num_ws=5, num_layers=3)
+    params = jmap.init(jax.random.PRNGKey(0))
+    params["w_avg"] = jnp.asarray(np.random.RandomState(1).randn(24).astype(np.float32))
+    m = stylegan2.MappingNetwork(z_dim=16, c_dim=25, w_dim=24, num_ws=5, num_layers=3)
+    load_jax_params(m, params)
+    rng = np.random.RandomState(2)
+    z, c = rng.randn(3, 16).astype(np.float32), rng.randn(3, 25).astype(np.float32)
+    want = jmap.apply(params, jnp.asarray(z), jnp.asarray(c), truncation_psi=psi,
+                      truncation_cutoff=cutoff)
+    got = m(t(z), t(c), truncation_psi=psi, truncation_cutoff=cutoff)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_synthesis_network_const_noise_matches_jax():
+    kw = dict(w_dim=16, img_resolution=16, img_channels=12, channel_base=256, channel_max=32)
+    jsyn = jsg.SynthesisNetwork(**kw)
+    params = with_noise_strength(jsyn.init(jax.random.PRNGKey(3)))
+    syn = stylegan2.SynthesisNetwork(**kw)
+    load_jax_params(syn, params)
+    assert syn.num_ws == jsyn.num_ws
+    ws = np.random.RandomState(4).randn(2, jsyn.num_ws, 16).astype(np.float32)
+    want = jsyn.apply(params, jnp.asarray(ws), noise_mode="const")
+    got = syn(t(ws), noise_mode="const")
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("in_res", [8, 16])  # 8: interpolate branch; 16: the quirk branch
+def test_superresolution_8xdc_matches_jax(in_res):
+    jsr = JSR(channels=32, img_resolution=512, w_dim=16, input_resolution=16)
+    params = jsr.init(jax.random.PRNGKey(5))
+    sr = SuperresolutionHybrid8XDC(channels=32, img_resolution=512, w_dim=16, input_resolution=16)
+    load_jax_params(sr, params)
+    rng = np.random.RandomState(in_res)
+    rgb = rng.randn(1, 3, in_res, in_res).astype(np.float32)
+    x = rng.randn(1, 32, in_res, in_res).astype(np.float32)
+    ws = rng.randn(1, 4, 16).astype(np.float32)
+    want_img, want_raw = jsr.apply(params, jnp.asarray(rgb), jnp.asarray(x), jnp.asarray(ws),
+                                   noise_mode="none")
+    got_img, got_raw = sr(t(rgb), t(x), t(ws), noise_mode="none")
+    assert tuple(got_img.shape) == (1, 3, 64, 64)
+    np.testing.assert_allclose(to_np(got_raw), np.asarray(want_raw), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(to_np(got_img), np.asarray(want_img), rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def encoder_pair():
+    jenc = JEncoder(out_dim=24, layers=(1, 1, 1, 1), groups_as_dense=False)
+    params, state = jenc.init(jax.random.PRNGKey(6))
+    rng = np.random.RandomState(7)
+    # Non-trivial BN statistics so the eval-mode normalization is exercised.
+    state = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.uniform(0.5, 1.5, a.shape).astype(np.float32)), state)
+    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="cpu")
+    load_jax_params(enc, params, state)
+    img = rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32)
+    return jenc, params, state, enc, img
+
+
+@pytest.mark.parametrize("groups_as_dense,atol", [(False, 1e-4), (True, 1e-3)])
+def test_encoder_matches_jax(encoder_pair, groups_as_dense, atol):
+    """groups_as_dense=True (the JAX default) sums the grouped conv in
+    another order through a 32x wider dense conv, hence the looser bound."""
+    jenc, params, state, enc, img = encoder_pair
+    jenc = JEncoder(out_dim=24, layers=(1, 1, 1, 1), groups_as_dense=groups_as_dense)
+    want, _ = jenc.apply(params, state, jnp.asarray(img), train=False)
+    got = enc.apply(t(img), train=False)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=atol)
+
+
+@pytest.fixture(scope="module")
+def generator_pair():
+    cfg = tiny_gen_cfg()
+    jg = JGen(**cfg)
+    params = with_noise_strength(jg.init(jax.random.PRNGKey(8)))
+    g = TriPlaneGenerator(**cfg, device="cpu")
+    load_jax_params(g, params)
+    return jg, params, g
+
+
+def test_triplane_synthesis_matches_jax(generator_pair):
+    jg, params, g = generator_pair
+    rng = np.random.RandomState(9)
+    z = rng.randn(1, 32).astype(np.float32)
+    c = np.asarray(jcam.pose_to_label(jcam.lookat_sample(1.3, 1.5, radius=2.7),
+                                      jcam.FFHQ_INTRINSICS))
+    ws = jg.mapping(params, jnp.asarray(z), jnp.asarray(c))
+    want = jg.synthesis(params, ws, jnp.asarray(c), noise_mode="const")
+    got = g.synthesis(t(np.asarray(ws)), t(c), noise_mode="const")
+    np.testing.assert_allclose(to_np(g.mapping(t(z), t(c))), np.asarray(ws), rtol=1e-5, atol=1e-5)
+    assert tuple(got["image"].shape) == (1, 3, 64, 64)
+    for name, atol in (("image_depth", 1e-4), ("image_raw", 1e-4), ("image", 1e-4)):
+        np.testing.assert_allclose(to_np(got[name]), np.asarray(want[name]), rtol=1e-4,
+                                   atol=atol, err_msg=name)

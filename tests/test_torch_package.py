@@ -1,0 +1,110 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to run on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import one_torch_thread, tiny_gen_cfg  # noqa: F401
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "gnerf_tpu")
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import gnerf_tpu_torch, gnerf_tpu_torch.infer.gen_videos, gnerf_tpu_torch.models\n"
+        "import gnerf_tpu_torch.ops, gnerf_tpu_torch.render, gnerf_tpu_torch.utils.checkpoint\n"
+        "new = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
+        "print(new)\n"
+        "sys.exit(1 if new else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _python_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(ROOT, "gnerf_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_jax_import_statements():
+    files = _python_files()
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append((path, node.module))
+    assert not bad, bad
+
+
+def _tiny_generator():
+    from gnerf_tpu_torch.models import TriPlaneGenerator
+
+    return TriPlaneGenerator(**tiny_gen_cfg())
+
+
+def _encoder():
+    from gnerf_tpu_torch.models import ResNeXt50Encoder
+
+    return ResNeXt50Encoder(layers=(1, 1, 1, 1))
+
+
+def _generate_videos(tmp_path):
+    from gnerf_tpu_torch.infer.gen_videos import generate_videos
+
+    return generate_videos(None, seed_init=0, frames=1, video_out_path=str(tmp_path))
+
+
+@pytest.mark.parametrize("entry", ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos"])
+def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        {"TriPlaneGenerator": _tiny_generator, "ResNeXt50Encoder": _encoder,
+         "generate_videos": lambda: _generate_videos(tmp_path)}[entry]()
+
+
+def test_decoder_wrapper_has_no_silent_fallback():
+    """A tensor on neither the CPU nor CUDA raises instead of taking the
+    plain version."""
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+
+    feats = torch.empty((1, 3, 16, 8), device="meta")
+    w1 = torch.empty((8, 4), device="meta")
+    b1 = torch.empty((4,), device="meta")
+    w2 = torch.empty((4, 3), device="meta")
+    b2 = torch.empty((3,), device="meta")
+    before = osg_decode.launches
+    with pytest.raises(ValueError):
+        osg_decode(feats, w1, b1, w2, b2)
+    assert osg_decode.launches == before
+
+
+def test_cpu_entry_point_runs_when_asked():
+    from gnerf_tpu_torch.models import TriPlaneGenerator
+
+    g = TriPlaneGenerator(**tiny_gen_cfg(), device="cpu")
+    assert next(g.parameters()).device.type == "cpu"
+    assert np.isfinite(g.decoder.fc0.weight.detach().numpy()).all()

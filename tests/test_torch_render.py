@@ -1,0 +1,140 @@
+"""Port renderer vs gnerf_tpu.render (fp32, CPU, deterministic sampling)."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from _torch_port import one_torch_thread, t, to_np  # noqa: F401
+from gnerf_tpu.models import OSGDecoder as JDecoder
+from gnerf_tpu.models.triplane import DEFAULT_RENDERING_KWARGS
+from gnerf_tpu.render import importance as jimp
+from gnerf_tpu.render import math_utils as jmath
+from gnerf_tpu.render import ray_marcher as jmarch
+from gnerf_tpu.render import ray_sampler as jsamp
+from gnerf_tpu.render import renderer as jrend
+from gnerf_tpu.utils import camera as jcam
+from gnerf_tpu_torch.models import OSGDecoder
+from gnerf_tpu_torch.render import importance, math_utils, ray_marcher, ray_sampler, renderer
+from gnerf_tpu_torch.utils import camera
+from gnerf_tpu_torch.utils.checkpoint import load_jax_params
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _camera(yaw=0.3, pitch=-0.2):
+    c2w = np.asarray(jcam.lookat_sample(np.pi / 2 + yaw, np.pi / 2 + pitch, radius=2.7))
+    intr = np.asarray(jcam.FFHQ_INTRINSICS)
+    return c2w, np.broadcast_to(intr, (1, 3, 3)).copy()
+
+
+def test_camera_matches_jax():
+    want = np.asarray(jcam.pose_to_label(jcam.lookat_sample(1.2, 1.4, radius=2.7),
+                                         jcam.FFHQ_INTRINSICS))
+    got = to_np(camera.pose_to_label(camera.lookat_sample(1.2, 1.4, radius=2.7),
+                                     camera.FFHQ_INTRINSICS))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    want = np.asarray(jcam.lookat_sample_srn(0.4, 1.0, radius=2.0))
+    np.testing.assert_allclose(to_np(camera.lookat_sample_srn(0.4, 1.0, radius=2.0)), want,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_sample_rays_and_ray_limits_match_jax():
+    c2w, intr = _camera()
+    jo, jd = jsamp.sample_rays(jnp.asarray(c2w), jnp.asarray(intr), 16)
+    o, d = ray_sampler.sample_rays(t(c2w), t(intr), 16)
+    np.testing.assert_allclose(to_np(o), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(to_np(d), np.asarray(jd), **TOL)
+    # Rays from outside the box, some missing it.
+    d_np = np.asarray(jd).copy()
+    d_np[0, :7] = [0.0, 0.0, 1.0]
+    js, je = jmath.get_ray_limits_box(jo, jnp.asarray(d_np), box_side_length=1.0)
+    s, e = math_utils.get_ray_limits_box(o, t(d_np), box_side_length=1.0)
+    np.testing.assert_allclose(to_np(s), np.asarray(js), **TOL)
+    np.testing.assert_allclose(to_np(e), np.asarray(je), **TOL)
+
+
+def test_sample_stratified_matches_jax():
+    o = np.zeros((2, 5, 3), np.float32)
+    want = jimp.sample_stratified(None, jnp.asarray(o), 2.25, 3.3, 12)
+    got = importance.sample_stratified(None, t(o), 2.25, 3.3, 12)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
+    rng = np.random.RandomState(0)
+    start = rng.uniform(1.0, 2.0, (2, 5, 1)).astype(np.float32)
+    end = start + rng.uniform(0.5, 1.0, (2, 5, 1)).astype(np.float32)
+    want = jimp.sample_stratified(None, jnp.asarray(o), jnp.asarray(start), jnp.asarray(end), 12)
+    got = importance.sample_stratified(None, t(o), t(start), t(end), 12)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
+
+
+def test_sample_importance_matches_jax():
+    rng = np.random.RandomState(1)
+    z = np.sort(rng.uniform(2.0, 3.5, (2, 7, 16, 1)), axis=2).astype(np.float32)
+    w = rng.exponential(size=(2, 7, 15, 1)).astype(np.float32)
+    w[0, 0] = 0.0  # a ray with no weight: uniform pdf
+    want = jimp.sample_importance(None, jnp.asarray(z), jnp.asarray(w), 16)
+    got = importance.sample_importance(None, t(z), t(w), 16)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
+
+
+def test_march_rays_matches_jax():
+    rng = np.random.RandomState(2)
+    colors = rng.randn(2, 6, 10, 5).astype(np.float32)
+    dens = (rng.randn(2, 6, 10, 1) * 3).astype(np.float32)
+    depths = np.sort(rng.uniform(2.0, 3.0, (2, 6, 10, 1)), axis=2).astype(np.float32)
+    for white_back in (False, True):
+        opts = {"white_back": white_back}
+        want = jmarch.march_rays(jnp.asarray(colors), jnp.asarray(dens), jnp.asarray(depths), opts)
+        got = ray_marcher.march_rays(t(colors), t(dens), t(depths), opts)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(to_np(g), np.asarray(w), **TOL)
+
+
+def test_sample_from_planes_matches_jax_plain_and_packed():
+    rng = np.random.RandomState(3)
+    planes = rng.randn(2, 3, 8, 16, 16).astype(np.float32)
+    coords = rng.uniform(-0.65, 0.65, (2, 500, 3)).astype(np.float32)  # some outside
+    got = to_np(renderer.sample_from_planes(t(planes), t(coords), box_warp=1.0))
+    want = np.asarray(jrend.sample_from_planes(jnp.asarray(planes), jnp.asarray(coords), 1.0))
+    np.testing.assert_allclose(got, want, **TOL)
+    packed = jrend.pack_planes(jnp.asarray(planes))
+    want_packed = np.asarray(jrend.sample_packed_planes(packed, jnp.asarray(coords), 1.0))
+    np.testing.assert_allclose(got, want_packed, **TOL)
+    uv = to_np(renderer.project_onto_planes(t(coords)))
+    np.testing.assert_array_equal(uv, np.asarray(jrend.project_onto_planes(jnp.asarray(coords))))
+
+
+def test_unify_samples_is_stable_on_ties():
+    rng = np.random.RandomState(4)
+    d1 = np.sort(rng.uniform(2, 3, (1, 4, 6, 1)), axis=2).astype(np.float32)
+    d2 = np.sort(rng.uniform(2, 3, (1, 4, 6, 1)), axis=2).astype(np.float32)
+    d2[:, :, ::2] = d1[:, :, ::2]  # exact coarse/fine ties
+    c1, c2 = rng.randn(1, 4, 6, 5).astype(np.float32), rng.randn(1, 4, 6, 5).astype(np.float32)
+    s1, s2 = rng.randn(1, 4, 6, 1).astype(np.float32), rng.randn(1, 4, 6, 1).astype(np.float32)
+    want = jrend.unify_samples(*(jnp.asarray(a) for a in (d1, c1, s1, d2, c2, s2)))
+    got = renderer.unify_samples(*(t(a) for a in (d1, c1, s1, d2, c2, s2)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_np(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("limits", ["fixed", "auto"])
+def test_render_rays_matches_jax(limits):
+    rng = np.random.RandomState(5)
+    planes = rng.randn(1, 3, 32, 16, 16).astype(np.float32)
+    jdec = JDecoder(n_features=32, decoder_output_dim=32)
+    params = jdec.init(jax.random.PRNGKey(0))
+    dec = OSGDecoder(n_features=32, decoder_output_dim=32)
+    load_jax_params(dec, params)
+    opts = dict(DEFAULT_RENDERING_KWARGS, depth_resolution=8, depth_resolution_importance=8)
+    if limits == "auto":
+        opts.update(ray_start="auto", ray_end="auto")
+    c2w, intr = _camera()
+    jo, jd = jsamp.sample_rays(jnp.asarray(c2w), jnp.asarray(intr), 8)
+    if limits == "auto":  # a few rays that miss the box exercise the fix-up
+        jd = jd.at[0, :5].set(jnp.asarray([0.0, 1.0, 0.0]))
+    want = jrend.render_rays(jnp.asarray(planes), lambda f, d: jdec.apply(params, f, d),
+                             jo, jd, opts, rng=None)
+    got = renderer.render_rays(t(planes), dec, t(np.asarray(jo)), t(np.asarray(jd)), opts)
+    for name, g, w in zip(("rgb", "depth", "weight_sum"), got, want):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), rtol=1e-4, atol=1e-5, err_msg=name)
