@@ -1,13 +1,18 @@
 """The port's OSG decoder (`osg_decode` and its plain version) vs the JAX
 Pallas kernel (interpret mode) and the JAX plain decoder, mirroring
-tests/test_fused_decoder.py. The CUDA kernel itself is held against the
-plain version on the card (the `cuda` test below, and chip_smoke.py)."""
+tests/test_fused_decoder.py. The bf16 kernel's arithmetic (tensor-core
+layer 1, split-fp16 layer 2) is emulated on the CPU and held to the plain
+version's tolerance. The CUDA kernel itself is held against the plain
+version on the card (the `cuda` test below, and chip_smoke.py)."""
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from _torch_port import one_torch_thread, t, to_np  # noqa: F401
 from gnerf_tpu.models import OSGDecoder as JDecoder
@@ -42,6 +47,113 @@ def test_decoder_matches_jax(n, m, c, out_dim, lr_mul):
     np.testing.assert_allclose(to_np(got["rgb"]), np.asarray(want_plain["rgb"]), **TOL)
     np.testing.assert_allclose(to_np(got["sigma"]), want_pallas[..., :1], **TOL)
     np.testing.assert_allclose(to_np(got["rgb"]), want_pallas[..., 1:], **TOL)
+
+
+@pytest.mark.parametrize("n,m,c,out_dim,lr_mul", [
+    (2, 4096, 32, 32, 1.0),
+    (2, 5000, 32, 32, 1.0),
+    (1, 4096, 8, 8, 0.5),
+])
+def test_decoder_bf16_matches_pallas(n, m, c, out_dim, lr_mul):
+    """bf16 features (the main path's type): the Pallas kernel's three bf16
+    dots with fp32 sums vs the port's plain version on the same bf16 values.
+    bf16 x bf16 products are exact in fp32 on both sides, so they differ only
+    in summation order; hence the fp32 tolerance."""
+    jdec, params, dec = _pair(c, out_dim, lr_mul, seed=m)
+    feats = np.random.RandomState(m + 1).randn(n, 3, m, c).astype(np.float32)
+    want = np.asarray(jdec._apply_fused(
+        params, jnp.asarray(feats).astype(jnp.bfloat16), interpret=True))
+    got = dec(t(feats).bfloat16())
+    np.testing.assert_allclose(to_np(got["sigma"]), want[..., :1], **TOL)
+    np.testing.assert_allclose(to_np(got["rgb"]), want[..., 1:], **TOL)
+
+
+def _split(x, dtype):
+    hi = x.to(dtype).float()
+    return hi, (x - hi).to(dtype).float()
+
+
+def _kernel_emulation(feats, w1e, b1e, w2e, b2e, split_dtype=torch.float16):
+    """The bf16 kernel's arithmetic (csrc/osg_decode.cu, osg_decode_tc) in
+    plain PyTorch: layer 1 as one product of depth 3C (bf16 products, fp32
+    sums); softplus in log2 units (h / ln 2, with ln 2 folded into w2e);
+    sigma as an fp32 dot; the rgb columns as h_hi.w_hi + h_hi.w_lo + h_lo.w_hi
+    with fp16 hi/lo parts of h and of w2e * ln 2 * 2^s (max |w2e| * 2^s in
+    [2^14, 2^15)), and rows whose largest h reaches 2^15 scaled by a power of
+    two first. The kernel sums in another order and takes exp2/log2 from
+    approximate instructions; neither is emulated. `split_dtype` bfloat16
+    emulates the split the kernel does not use."""
+    log2e, ln2 = math.log2(math.e), math.log(2.0)
+    f = feats.float()
+    w1 = w1e.float()
+    acc = torch.cat([f[:, 0], f[:, 1], f[:, 2]], dim=-1) @ torch.cat([w1, w1, w1], dim=0)
+    y = acc * (log2e / 3.0) + b1e * log2e
+    h = torch.clamp_min(y, 0.0) + torch.log2(1.0 + torch.exp2(-y.abs()))
+    sigma = h @ (w2e[:, :1] * ln2) + b2e[:1]
+    _, row_exp = torch.frexp(h.amax(dim=-1, keepdim=True))
+    row_shift = (row_exp - 15).clamp_min(0)
+    h = torch.ldexp(h, -row_shift)
+    _, w_exp = torch.frexp(w2e.abs().max())
+    hh, hl = _split(h, split_dtype)
+    wh, wl = _split(torch.ldexp(w2e[:, 1:] * ln2, 15 - w_exp), split_dtype)
+    o = torch.ldexp(hh @ wh + hh @ wl + hl @ wh, row_shift + w_exp - 15) + b2e[1:]
+    rgb = torch.sigmoid(o) * (1 + 2 * 0.001) - 0.001
+    return torch.cat([sigma, rgb], dim=-1)
+
+
+def _bf16_case(n, m, c, out_dim, lr_mul, scale):
+    dec = OSGDecoder(n_features=c, decoder_output_dim=out_dim, decoder_lr_mul=lr_mul,
+                     generator=torch.Generator().manual_seed(m + c))
+    weights = [w.detach() for w in dec.folded_weights(torch.bfloat16)]
+    feats = t(np.random.RandomState(m).randn(n, 3, m, c) * scale).bfloat16()
+    return feats, weights
+
+
+@pytest.mark.parametrize("n,m,c,out_dim,lr_mul,scale", [
+    (1, 4096, 32, 32, 1.0, 1.0),
+    (2, 5000, 32, 32, 1.0, 1.0),
+    (1, 4096, 32, 32, 1.0, 20.0),   # softplus and sigmoid saturate
+    (2, 5000, 32, 32, 1.0, 20.0),
+    (1, 4096, 8, 8, 0.5, 20.0),     # K padded per plane, lr multiplier
+])
+def test_kernel_arithmetic_holds_tolerance(n, m, c, out_dim, lr_mul, scale):
+    """The split-fp16 second layer keeps ~22 bits of h and w2e and holds the
+    plain version's tolerance, also at x20 features."""
+    feats, weights = _bf16_case(n, m, c, out_dim, lr_mul, scale)
+    torch.testing.assert_close(_kernel_emulation(feats, *weights),
+                               osg_decode_ref(feats, *weights), **TOL)
+
+
+def test_bf16_split_misses_tolerance():
+    """Why the second layer splits into fp16 and not bf16 parts: a bf16
+    split keeps ~16 bits and leaves the tolerance at x20 features."""
+    feats, weights = _bf16_case(1, 4096, 32, 32, 1.0, 20.0)
+    want = osg_decode_ref(feats, *weights)
+    got = _kernel_emulation(feats, *weights, split_dtype=torch.bfloat16)
+    assert not torch.allclose(got, want, **TOL)
+
+
+def _decode_f64(feats, w1e, b1e, w2e, b2e):
+    f = feats.double()
+    w1 = w1e.double()
+    x = (f[:, 0] @ w1 + f[:, 1] @ w1 + f[:, 2] @ w1) / 3.0 + b1e.double()
+    h = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    o = h @ w2e.double() + b2e.double()
+    return torch.cat([o[..., :1], torch.sigmoid(o[..., 1:]) * (1 + 2 * 0.001) - 0.001], -1)
+
+
+@pytest.mark.parametrize("c,out_dim,lr_mul", [(32, 32, 1.0), (8, 8, 0.5)])
+def test_kernel_arithmetic_scales_huge_rows(c, out_dim, lr_mul):
+    """Features x65536 put h far beyond fp16 (up to ~1e5): the kernel's
+    per-row power-of-two scaling keeps it finite and as close to the float64
+    result as the fp32 plain version is (fp32 itself is off by ~2e-2 there,
+    on outputs near 1e5)."""
+    feats, weights = _bf16_case(1, 2048, c, out_dim, lr_mul, 65536.0)
+    exact = _decode_f64(feats, *weights)
+    got = _kernel_emulation(feats, *weights).double()
+    plain_err = (osg_decode_ref(feats, *weights).double() - exact).abs().max()
+    assert torch.isfinite(got).all()
+    assert (got - exact).abs().max() <= 2.0 * plain_err
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -82,19 +194,51 @@ def test_wrapper_rejects(fault):
         osg_decode(feats, w1, b1, w2, b2)
 
 
+# name: (dtype, N, M, C, out_dim, lr_mul, feature scale)
+CARD_CASES = {
+    "float32": ("float32", 1, 5000, 32, 32, 1.0, 1.0),
+    "bfloat16": ("bfloat16", 1, 5000, 32, 32, 1.0, 1.0),
+    "bf16_c8_lr_mul": ("bfloat16", 1, 4096, 8, 8, 0.5, 1.0),   # K padding
+    "bf16_m1": ("bfloat16", 1, 1, 32, 32, 1.0, 1.0),            # less than one tile
+    "bf16_m63": ("bfloat16", 1, 63, 32, 32, 1.0, 1.0),
+    "bf16_m5003": ("bfloat16", 1, 5003, 32, 32, 1.0, 1.0),      # tail rows not a multiple of 4
+    "bf16_n2": ("bfloat16", 2, 5000, 32, 32, 1.0, 1.0),         # batch stride
+    "bf16_x20": ("bfloat16", 1, 64 * 64 * 96, 32, 32, 1.0, 20.0),  # main shape, saturating
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_version_on_card(dtype):
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_matches_plain_version_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, _, dec = _pair(32, 32, 1.0, seed=5)
+    dtype, n, m, c, out_dim, lr_mul, scale = CARD_CASES[case]
+    _, _, dec = _pair(c, out_dim, lr_mul, seed=5)
     dec = dec.cuda()
     dt = getattr(torch, dtype)
-    feats = torch.randn(1, 3, 5000, 32, device="cuda").to(dt)
+    gen = torch.Generator().manual_seed(m)
+    feats = (torch.randn(n, 3, m, c, generator=gen) * scale).to("cuda", dt)
     weights = dec.folded_weights(dt)
     before = osg_decode.launches
     got = osg_decode(feats, *weights)
     torch.cuda.synchronize()
     assert osg_decode.launches == before + 1
     torch.testing.assert_close(got, osg_decode_ref(feats, *weights), **TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_scales_huge_rows_on_card():
+    """x65536 bf16 features take the kernel's per-row scaling path; it must
+    stay as close to float64 as the fp32 plain version is, within a factor 4:
+    the tensor cores' fp32 sums do not round to nearest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, weights = _bf16_case(1, 2048, 32, 32, 1.0, 65536.0)
+    feats, weights = feats.cuda(), [w.cuda() for w in weights]
+    got = osg_decode(feats, *weights).double()
+    exact = _decode_f64(feats, *weights)
+    plain_err = (osg_decode_ref(feats, *weights).double() - exact).abs().max()
+    assert torch.isfinite(got).all()
+    assert (got - exact).abs().max() <= 4.0 * plain_err
