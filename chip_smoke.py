@@ -5,18 +5,27 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device:  requires CUDA; prints the card's name and power limit.
-  2. build:   compiles every kernel of the main path from csrc/ with nvcc;
+  2. build:   compiles every kernel of the paths from csrc/ with nvcc;
               prints ptxas's registers and spills per kernel instance.
   3. kernels: each kernel vs its plain PyTorch version on the card, at the
-              main-path shapes and at the edge cases, with its time, its
-              bound and the plain version's time.
+              shapes of the main, server and shape paths and at the edge
+              cases, with its time, its bound and the plain version's time.
   4. small:   a tiny generator on the card (fp32) vs the same weights on
-              the CPU, through render + 8XDC.
+              the CPU, through render + 8XDC, and through `sample_mixed`.
   5. main:    `generate_videos` at the full width of the default
               TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
               must have launched (osg_decode: twice per frame).
   6. timing:  identity prep, render and SR ms, frames/s and peak memory.
+  7. server:  `GNerfService` at the same full width behind a loopback
+              ThreadingHTTPServer: /healthz, /encode (seeds, a 512^2 PNG, a
+              non-square photo with 68 landmarks), sequential and 4
+              concurrent /render (a batch of 4, within +-1 of direct
+              renders), /orbit (30 frames; 400 and 404 cases); latencies,
+              orbit frames/s, launches and peak memory.
+  8. shapes:  `generate_videos(..., gen_shapes=True, shape_res=256)`: the
+              .mrc reads back 256^3, finite, not constant inside the mask; a
+              mesh with faces; sweep ms and its 16 fp32 launches.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -25,13 +34,19 @@ table of one frame to FILE.
 from __future__ import annotations
 
 import argparse
+import base64
+import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from typing import Optional
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
@@ -39,6 +54,10 @@ H100_BF16_FLOPS = 989e12     # dense tensor cores
 H100_FP32_FLOPS = 67e12      # outside the tensor cores
 FRAMES_DEFAULT = 8
 MAIN_M = 64 * 64 * 96        # points per decoder pass at 64^2 rays x 96 samples
+ORBIT_FRAMES = 15            # frames per /orbit chunk (GNerfService.frames_per_chunk)
+SHAPE_CHUNK = 1 << 20        # points per shape-sweep chunk (extract_sigma_grid max_batch)
+SHAPE_RES = 256              # voxels per side of the shapes phase (512^3 runs through the CLI)
+SIDE = 512                   # frame side of the full-width model (8XDC output)
 
 
 def log(msg: str) -> None:
@@ -151,6 +170,11 @@ def phase_kernels():
         ("n2_bf16", 2, 5000, 32, 32, 1.0, bf16, 1.0, False),
         ("main_x20_bf16", 1, MAIN_M, 32, 32, 1.0, bf16, 20.0, False),
         ("huge_bf16", 1, 2048, 32, 32, 1.0, bf16, 65536.0, False),
+        # micro-batch of 4 identities; an orbit chunk (15 frames folded
+        # into one point set); a shape-sweep chunk (fp32 planes)
+        ("server_mb4_bf16", 4, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
+        ("orbit_chunk_bf16", 1, ORBIT_FRAMES * MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
+        ("shape_chunk_f32", 1, SHAPE_CHUNK, 32, 32, 1.0, f32, 1.0, True),
     ]
     results = {}
     for name, n, m, c, out_dim, lr, dtype, scale, timed in cases:
@@ -191,15 +215,18 @@ def phase_kernels():
         if not ok:
             raise SystemExit(f"chip_smoke: osg_decode {name} disagrees with its plain version")
         results[name] = row
+        del feats, got, want
+        torch.cuda.empty_cache()
     return results
 
 
 def phase_small():
     """Tiny G rendered on the card vs the same weights on the CPU (fp32,
-    TF32 off). Tolerance atol 1e-4 on [-1, 1] images: cuDNN, cuBLAS and the
-    kernel sum in other orders than the CPU, and the importance resampling
-    and two SR blocks carry those differences through (the CPU parity tests
-    hold the port to the JAX package at the same bound)."""
+    TF32 off), and its fields at 2000 points through `sample_mixed`.
+    Tolerance atol 1e-4 on [-1, 1] images: cuDNN, cuBLAS and the kernel sum
+    in other orders than the CPU, and the importance resampling and two SR
+    blocks carry those differences through (the CPU parity tests hold the
+    port to the JAX package at the same bound)."""
     import torch
 
     from gnerf_tpu_torch.infer.gen_videos import orbit_label
@@ -216,9 +243,12 @@ def phase_small():
         g.requires_grad_(False)
         z = torch.randn((1, 32), generator=torch.Generator().manual_seed(4)).to(dev)
         c = orbit_label(2, 8, "ffhq", g.rendering_kwargs).to(dev)
+        pts = (torch.rand((1, 2000, 3), generator=torch.Generator().manual_seed(5)) - 0.5).to(dev)
         with torch.inference_mode():
             outs[dev] = {k: v.float().cpu() for k, v in g.apply(z, c).items()}
-    for k in ("image", "image_raw", "image_depth"):
+            mixed = g.sample_mixed(pts, torch.zeros_like(pts), g.mapping(z, c))
+        outs[dev].update({f"sample_mixed_{k}": mixed[k].cpu() for k in ("sigma", "rgb")})
+    for k in outs["cpu"]:
         err = (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
         log(f"[small] {k} {tuple(outs['cuda'][k].shape)} cuda vs cpu max_abs_err={err:.3e} "
             "(atol 1e-4)")
@@ -327,6 +357,279 @@ def phase_timing(frames: int, profile: Optional[str]):
         log("[profile] one frame, top device ops:\n" + "\n".join(table.splitlines()[:18]))
 
 
+def _smooth_photo(h: int, w: int, seed: int):
+    """Low-frequency synthetic RGB photo [h, w, 3] uint8."""
+    import numpy as np
+    from PIL import Image
+
+    small = np.random.RandomState(seed).randint(0, 256, (h // 16 + 2, w // 16 + 2, 3), np.uint8)
+    return np.asarray(Image.fromarray(small).resize((w, h), Image.BILINEAR))
+
+
+def _face_landmarks(cx: float, cy: float, iod: float):
+    """68 points whose eye rings and mouth corners (the only points the
+    FFHQ alignment reads) sit on an upright face centred at (cx, cy)."""
+    import numpy as np
+
+    lm = np.tile([cx, cy + 0.6 * iod], (68, 1)).astype(np.float64)
+    ring = np.stack([3 * np.cos(np.linspace(0, 2 * np.pi, 6, False)),
+                     1.5 * np.sin(np.linspace(0, 2 * np.pi, 6, False))], -1)
+    lm[36:42] = ring + [cx - iod / 2, cy]
+    lm[42:48] = ring + [cx + iod / 2, cy]
+    lm[48] = [cx - 0.35 * iod, cy + 1.1 * iod]
+    lm[54] = [cx + 0.35 * iod, cy + 1.1 * iod]
+    return lm
+
+
+def _png_b64(arr) -> str:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def phase_server():
+    """GNerfService at full width (seed-init weights, bf16, 96+96, 8XDC to
+    512^2, micro-batches of 4) behind a loopback ThreadingHTTPServer. The
+    concurrent burst is sent up to 8 times, until 2 batches of 4 have
+    formed (the first batch of 4 pays the first-call cost of that shape, so
+    the second one is the warm reading; a burst whose requests miss the 4 ms
+    window forms smaller batches). Every burst's frames must be within +-1
+    per uint8 pixel of direct single-identity renders: cuDNN may pick other
+    algorithms at batch 4 than at batch 1. osg_decode must launch
+    exactly twice per render batch and twice per orbit chunk."""
+    import numpy as np
+    import torch
+    from http.server import ThreadingHTTPServer
+    from PIL import Image
+
+    from gnerf_tpu_torch.infer import gen_videos as gv
+    from gnerf_tpu_torch.infer.server import GNerfService, make_handler
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.utils import camera
+
+    g, enc = gv.load_networks(None, seed_init=0, device="cuda")
+    service = GNerfService(g, enc, microbatch=4, device="cuda")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, payload, expect=200):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code, body, ctype = r.status, r.read(), r.headers["Content-Type"]
+        except urllib.error.HTTPError as err:
+            code, body, ctype = err.code, err.read(), err.headers["Content-Type"]
+        if code != expect:
+            raise SystemExit(f"chip_smoke: {path} answered {code} (want {expect}): {body[:200]}")
+        return body, ctype, (time.perf_counter() - t0) * 1e3
+
+    def frame_of(body):
+        return np.asarray(Image.open(io.BytesIO(body)))
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        osg_decode.launches = 0
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            if not json.loads(r.read())["ok"]:
+                raise SystemExit("chip_smoke: /healthz is not ok")
+        enc_ms, ids = [], []
+        for seed in range(4):
+            body, _, ms = post("/encode", {"seed": seed})
+            ids.append(json.loads(body)["identity"])
+            enc_ms.append(ms)
+        body, _, ms = post("/encode", {"image": _png_b64(_smooth_photo(512, 512, 1))})
+        enc_ms.append(ms)
+        photo_id = json.loads(body)["identity"]
+        body, _, ms = post("/encode", {"image": _png_b64(_smooth_photo(480, 640, 2)),
+                                       "landmarks": _face_landmarks(320, 210, 90).tolist(),
+                                       "align_size": 512})
+        enc_ms.append(ms)
+        ids.append(json.loads(body)["identity"])
+        log(f"[server] /encode x{len(enc_ms)} (4 seeds, a 512^2 PNG, a 640x480 photo + "
+            f"landmarks): median_ms={statistics.median(enc_ms):.3f} max_ms={max(enc_ms):.3f} "
+            f"(first call included; in order {', '.join(f'{x:.3f}' for x in enc_ms)})")
+
+        render_ms = []
+        for i in range(8):
+            body, ctype, ms = post("/render", {"identity": ids[i % 2], "yaw": 1.2 + 0.1 * i})
+            f = frame_of(body)
+            if ctype != "image/png" or f.shape != (SIDE, SIDE, 3) or f.std() == 0:
+                raise SystemExit(f"chip_smoke: /render gave {ctype} {f.shape}")
+            render_ms.append(ms)
+        direct_frame_ms = []
+        for i in range(8):  # the same requests without HTTP and PNG encoding
+            t0 = time.perf_counter()
+            service.render_frame(ids[i % 2], yaw=1.2 + 0.1 * i)
+            direct_frame_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"[server] /render x8 sequential: median_ms={statistics.median(render_ms):.3f} "
+            f"max_ms={max(render_ms):.3f} (first call included; each waits the 4 ms window); "
+            f"render_frame without HTTP/PNG: median_ms={statistics.median(direct_frame_ms):.3f} "
+            f"max_ms={max(direct_frame_ms):.3f}")
+
+        poses = [(1.3, 1.5), (1.6, 1.7), (1.9, 1.4), (1.45, 1.6)]
+        burst_ids = ids[:3] + [photo_id]
+        burst_ms, worst, formed = [], 0, 0
+        for attempt in range(8):
+            got, errs = [None] * 4, []
+            before = service.batch_sizes[4]
+
+            def client(k):
+                try:
+                    got[k] = frame_of(post("/render", {"identity": burst_ids[k],
+                                                        "yaw": poses[k][0],
+                                                        "pitch": poses[k][1]})[0])
+                except BaseException as e:  # noqa: BLE001
+                    errs.append(e)
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            burst_ms.append((time.perf_counter() - t0) * 1e3)
+            if errs:
+                raise SystemExit(f"chip_smoke: concurrent /render failed: {errs[0]!r}")
+            for k in range(4):
+                ws, planes = service._get(burst_ids[k])
+                c = camera.pose_to_label(camera.lookat_sample(*poses[k], radius=2.7),
+                                         camera.FFHQ_INTRINSICS).cuda()
+                want = service._run_frame_batch([(ws, planes, c)])[0]
+                worst = max(worst, int(np.abs(got[k].astype(int) - want.astype(int)).max()))
+            formed += service.batch_sizes[4] > before
+            if formed == 2:  # the first batch of 4 includes the shapes' first-call cost
+                break
+        else:
+            raise SystemExit("chip_smoke: 4 concurrent /render did not form 2 batches of 4")
+        log(f"[server] /render x4 concurrent on 4 identities: 2 batches of 4 in {attempt + 1} "
+            f"bursts, wall_ms={burst_ms[-1]:.3f} (every burst: "
+            f"{', '.join(f'{x:.3f}' for x in burst_ms)}), max |batched - direct|={worst} "
+            f"(bound 1)")
+        if worst > 1:
+            raise SystemExit("chip_smoke: micro-batched frames differ from direct renders by > 1")
+
+        orbit_ms = []
+        for _ in range(2):
+            body, ctype, ms = post("/orbit", {"identity": ids[0], "frames": 30})
+            if ctype != "video/avi" or body[:4] != b"RIFF" or b"MJPG" not in body:
+                raise SystemExit(f"chip_smoke: /orbit gave {ctype} {body[:16]!r}")
+            orbit_ms.append(ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = service.render_orbit(ids[0], frames=30)
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        if len(frames) != 30 or frames[0].shape != (SIDE, SIDE, 3) or frames[7].std() == 0:
+            raise SystemExit("chip_smoke: render_orbit gave bad frames")
+        post("/orbit", {"identity": ids[0], "frames": 100000}, expect=400)
+        post("/render", {"identity": "nope"}, expect=404)
+        post("/orbit", {"identity": "nope", "frames": 2}, expect=404)
+        torch.cuda.synchronize()
+        launches = osg_decode.launches
+        batches = dict(service.batch_sizes)
+        want_launches = 2 * sum(batches.values()) + 2 * 3 * 2  # + 3 orbits of 2 chunks
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    log(f"[server] /orbit 30 frames (MJPEG over HTTP): {30e3 / orbit_ms[0]:.3f} / "
+        f"{30e3 / orbit_ms[1]:.3f} frames/s (first, second call); render_orbit without "
+        f"HTTP/JPEG: {30e3 / direct_ms:.3f} frames/s; chunks of {service.frames_per_chunk}")
+    log(f"[server] osg_decode launches={launches} (want {want_launches}: 2 per render batch, "
+        f"batches by size {batches}, 2 per orbit chunk) max_memory_allocated={peak} bytes")
+    if launches != want_launches:
+        raise SystemExit(f"chip_smoke: server path launched osg_decode {launches} times, "
+                         f"want {want_launches}")
+    return launches
+
+
+def phase_shapes():
+    """`generate_videos` with --gen_shapes at full width: 2 frames, then the
+    fp32 sigma sweep. The volume reads back with the right shape, finite and
+    not constant inside the border mask; marching tetrahedra at the middle of
+    its range gives a mesh with faces. A second sweep of the same identity
+    is timed alone."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.infer import gen_videos as gv
+    from gnerf_tpu_torch.infer import shape_utils
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+
+    shape_res = SHAPE_RES
+    chunks = -(-shape_res ** 3 // SHAPE_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        osg_decode.launches = 0
+        t0 = time.perf_counter()
+        res = gv.generate_videos(None, seed_init=0, frames=2, gen_shapes=True,
+                                 shape_res=shape_res, video_out_path=tmp, outdir=tmp,
+                                 device="cuda")
+        wall = time.perf_counter() - t0
+        launches = osg_decode.launches
+        vol = shape_utils.read_mrc(res["mrc"])
+        pad, pad_top = int(30 * shape_res / 256), int(38 * shape_res / 256)
+        inner = vol[pad:-pad, pad:-pad_top, pad:-pad]
+        lo, hi = float(inner.min()), float(inner.max())
+        t1 = time.perf_counter()
+        verts, faces = shape_utils.marching_tetrahedra(vol, level=(lo + hi) / 2)
+        ply = os.path.join(tmp, "shape.ply")
+        shape_utils.write_ply(ply, verts, faces)
+        mesh_s = time.perf_counter() - t1
+        ply_bytes = os.path.getsize(ply)
+    log(f"[shapes] generate_videos(gen_shapes) {shape_res}^3: {wall:.2f} s (2 frames + sweep, "
+        f"first call); osg_decode launches={launches} (want {2 * 2} + {chunks}); volume "
+        f"{vol.shape} finite={bool(np.isfinite(vol).all())} inside mask [{lo:.4g}, {hi:.4g}]; "
+        f"mesh at {(lo + hi) / 2:.4g}: {len(verts)} vertices, {len(faces)} faces, "
+        f"{ply_bytes} PLY bytes, {mesh_s:.2f} s on the host")
+    if vol.shape != (shape_res,) * 3 or not np.isfinite(vol).all() or not hi > lo:
+        raise SystemExit("chip_smoke: bad sigma volume")
+    if len(faces) == 0 or launches != 2 * 2 + chunks:
+        raise SystemExit(f"chip_smoke: {len(faces)} faces, {launches} osg_decode launches")
+
+    g, enc = gv.load_networks(None, seed_init=0, device="cuda")
+    ws, _ = gv.prepare_identity(g, enc, gv._load_images(None, None))
+    shape_utils.extract_sigma_grid(g, ws[:1], voxel_resolution=64, cube_length=1.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    osg_decode.launches = 0
+    t0 = time.perf_counter()
+    again = shape_utils.extract_sigma_grid(g, ws[:1], voxel_resolution=shape_res,
+                                           cube_length=g.rendering_kwargs["box_warp"])
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    sweep_launches = osg_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    from gnerf_tpu_torch.render.renderer import run_model
+
+    with torch.inference_mode():  # one chunk of the sweep loop, on the device timeline
+        planes = g.backbone_planes(ws[:1], noise_mode="const")
+        opts = dict(g.rendering_kwargs)
+
+        def chunk():
+            coords = shape_utils.grid_points(shape_res, 0, SHAPE_CHUNK, 1.0,
+                                             device=planes.device)[None]
+            dirs = torch.zeros_like(coords)
+            dirs[..., 2] = -1.0
+            return run_model(planes, g.decoder, coords, dirs, opts)["sigma"]
+
+        chunk_ms = cuda_ms(chunk, iters=10, warmup=2)
+    log(f"[shapes] extract_sigma_grid {shape_res}^3 alone: total_ms={sweep_ms:.3f} "
+        f"({chunks} chunks of {SHAPE_CHUNK} points, planes built once, volume copied to the "
+        f"host; {sweep_ms / chunks:.3f} ms per chunk) one chunk on the device: "
+        f"chunk_ms={chunk_ms:.3f} launches={sweep_launches} max_memory_allocated={peak} bytes; "
+        f"max |again - first|={float(np.abs(again - vol).max()):.3e}")
+    if sweep_launches != chunks or not np.allclose(again, vol, rtol=1e-4, atol=1e-5):
+        raise SystemExit("chip_smoke: the sweep is not repeatable or launched wrongly")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -343,18 +646,23 @@ def main(argv=None) -> int:
     phase_build()
     kern = phase_kernels()
     phase_small()
-    launches = phase_main(args.frames)
+    launches = {"main": phase_main(args.frames)}
     phase_timing(args.frames, args.profile)
+    launches["server"] = phase_server()
+    launches["shapes"] = phase_shapes()
 
     main_row = kern["main_bf16"]
+    timed = ("server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32")
     print(json.dumps({"kernels": [{
         "name": "osg_decode", "route": "cuda",
         "source": "gnerf_tpu_torch/csrc/osg_decode.cu",
         "replaces": "gnerf_tpu/ops/fused_decoder.py:45",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "launches": launches["main"], "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "launches_by_path": launches,
+        "shapes": {k: kern[k] for k in timed},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

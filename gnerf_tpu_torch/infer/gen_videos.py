@@ -5,8 +5,9 @@ identity photo(s) with E, map to ws and build the tri-planes ONCE, then
 render the camera orbit frame by frame (8 frames per host round trip, uint8
 conversion on the device) and write `<name>.mp4` + `<name>_raw.mp4` (or the
 fallback formats of `video_io`). Sampling density is doubled at load, as in
-the reference. Real-photo decoding with alignment and `--gen_shapes` come in
-a later slice and raise `NotImplementedError` until then.
+the reference. Photos are decoded with PIL and resized (bilinear) to 512^2,
+or FFHQ-aligned first when `--align_lm` names a folder of landmark files;
+`--gen_shapes true` also writes the sigma volume `<outdir>/<name>/<frames-1>.mrc`.
 
     python -m gnerf_tpu_torch.infer.gen_videos --seed-init 0 --frames 8
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import time
 from typing import Optional
 
 import click
@@ -28,16 +30,29 @@ from ..utils.device import resolve_device
 CHUNK = 8  # frames per device -> host copy
 
 
+def _find_landmarks(align_lm: str, img_path: str) -> Optional[str]:
+    """Per-image landmark file `<align_lm>/<stem>.{json,npy,txt}`, or None."""
+    stem = os.path.splitext(os.path.basename(img_path))[0]
+    for ext in (".json", ".npy", ".txt"):
+        p = os.path.join(align_lm, stem + ext)
+        if os.path.isfile(p):
+            return p
+    return None
+
+
 def _load_images(id_image: Optional[str], prepared: Optional[str],
                  align_lm: str = "", size: int = 512) -> np.ndarray:
     """Identity photos -> [N, 3, size, size] uint8.
 
     With no photo, a deterministic synthetic identity (as the JAX CLI's
-    --seed-init smoke runs). Photos are decoded with PIL when it is
-    installed and must already be size x size crops; resizing and landmark
-    alignment need the native loader, which is not ported yet."""
-    if align_lm:
-        raise NotImplementedError("landmark alignment (--align_lm) is not ported yet")
+    --seed-init smoke runs). A photo with a landmark file in `align_lm` is
+    FFHQ-aligned to a size^2 crop; any other photo is resized to size^2 with
+    PIL's bilinear filter (the JAX package's decoder without its native
+    library)."""
+    from PIL import Image
+
+    from ..utils.alignment import align_face, load_landmarks
+
     if prepared:
         paths = sorted(os.path.join(prepared, f) for f in os.listdir(prepared)
                        if f.endswith(".jpg") or f.endswith(".png"))
@@ -46,19 +61,15 @@ def _load_images(id_image: Optional[str], prepared: Optional[str],
             0, 256, size=(1, 3, size, size), dtype=np.uint8).astype(np.uint8)
     else:
         paths = [id_image]
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise NotImplementedError(
-            "decoding photos needs PIL or the native loader (not ported yet)") from e
     imgs = []
     for p in paths:
-        img = np.asarray(Image.open(p).convert("RGB"))
-        if img.shape[:2] != (size, size):
-            raise NotImplementedError(
-                f"{p} is {img.shape[1]}x{img.shape[0]}; resizing to {size}^2 needs the "
-                "native loader, which is not ported yet")
-        imgs.append(img.transpose(2, 0, 1)[None])
+        img = Image.open(p).convert("RGB")
+        lm_path = _find_landmarks(align_lm, p) if align_lm else None
+        if lm_path is not None:
+            img = align_face(np.asarray(img), load_landmarks(lm_path), output_size=size)
+        elif img.size != (size, size):
+            img = img.resize((size, size), Image.BILINEAR)
+        imgs.append(np.asarray(img).transpose(2, 0, 1)[None])
     return np.concatenate(imgs, axis=0)
 
 
@@ -98,10 +109,12 @@ def u8(img: torch.Tensor) -> torch.Tensor:
     return (img.float() * 127.5 + 128).clamp(0, 255).to(torch.uint8)
 
 
-def load_networks(network: Optional[str], seed_init: Optional[int] = None, device=None):
+def load_networks(network: Optional[str], seed_init: Optional[int] = None, device=None,
+                  double_sampling: bool = True):
     """(G, E) for inference, from an npz checkpoint or random init from
-    `seed_init`; G's sampling density is doubled, as the reference does at
-    inference. Parameters are frozen."""
+    `seed_init`. G comes from `G_ema` (else `G`); E is None when the
+    checkpoint has none. `double_sampling` doubles G's samples per ray, as
+    the reference does at inference. Parameters are frozen."""
     from ..models import ResNeXt50Encoder, TriPlaneGenerator
     from ..utils import checkpoint as ckpt
 
@@ -109,29 +122,34 @@ def load_networks(network: Optional[str], seed_init: Optional[int] = None, devic
     if network:
         trees, config = ckpt.load_checkpoint(network)
         config = config or {}
-        g = TriPlaneGenerator(**config.get("generator", {}), device="cpu")
-        # The port also reads an optional `encoder` entry (e.g. `layers`).
-        enc = ResNeXt50Encoder(out_dim=g.z_dim, **config.get("encoder", {}), device="cpu")
-        ckpt.load_jax_params(g, trees["G_ema"])
-        state_e = trees.get("E_state")
-        if state_e is None:  # default BN statistics
-            state_e = {k: v for k, v in ckpt.module_params(enc).items()
-                       if k.endswith(("/mean", "/var"))}
-        ckpt.load_jax_params(enc, trees["E"], state_e)
-        g.to(device)
-        enc.to(device)
+        gen_cfg = dict(config.get("generator") or {})
+        if gen_cfg.get("rendering_kwargs"):  # JSON lists back to tuples
+            gen_cfg["rendering_kwargs"] = {k: tuple(v) if isinstance(v, list) else v
+                                           for k, v in gen_cfg["rendering_kwargs"].items()}
+        g = TriPlaneGenerator(**gen_cfg, device="cpu")
+        ckpt.load_jax_params(g, trees.get("G_ema", trees.get("G")))
+        enc = None
+        if "E" in trees:
+            # The port also reads an optional `encoder` entry (e.g. `layers`).
+            enc = ResNeXt50Encoder(out_dim=g.z_dim, **config.get("encoder", {}), device="cpu")
+            state_e = trees.get("E_state")
+            if state_e is None:  # default BN statistics
+                state_e = {k: v for k, v in ckpt.module_params(enc).items()
+                           if k.endswith(("/mean", "/var"))}
+            ckpt.load_jax_params(enc, trees["E"], state_e)
     else:
         if seed_init is None:
             raise ValueError("--network or --seed-init required")
-        g = TriPlaneGenerator(device=device,
-                              generator=torch.Generator().manual_seed(seed_init))
-        enc = ResNeXt50Encoder(out_dim=g.z_dim, device=device,
+        g = TriPlaneGenerator(device="cpu", generator=torch.Generator().manual_seed(seed_init))
+        enc = ResNeXt50Encoder(out_dim=g.z_dim, device="cpu",
                                generator=torch.Generator().manual_seed(seed_init + 1))
-    rk = g.rendering_kwargs
-    rk["depth_resolution"] = int(rk["depth_resolution"] * 2)
-    rk["depth_resolution_importance"] = int(rk["depth_resolution_importance"] * 2)
-    g.requires_grad_(False).eval()
-    enc.requires_grad_(False).eval()
+    if double_sampling:
+        rk = g.rendering_kwargs
+        rk["depth_resolution"] = int(rk["depth_resolution"] * 2)
+        rk["depth_resolution_importance"] = int(rk["depth_resolution_importance"] * 2)
+    for net in (g, enc):
+        if net is not None:
+            net.to(device).requires_grad_(False).eval()
     return g, enc
 
 
@@ -180,14 +198,15 @@ def generate_videos(
 ) -> dict:
     """Render the orbit video(s). Runs on CUDA unless `device` names another
     device. Returns {'video', 'video_raw': output paths, 'frames',
-    'frames_raw': uint8 [F, H, W * n_ids, 3], 'finite': bool}."""
+    'frames_raw': uint8 [F, H, W * n_ids, 3], 'finite': bool} and, with
+    `gen_shapes`, 'mrc': the sigma volume's path."""
     from .video_io import VideoWriter
 
-    if gen_shapes:
-        raise NotImplementedError("--gen_shapes (shape extraction) is not ported yet")
     device = resolve_device(device)
     id_images = _load_images(id_image, prepared, align_lm=align_lm)
     g, enc = load_networks(network, seed_init, device)
+    if enc is None:
+        raise ValueError(f"{network} holds no encoder E")
     if ray_shards > 1:
         print(f"--ray_shards {ray_shards} ignored: single device attached")
     dtype = torch.float32 if fp32 else torch.bfloat16
@@ -227,9 +246,22 @@ def generate_videos(
     writer.close()
     writer_raw.close()
     print(f"wrote {writer.output_path} ({frames} frames)")
-    return {"video": writer.output_path, "video_raw": writer_raw.output_path,
-            "frames": np.concatenate(all_imgs), "frames_raw": np.concatenate(all_raws),
-            "finite": bool(finite.item())}
+    result = {"video": writer.output_path, "video_raw": writer_raw.output_path,
+              "frames": np.concatenate(all_imgs), "frames_raw": np.concatenate(all_raws),
+              "finite": bool(finite.item())}
+
+    if gen_shapes:  # the first identity's sigma volume, fp32 planes
+        from .shape_utils import extract_sigma_grid, write_mrc
+
+        t0 = time.perf_counter()
+        sigmas = extract_sigma_grid(g, ws[:1], voxel_resolution=shape_res,
+                                    cube_length=g.rendering_kwargs["box_warp"], device=device)
+        secs = time.perf_counter() - t0
+        os.makedirs(os.path.join(outdir, name), exist_ok=True)
+        result["mrc"] = os.path.join(outdir, name, f"{frames - 1}.mrc")
+        write_mrc(result["mrc"], sigmas)
+        print(f"wrote {result['mrc']} ({shape_res}^3 sigma volume, swept in {secs:.3f} s)")
+    return result
 
 
 @click.command()
@@ -250,7 +282,9 @@ def generate_videos(
 @click.option("--label_path", default=None,
               help="JSON of 25-dim camera labels to render instead of the orbit")
 @click.option("--ray_shards", type=int, default=1, help="Ignored: one device")
-@click.option("--align_lm", default="", help="Landmark folder (not ported yet)")
+@click.option("--align_lm", default="",
+              help="Folder of per-image 68-pt landmark files (<stem>.json/.npy/.txt); "
+                   "photos with landmarks are FFHQ-aligned before encoding")
 @click.option("--device", default=None, help="Device to run on (default: cuda)")
 def main(**kwargs):
     generate_videos(**kwargs)

@@ -1,16 +1,16 @@
-"""Networks: the tri-plane generator G, its StyleGAN2 parts, the 8XDC
-superresolution module and the ResNeXt50 encoder E."""
+"""Networks: the tri-plane generator G, its StyleGAN2 parts, the
+superresolution modules and the ResNeXt50 encoder E."""
 
 from .encoder import ResNeXt50Encoder
 from .stylegan2 import (Conv2dLayer, FullyConnectedLayer, Generator, MappingNetwork,
                         SynthesisBlock, SynthesisLayer, SynthesisNetwork, ToRGBLayer,
                         modulated_conv2d, normalize_2nd_moment)
-from .superresolution import SuperresolutionHybrid8XDC, make_superresolution
+from .superresolution import SR_REGISTRY, SuperresolutionHybrid8XDC, make_superresolution
 from .triplane import DEFAULT_RENDERING_KWARGS, OSGDecoder, TriPlaneGenerator
 
 __all__ = [
     "Conv2dLayer", "DEFAULT_RENDERING_KWARGS", "FullyConnectedLayer", "Generator",
-    "MappingNetwork", "OSGDecoder", "ResNeXt50Encoder", "SuperresolutionHybrid8XDC",
+    "MappingNetwork", "OSGDecoder", "ResNeXt50Encoder", "SR_REGISTRY", "SuperresolutionHybrid8XDC",
     "SynthesisBlock", "SynthesisLayer", "SynthesisNetwork", "ToRGBLayer", "TriPlaneGenerator",
     "make_superresolution", "modulated_conv2d", "normalize_2nd_moment",
 ]

@@ -1,10 +1,11 @@
 """TriPlaneGenerator: the flagship model (network G), as a PyTorch module.
 
 Port of `gnerf_tpu/models/triplane.py`: StyleGAN2 backbone emitting a
-256x256x96 tri-plane, two-pass volume renderer, OSG decoder MLP and the
-8XDC superresolution module. As in the JAX package the plane cache is the
-explicit split `backbone_planes()` (once per identity) / `render_planes()`
-(once per frame).
+256x256x96 tri-plane, two-pass volume renderer, OSG decoder MLP and a
+superresolution module (8XDC by default). As in the JAX package the plane
+cache is the explicit split `backbone_planes()` (once per identity) /
+`render_planes()` (once per frame); `sample_mixed()` / `sample()` evaluate
+the fields at arbitrary points.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from torch import nn
 
 from ..ops.fused_decoder import osg_decode
 from ..render.ray_sampler import sample_rays
-from ..render.renderer import render_rays
+from ..render.renderer import render_rays, run_model
 from ..utils.device import resolve_device
 from .stylegan2 import FullyConnectedLayer, Generator
 from .superresolution import make_superresolution
@@ -181,6 +182,20 @@ class TriPlaneGenerator(nn.Module):
                                   neural_rendering_resolution=neural_rendering_resolution,
                                   noise_mode=noise_mode, rng=rng, dtype=dtype,
                                   rendering_kwargs=rendering_kwargs)
+
+    def sample_mixed(self, coordinates, directions, ws, noise_mode="const", rng=None,
+                     dtype=torch.float32) -> dict[str, torch.Tensor]:
+        """sigma and rgb features at arbitrary points [N, M, 3] given ws (the
+        backbone runs again; the shape sweep caches its planes instead)."""
+        planes = self.backbone_planes(ws, noise_mode=noise_mode, rng=rng, dtype=dtype)
+        return run_model(planes, self.decoder, coordinates, directions,
+                         self.rendering_kwargs, rng)
+
+    def sample(self, coordinates, directions, z, c, truncation_psi=1.0,
+               truncation_cutoff=None, noise_mode="const", rng=None) -> dict[str, torch.Tensor]:
+        """Like `sample_mixed`, from z and the conditioning pose c."""
+        ws = self.mapping(z, c, truncation_psi, truncation_cutoff)
+        return self.sample_mixed(coordinates, directions, ws, noise_mode=noise_mode, rng=rng)
 
     def apply(self, z, c, truncation_psi=1.0, truncation_cutoff=None,
               neural_rendering_resolution=None, noise_mode="const", rng=None,

@@ -13,6 +13,7 @@ fp32 features the CUDA-core kernel; see the kernel source for the design.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -83,7 +84,8 @@ def osg_decode(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
     """[N, 3, M, C] features (fp32 or bf16) -> [N, M, D] fp32 [sigma | rgb].
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    `osg_decode_ref`. `osg_decode.launches` counts kernel launches."""
+    `osg_decode_ref`. `osg_decode.launches` counts kernel launches, from
+    every thread (the server launches from several)."""
     _check(feats, w1e, b1e, w2e, b2e)
     if feats.device.type == "cpu":
         return osg_decode_ref(feats, w1e, b1e, w2e, b2e)
@@ -100,8 +102,10 @@ def osg_decode(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
                  int(feats.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"osg_decode kernel launch failed: CUDA error {err}")
-    osg_decode.launches += 1
+    with _count_lock:
+        osg_decode.launches += 1
     return out
 
 
+_count_lock = threading.Lock()
 osg_decode.launches = 0

@@ -45,6 +45,9 @@ def sample_from_planes(plane_features: torch.Tensor, coordinates: torch.Tensor,
     narrowed) and the result is rounded once to the planes' dtype."""
     n, n_planes, c, h, w = plane_features.shape
     m = coordinates.shape[1]
+    if coordinates.shape[0] != n:
+        raise ValueError(f"planes batch {n} does not fit coordinates batch "
+                         f"{coordinates.shape[0]} (run_model shares one identity's planes)")
     uv = project_onto_planes((2.0 / box_warp) * coordinates.float())  # [N, 3, M, 2]
     planes = plane_features.reshape(n * n_planes, c, h, w).float()
     out = F.grid_sample(planes, uv.reshape(n * n_planes, m, 1, 2), mode="bilinear",
@@ -57,7 +60,16 @@ def run_model(plane_features: torch.Tensor, decoder: Decoder,
               sample_coordinates: torch.Tensor, sample_directions: torch.Tensor,
               options: Mapping[str, Any], rng: Optional[torch.Generator] = None
               ) -> dict[str, torch.Tensor]:
-    """Tri-plane lookup + decoder at arbitrary 3D points."""
+    """Tri-plane lookup + decoder at arbitrary 3D points [N, M, 3].
+
+    Planes of one identity (N = 1) with F > 1 point sets fold the sets into
+    the point axis: one lookup and one decoder call over F*M points, the
+    outputs unfolded to [F, M, ...]."""
+    f, m = sample_coordinates.shape[:2]
+    if plane_features.shape[0] == 1 and f > 1:
+        out = run_model(plane_features, decoder, sample_coordinates.reshape(1, f * m, 3),
+                        sample_directions.reshape(1, f * m, 3), options, rng)
+        return {k: v.reshape(f, m, *v.shape[2:]) for k, v in out.items()}
     feats = sample_from_planes(plane_features, sample_coordinates, box_warp=options["box_warp"])
     out = dict(decoder(feats, sample_directions))
     noise = options.get("density_noise", 0)

@@ -62,6 +62,12 @@ def lookat_sample_srn(horizontal_mean: float, vertical_mean: float, radius: floa
     return create_cam2world_matrix_srn(normalize_vecs(-origins), origins)
 
 
+def fov_to_intrinsics(fov_degrees: float) -> torch.Tensor:
+    """Normalized 3x3 intrinsics from the field of view in degrees."""
+    focal = 1.0 / (math.tan(fov_degrees * 3.14159 / 360) * 1.414)
+    return torch.tensor([[focal, 0.0, 0.5], [0.0, focal, 0.5], [0.0, 0.0, 1.0]])
+
+
 FFHQ_INTRINSICS = torch.tensor([[4.2647, 0.0, 0.5], [0.0, 4.2647, 0.5], [0.0, 0.0, 1.0]])
 SHAPENET_INTRINSICS = torch.tensor(
     [[1.025390625, 0.0, 0.5], [0.0, 1.025390625, 0.5], [0.0, 0.0, 1.0]])

@@ -25,3 +25,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def module_device(module: torch.nn.Module,
+                  device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device `module` lives on, which must be of the type the caller
+    asked for (under `resolve_device`'s rules: CUDA unless named)."""
+    want = resolve_device(device)
+    have = next(module.parameters()).device
+    if have.type != want.type:
+        raise ValueError(f"the model lives on {have}, the call asks for {want}")
+    return have

@@ -204,6 +204,8 @@ CARD_CASES = {
     "bf16_m5003": ("bfloat16", 1, 5003, 32, 32, 1.0, 1.0),      # tail rows not a multiple of 4
     "bf16_n2": ("bfloat16", 2, 5000, 32, 32, 1.0, 1.0),         # batch stride
     "bf16_x20": ("bfloat16", 1, 64 * 64 * 96, 32, 32, 1.0, 20.0),  # main shape, saturating
+    "bf16_server_mb4": ("bfloat16", 4, 64 * 64 * 96, 32, 32, 1.0, 1.0),  # micro-batch of 4
+    "f32_shape_chunk": ("float32", 1, 1 << 20, 32, 32, 1.0, 1.0),  # shape-sweep chunk
 }
 
 

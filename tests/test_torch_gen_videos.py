@@ -1,7 +1,8 @@
 """The port's orbit-video entry point vs the JAX pipeline, end to end on a
 tiny model: photo -> encoder -> mapping -> planes -> render -> 8XDC ->
-uint8, three frames, within +-1 per pixel. The port's CLI writes the video
-with the numpy-only backend here."""
+uint8, three frames, within +-1 per pixel; the --gen_shapes volume and the
+photo loading (--align_lm, resize) against the JAX CLI's. The port's CLI
+writes the video with the numpy-only backend here."""
 
 import dataclasses
 import glob
@@ -19,6 +20,16 @@ from gnerf_tpu.models import ResNeXt50Encoder as JEncoder
 from gnerf_tpu.models import TriPlaneGenerator as JGen
 from gnerf_tpu.utils import checkpoint as jckpt
 from gnerf_tpu_torch.infer import gen_videos, video_io
+
+
+def _tiny_checkpoint(tmp_path):
+    gen_cfg = tiny_gen_cfg()
+    params_g = with_noise_strength(JGen(**gen_cfg).init(jax.random.PRNGKey(0)))
+    params_e, state_e = JEncoder(out_dim=32, layers=(1, 1, 1, 1)).init(jax.random.PRNGKey(1))
+    net = str(tmp_path / "tiny.npz")
+    jckpt.save_checkpoint(net, {"G_ema": params_g, "E": params_e, "E_state": state_e},
+                          config={"generator": gen_cfg, "encoder": {"layers": [1, 1, 1, 1]}})
+    return net
 
 
 def _jax_frames(gen_cfg, params_g, params_e, state_e, frames, res):
@@ -47,11 +58,9 @@ def _jax_frames(gen_cfg, params_g, params_e, state_e, frames, res):
 
 def test_orbit_matches_jax_within_one(tmp_path, monkeypatch):
     gen_cfg = tiny_gen_cfg()
-    params_g = with_noise_strength(JGen(**gen_cfg).init(jax.random.PRNGKey(0)))
-    params_e, state_e = JEncoder(out_dim=32, layers=(1, 1, 1, 1)).init(jax.random.PRNGKey(1))
-    net = str(tmp_path / "tiny.npz")
-    jckpt.save_checkpoint(net, {"G_ema": params_g, "E": params_e, "E_state": state_e},
-                          config={"generator": gen_cfg, "encoder": {"layers": [1, 1, 1, 1]}})
+    net = _tiny_checkpoint(tmp_path)
+    trees, _ = jckpt.load_checkpoint(net)
+    params_g, params_e, state_e = trees["G_ema"], trees["E"], trees["E_state"]
 
     monkeypatch.setattr(video_io, "available_backends", lambda: ("npy",))
     out = str(tmp_path / "out")
@@ -106,8 +115,57 @@ def test_video_writer_backends(tmp_path, monkeypatch, backend):
         assert w.output_path.endswith(".avi") and blob[:4] == b"RIFF" and b"MJPG" in blob
 
 
-def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        gen_videos.generate_videos(None, seed_init=0, gen_shapes=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        gen_videos._load_images(None, None, align_lm=str(tmp_path))
+def test_gen_shapes_writes_the_jax_runs_mrc(tmp_path, monkeypatch):
+    """--gen_shapes: the sigma volume at shape_res 16 from the same
+    checkpoint, written to <outdir>/<name>/<frames-1>.mrc by both CLIs."""
+    import functools
+
+    import gnerf_tpu.models
+    from gnerf_tpu.infer.shape_utils import read_mrc as jread_mrc
+    from gnerf_tpu_torch.infer.shape_utils import read_mrc
+
+    net = _tiny_checkpoint(tmp_path)
+    # The JAX CLI builds the full-depth encoder; give it the checkpoint's
+    # (with per-group convolutions, the port's summation order).
+    monkeypatch.setattr(gnerf_tpu.models, "ResNeXt50Encoder", functools.partial(
+        JEncoder, layers=(1, 1, 1, 1), groups_as_dense=False))
+    monkeypatch.setattr(video_io, "available_backends", lambda: ("npy",))
+    common = dict(frames=2, res=8, gen_shapes=True, shape_res=16, fp32=True)
+    jgv.generate_videos(net, video_out_path=str(tmp_path / "jv"), outdir=str(tmp_path / "jax"),
+                        seed_init=None, **common)
+    res = gen_videos.generate_videos(net, video_out_path=str(tmp_path / "pv"),
+                                     outdir=str(tmp_path / "port"), device="cpu", **common)
+    assert res["mrc"] == str(tmp_path / "port" / "seedinit" / "1.mrc")
+    got, want = read_mrc(res["mrc"]), jread_mrc(str(tmp_path / "jax" / "seedinit" / "1.mrc"))
+    assert got.shape == (16, 16, 16) and np.isfinite(got).all() and got.std() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("source", ["prepared", "id_image"])
+def test_align_lm_and_resize_match_jax(tmp_path, monkeypatch, source):
+    """Photos with a landmark file are FFHQ-aligned, others resized with
+    PIL's bilinear filter: the same [N, 3, size, size] uint8 as the JAX
+    CLI's `_load_images` when its native library is absent."""
+    import json
+
+    from PIL import Image
+
+    import gnerf_tpu.utils.native_loader as jnative
+    from test_alignment import _smooth_image, _synthetic_landmarks
+
+    monkeypatch.setattr(jnative, "_LIB", None)
+    photos, lms = tmp_path / "photos", tmp_path / "lms"
+    photos.mkdir()
+    lms.mkdir()
+    Image.fromarray(_smooth_image(256, 256, seed=2)).save(photos / "a_face.png")
+    Image.fromarray(_smooth_image(96, 136, seed=3)).save(photos / "b_odd.png")  # 136 x 96
+    (lms / "a_face.json").write_text(json.dumps(
+        _synthetic_landmarks(cx=128, cy=110, iod=24.0, tilt_deg=10.0).tolist()))
+    kw = (dict(id_image=None, prepared=str(photos)) if source == "prepared"
+          else dict(id_image=str(photos / "b_odd.png"), prepared=None))
+    got = gen_videos._load_images(**kw, align_lm=str(lms), size=64)
+    want = jgv._load_images(**kw, align_lm=str(lms), size=64)
+    assert got.shape == ((2 if source == "prepared" else 1), 3, 64, 64) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert gen_videos._find_landmarks(str(lms), str(photos / "a_face.png")).endswith(".json")
+    assert gen_videos._find_landmarks(str(lms), str(photos / "b_odd.png")) is None

@@ -85,6 +85,40 @@ def test_superresolution_8xdc_matches_jax(in_res):
     np.testing.assert_allclose(to_np(got_img), np.asarray(want_img), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("name,img_res,in_res,out_res", [
+    ("SuperresolutionHybrid8X", 512, 8, 64),
+    ("SuperresolutionHybrid4X", 256, 8, 32),
+    ("SuperresolutionHybrid2X", 128, 8, 16),
+    ("SuperresolutionHybridDeepfp32", 256, 8, 32),
+    ("SuperresolutionHybrid8five", 512, 8, 64),
+    ("SuperresolutionHybrid8five", 512, 16, 64),   # no-interpolate branch
+    ("SuperresolutionHybrid8seven", 512, 8, 64),
+])
+def test_superresolution_variants_match_jax(name, img_res, in_res, out_res):
+    """The other six SR modules, built by (dotted) name through
+    `make_superresolution`, with JAX parameters bridged unchanged."""
+    from gnerf_tpu.models.superresolution import make_superresolution as jmake
+    from gnerf_tpu_torch.models import make_superresolution
+
+    kw = dict(channels=32, img_resolution=img_res, w_dim=16,
+              input_resolution=64 if name.endswith("2X") else 16)
+    jsr = jmake(name, **kw)
+    params = jsr.init(jax.random.PRNGKey(len(name)))
+    sr = make_superresolution("training.superresolution." + name, **kw)
+    assert type(sr).__name__ == name
+    load_jax_params(sr, params)
+    rng = np.random.RandomState(in_res)
+    rgb = rng.randn(1, 3, in_res, in_res).astype(np.float32)
+    x = rng.randn(1, 32, in_res, in_res).astype(np.float32)
+    ws = rng.randn(1, 4, 16).astype(np.float32)
+    want_img, want_raw = jsr.apply(params, jnp.asarray(rgb), jnp.asarray(x), jnp.asarray(ws),
+                                   noise_mode="none")
+    got_img, got_raw = sr(t(rgb), t(x), t(ws), noise_mode="none")
+    assert tuple(got_img.shape) == (1, 3, out_res, out_res)
+    np.testing.assert_allclose(to_np(got_raw), np.asarray(want_raw), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(to_np(got_img), np.asarray(want_img), rtol=1e-4, atol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def encoder_pair():
     jenc = JEncoder(out_dim=24, layers=(1, 1, 1, 1), groups_as_dense=False)

@@ -26,6 +26,8 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import gnerf_tpu_torch, gnerf_tpu_torch.infer.gen_videos, gnerf_tpu_torch.models\n"
         "import gnerf_tpu_torch.ops, gnerf_tpu_torch.render, gnerf_tpu_torch.utils.checkpoint\n"
+        "import gnerf_tpu_torch.infer.server, gnerf_tpu_torch.infer.shape_utils\n"
+        "import gnerf_tpu_torch.infer.crosssection, gnerf_tpu_torch.utils.alignment\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -78,12 +80,63 @@ def _generate_videos(tmp_path):
     return generate_videos(None, seed_init=0, frames=1, video_out_path=str(tmp_path))
 
 
-@pytest.mark.parametrize("entry", ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos"])
+def _service(g):
+    from gnerf_tpu_torch.infer.server import GNerfService
+
+    return GNerfService(g)
+
+
+def _load_service(tmp_path):
+    from gnerf_tpu_torch.infer.server import load_service
+
+    return load_service(str(tmp_path / "g.npz"))
+
+
+def _extract_sigma_grid(g):
+    from gnerf_tpu_torch.infer.shape_utils import extract_sigma_grid
+
+    return extract_sigma_grid(g, torch.zeros((1, g.num_ws, g.w_dim)), voxel_resolution=4)
+
+
+ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
+           "load_service", "extract_sigma_grid"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
+    """No card and no device asked for: every entry point raises before any
+    work. With device="cpu" the service and the sweep run."""
+    from gnerf_tpu_torch.models import TriPlaneGenerator
+
+    g = TriPlaneGenerator(**tiny_gen_cfg(), device="cpu") if entry in ENTRIES[3:] else None
+    if g is not None:
+        from gnerf_tpu_torch.utils import checkpoint
+
+        checkpoint.save_checkpoint(str(tmp_path / "g.npz"), {"G_ema": g},
+                                   config={"generator": tiny_gen_cfg()})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {"TriPlaneGenerator": _tiny_generator, "ResNeXt50Encoder": _encoder,
+             "generate_videos": lambda: _generate_videos(tmp_path),
+             "GNerfService": lambda: _service(g), "load_service": lambda: _load_service(tmp_path),
+             "extract_sigma_grid": lambda: _extract_sigma_grid(g)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        {"TriPlaneGenerator": _tiny_generator, "ResNeXt50Encoder": _encoder,
-         "generate_videos": lambda: _generate_videos(tmp_path)}[entry]()
+        calls[entry]()
+    if entry == "GNerfService":
+        from gnerf_tpu_torch.infer.server import GNerfService
+
+        GNerfService(g, device="cpu").close()
+    elif entry == "load_service":
+        from gnerf_tpu_torch.infer.server import load_service
+
+        svc = load_service(str(tmp_path / "g.npz"), device="cpu")
+        assert svc.device.type == "cpu"
+        svc.close()
+    elif entry == "extract_sigma_grid":
+        from gnerf_tpu_torch.infer.shape_utils import extract_sigma_grid
+
+        vol = extract_sigma_grid(g, torch.zeros((1, g.num_ws, g.w_dim)), voxel_resolution=4,
+                                 device="cpu")
+        assert vol.shape == (4, 4, 4)
 
 
 def test_decoder_wrapper_has_no_silent_fallback():

@@ -2,6 +2,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -116,6 +117,53 @@ def test_unify_samples_is_stable_on_ties():
     got = renderer.unify_samples(*(t(a) for a in (d1, c1, s1, d2, c2, s2)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_np(g), np.asarray(w))
+
+
+def _decoder_pair():
+    jdec = JDecoder(n_features=32, decoder_output_dim=32)
+    params = jdec.init(jax.random.PRNGKey(0))
+    dec = OSGDecoder(n_features=32, decoder_output_dim=32)
+    load_jax_params(dec, params)
+    return lambda f, d: jdec.apply(params, f, d), dec
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_one_identity_planes_across_cameras(bf16):
+    """Planes of one identity [1, 3, C, H, W] under 3 cameras (the orbit
+    chunk's shape): the folded lookup + decode equals 3 single-camera
+    renders (and `run_model` on 3 point sets equals 3 calls), and the JAX
+    packed path that broadcasts n=1 planes."""
+    rng = np.random.RandomState(6)
+    planes = t(rng.randn(1, 3, 32, 16, 16))
+    if bf16:
+        planes = planes.bfloat16()
+    jdecode, dec = _decoder_pair()
+    opts = dict(DEFAULT_RENDERING_KWARGS, depth_resolution=6, depth_resolution_importance=6)
+    cams = [_camera(yaw, pitch) for yaw, pitch in ((0.3, -0.2), (-0.4, 0.1), (0.0, 0.25))]
+    c2w = np.concatenate([c for c, _ in cams])
+    intr = np.concatenate([i for _, i in cams])
+    o, d = ray_sampler.sample_rays(t(c2w), t(intr), 8)
+    got = renderer.render_rays(planes, dec, o, d, opts)
+    singles = [renderer.render_rays(planes, dec, o[i:i + 1], d[i:i + 1], opts) for i in range(3)]
+    for k, name in enumerate(("rgb", "depth", "weight_sum")):
+        want = torch.cat([s[k] for s in singles])
+        torch.testing.assert_close(got[k], want, rtol=1e-5, atol=1e-6, msg=name)
+    pts = t(rng.uniform(-0.6, 0.6, (3, 700, 3)))
+    fields = renderer.run_model(planes, dec, pts, torch.zeros_like(pts), opts)
+    assert tuple(fields["rgb"].shape) == (3, 700, 32)
+    assert tuple(fields["sigma"].shape) == (3, 700, 1)
+    for i in range(3):
+        single = renderer.run_model(planes, dec, pts[i:i + 1], torch.zeros_like(pts[:1]), opts)
+        for k in ("rgb", "sigma"):
+            torch.testing.assert_close(fields[k][i:i + 1], single[k], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="batch"):
+        renderer.sample_from_planes(planes, pts, box_warp=1.0)
+    if bf16:
+        return
+    want = jrend.render_rays(jrend.pack_planes(jnp.asarray(to_np(planes))), jdecode,
+                             jnp.asarray(to_np(o)), jnp.asarray(to_np(d)), opts, rng=None)
+    for name, g, w in zip(("rgb", "depth", "weight_sum"), got, want):
+        np.testing.assert_allclose(to_np(g), np.asarray(w), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("limits", ["fixed", "auto"])
