@@ -102,7 +102,7 @@ def phase_build():
         for line in out.splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(osg_decode_(?:tc|f32))(?:I((?:Li\d+E)+)E)?", entry.group(1))
+                m = re.search(r"(osg_decode_(?:tc|tf32))(?:I((?:Li\d+E)+)E)?", entry.group(1))
                 args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
                 instance = (entry.group(1) if not m else
                             f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1))
@@ -142,13 +142,14 @@ def decode_f64(feats, w1e, b1e, w2e, b2e):
 
 def phase_kernels():
     """osg_decode vs osg_decode_ref on the card. Tolerance rtol 1e-4 /
-    atol 1e-5 for fp32 and bf16 alike: both versions take the same bf16
-    values exactly and sum in fp32 (TF32 off); the bf16 kernel also keeps
-    ~22 bits of h and w2e in its split-fp16 second layer and uses approximate
-    exp2/log2 (tests/test_torch_fused_decoder.py emulates it on the CPU).
-    The x65536 case ("huge_bf16", outputs near 1e5, where fp32 itself rounds
-    by ~2e-2) takes the kernel's per-row scaling; it must be as close to
-    float64 as the plain version is, within a factor 4: the tensor cores'
+    atol 1e-5 for fp32 and bf16 alike: the plain version sums in fp32 (TF32
+    off); the bf16 kernel takes the same bf16 values exactly into fp32 sums,
+    the fp32 kernel keeps ~21-22 bits of its first product in 3xTF32, and
+    both keep ~22 bits of h and w2e in the split-fp16 second layer and use
+    approximate exp2/log2 (tests/test_torch_fused_decoder.py emulates both on
+    the CPU). The x65536 cases ("huge_*", outputs near 1e5, where fp32 itself
+    rounds by ~2e-2) take the kernel's per-row scaling; each must be as close
+    to float64 as the plain version is, within a factor 4: the tensor cores'
     fp32 sums do not round to nearest (an earlier version of the kernel, with
     sigma on the tensor cores too, read 2.1x)."""
     import torch
@@ -160,7 +161,7 @@ def phase_kernels():
     cases = [  # name, N, M, C, out_dim, lr_mul, dtype, feature scale, timed
         ("main_bf16", 1, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("main_f32", 1, MAIN_M, 32, 32, 1.0, f32, 1.0, True),
-        ("ragged_f32", 2, 5000, 32, 32, 1.0, f32, 1.0, False),
+        ("ragged_f32", 2, 5000, 32, 32, 1.0, f32, 1.0, False),  # also the N=2 stride
         ("ragged_bf16", 1, 5000, 32, 32, 1.0, bf16, 1.0, False),
         ("narrow_lr_mul", 1, 4096, 8, 8, 0.5, f32, 1.0, False),
         ("narrow_lr_mul_bf16", 1, 4096, 8, 8, 0.5, bf16, 1.0, False),
@@ -170,6 +171,19 @@ def phase_kernels():
         ("n2_bf16", 2, 5000, 32, 32, 1.0, bf16, 1.0, False),
         ("main_x20_bf16", 1, MAIN_M, 32, 32, 1.0, bf16, 20.0, False),
         ("huge_bf16", 1, 2048, 32, 32, 1.0, bf16, 65536.0, False),
+        ("m1_f32", 1, 1, 32, 32, 1.0, f32, 1.0, False),
+        ("m63_f32", 1, 63, 32, 32, 1.0, f32, 1.0, False),
+        ("m5003_f32", 1, 5003, 32, 32, 1.0, f32, 1.0, False),
+        ("main_x20_f32", 1, MAIN_M, 32, 32, 1.0, f32, 20.0, False),
+        ("huge_f32", 1, 2048, 32, 32, 1.0, f32, 65536.0, False),
+        # fp32 ring rows of 6, 10, 12, 14 and 16 chunks (every swizzle
+        # case), and D > 33 (the kNT2 = 8 instances)
+        ("c24_f32", 1, 5003, 24, 32, 1.0, f32, 1.0, False),
+        ("c40_f32", 1, 5003, 40, 32, 1.0, f32, 1.0, False),
+        ("c48_f32", 1, 5003, 48, 32, 1.0, f32, 1.0, False),
+        ("c56_f32", 1, 5003, 56, 32, 1.0, f32, 1.0, False),
+        ("c64_d49_f32", 1, 5003, 64, 48, 1.0, f32, 1.0, False),
+        ("c64_d49_bf16", 1, 5003, 64, 48, 1.0, bf16, 1.0, False),
         # micro-batch of 4 identities; an orbit chunk (15 frames folded
         # into one point set); a shape-sweep chunk (fp32 planes)
         ("server_mb4_bf16", 4, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
@@ -188,7 +202,7 @@ def phase_kernels():
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         finite = bool(torch.isfinite(got).all())
-        if name == "huge_bf16":
+        if name.startswith("huge_"):
             exact = decode_f64(feats, *weights)
             k_err = (got.double() - exact).abs().max().item()
             p_err = (want.double() - exact).abs().max().item()
@@ -652,7 +666,7 @@ def main(argv=None) -> int:
     launches["shapes"] = phase_shapes()
 
     main_row = kern["main_bf16"]
-    timed = ("server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32")
+    timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32")
     print(json.dumps({"kernels": [{
         "name": "osg_decode", "route": "cuda",
         "source": "gnerf_tpu_torch/csrc/osg_decode.cu",

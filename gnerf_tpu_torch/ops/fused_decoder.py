@@ -4,10 +4,14 @@ Replaces `gnerf_tpu/ops/fused_decoder.py::fused_osg_decode` (Pallas, TPU).
 `osg_decode` launches `csrc/osg_decode.cu` on CUDA tensors and calls the
 plain PyTorch version `osg_decode_ref` on CPU tensors; there is no other
 route. At the main-path shape (one frame pass: N=1, M=64*64*96, C=32, H=64,
-D=33, bf16 features) the call is memory-bound on an H100: 75.5 MB of
-features in and 51.9 MB out, ~38 us at 3.35 TB/s. bf16 features take the
-tensor-core kernel (both products on `mma.sync`, the second in split fp16),
-fp32 features the CUDA-core kernel; see the kernel source for the design.
+D=33) the call is memory-bound on an H100: 75.5 MB of bf16 features (151 MB
+of fp32 ones) in and 51.9 MB out, ~38 us (~61 us) at 3.35 TB/s. Both feature
+types take one tensor-core kernel body with both products on `mma.sync` and
+the second in split fp16; layer 1 is bf16 x bf16 for bf16 features and
+3xTF32 for fp32 ones (the plane sum split into tf32 hi + lo parts, hi.w_hi +
+hi.w_lo + lo.w_hi), which keeps ~21-22 bits, within the fp32 tolerance. That
+is not the TF32 mode that `resolve_device` turns off for torch's own fp32
+products. See the kernel source for the design.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ def osg_decode_ref(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
                    w2e: torch.Tensor, b2e: torch.Tensor) -> torch.Tensor:
     """Plain version: [N, 3, M, C] features -> [N, M, D] fp32 [sigma | rgb].
 
-    Inputs are widened to fp32 exactly (bf16 -> fp32 is lossless). The fp32
-    kernel differs from this only in summation order; the bf16 kernel also
-    rounds h and w2e to fp16 hi/lo pairs (~22 bits kept) and uses approximate
-    exp2/log2, within rtol 1e-4, atol 1e-5 of this."""
+    Inputs are widened to fp32 exactly (bf16 -> fp32 is lossless). The
+    kernel sums in another order, keeps ~21-22 bits of fp32 features in its
+    3xTF32 first product, rounds h and w2e to fp16 hi/lo pairs (~22 bits
+    kept) and uses approximate exp2/log2, within rtol 1e-4, atol 1e-5 of
+    this."""
     f = feats.float()
     w1 = w1e.float()
     acc = f[:, 0] @ w1 + f[:, 1] @ w1 + f[:, 2] @ w1

@@ -1,9 +1,10 @@
 """The port's OSG decoder (`osg_decode` and its plain version) vs the JAX
 Pallas kernel (interpret mode) and the JAX plain decoder, mirroring
-tests/test_fused_decoder.py. The bf16 kernel's arithmetic (tensor-core
-layer 1, split-fp16 layer 2) is emulated on the CPU and held to the plain
-version's tolerance. The CUDA kernel itself is held against the plain
-version on the card (the `cuda` test below, and chip_smoke.py)."""
+tests/test_fused_decoder.py. The kernels' arithmetic (layer 1 in bf16 or in
+3xTF32, split-fp16 layer 2) is emulated on the CPU and held to the plain
+version's tolerance and to the Pallas kernel. The CUDA kernels themselves
+are held against the plain version on the card (the `cuda` tests below, and
+chip_smoke.py)."""
 
 import math
 
@@ -73,20 +74,49 @@ def _split(x, dtype):
     return hi, (x - hi).to(dtype).float()
 
 
+def _tf32(x):
+    """x rounded to tf32 as `cvt.rna.tf32.f32` rounds it: 10 mantissa bits,
+    to nearest, ties away from zero (on the int32 view of fp32)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def _kernel_emulation(feats, w1e, b1e, w2e, b2e, split_dtype=torch.float16):
     """The bf16 kernel's arithmetic (csrc/osg_decode.cu, osg_decode_tc) in
     plain PyTorch: layer 1 as one product of depth 3C (bf16 products, fp32
-    sums); softplus in log2 units (h / ln 2, with ln 2 folded into w2e);
-    sigma as an fp32 dot; the rgb columns as h_hi.w_hi + h_hi.w_lo + h_lo.w_hi
-    with fp16 hi/lo parts of h and of w2e * ln 2 * 2^s (max |w2e| * 2^s in
-    [2^14, 2^15)), and rows whose largest h reaches 2^15 scaled by a power of
-    two first. The kernel sums in another order and takes exp2/log2 from
-    approximate instructions; neither is emulated. `split_dtype` bfloat16
-    emulates the split the kernel does not use."""
-    log2e, ln2 = math.log2(math.e), math.log(2.0)
+    sums), then `_kernel_tail`. `split_dtype` bfloat16 emulates the split the
+    kernel does not use."""
     f = feats.float()
     w1 = w1e.float()
     acc = torch.cat([f[:, 0], f[:, 1], f[:, 2]], dim=-1) @ torch.cat([w1, w1, w1], dim=0)
+    return _kernel_tail(acc, b1e, w2e, b2e, split_dtype)
+
+
+def _kernel_emulation_f32(feats, w1e, b1e, w2e, b2e, passes=3):
+    """The fp32 kernel's arithmetic (osg_decode_tf32) in plain PyTorch: the
+    plane sum (f0 + f1) + f2 in fp32, its tf32 parts hi = rna(s) and
+    lo = rna(s - hi), those of w1e likewise, layer 1 as hi.w_hi + hi.w_lo +
+    lo.w_hi with fp32 sums, then `_kernel_tail`. `passes=1` emulates a single
+    TF32 product hi.w_hi, which the kernel does not use."""
+    f = feats.float()
+    s = (f[:, 0] + f[:, 1]) + f[:, 2]
+    sh = _tf32(s)
+    sl = _tf32(s - sh)
+    wh = _tf32(w1e)
+    wl = _tf32(w1e.float() - wh)
+    acc = sh @ wh if passes == 1 else sh @ wh + sh @ wl + sl @ wh
+    return _kernel_tail(acc, b1e, w2e, b2e)
+
+
+def _kernel_tail(acc, b1e, w2e, b2e, split_dtype=torch.float16):
+    """What both kernels do after layer 1: softplus in log2 units (h / ln 2,
+    with ln 2 folded into w2e); sigma as an fp32 dot; the rgb columns as
+    h_hi.w_hi + h_hi.w_lo + h_lo.w_hi with fp16 hi/lo parts of h and of
+    w2e * ln 2 * 2^s (max |w2e| * 2^s in [2^14, 2^15)), and rows whose
+    largest h reaches 2^15 scaled by a power of two first. The kernels sum in
+    another order and take exp2/log2 from approximate instructions; neither
+    is emulated."""
+    log2e, ln2 = math.log2(math.e), math.log(2.0)
     y = acc * (log2e / 3.0) + b1e * log2e
     h = torch.clamp_min(y, 0.0) + torch.log2(1.0 + torch.exp2(-y.abs()))
     sigma = h @ (w2e[:, :1] * ln2) + b2e[:1]
@@ -101,11 +131,11 @@ def _kernel_emulation(feats, w1e, b1e, w2e, b2e, split_dtype=torch.float16):
     return torch.cat([sigma, rgb], dim=-1)
 
 
-def _bf16_case(n, m, c, out_dim, lr_mul, scale):
+def _case(n, m, c, out_dim, lr_mul, scale, dtype=torch.bfloat16):
     dec = OSGDecoder(n_features=c, decoder_output_dim=out_dim, decoder_lr_mul=lr_mul,
                      generator=torch.Generator().manual_seed(m + c))
-    weights = [w.detach() for w in dec.folded_weights(torch.bfloat16)]
-    feats = t(np.random.RandomState(m).randn(n, 3, m, c) * scale).bfloat16()
+    weights = [w.detach() for w in dec.folded_weights(dtype)]
+    feats = t(np.random.RandomState(m).randn(n, 3, m, c) * scale).to(dtype)
     return feats, weights
 
 
@@ -119,7 +149,7 @@ def _bf16_case(n, m, c, out_dim, lr_mul, scale):
 def test_kernel_arithmetic_holds_tolerance(n, m, c, out_dim, lr_mul, scale):
     """The split-fp16 second layer keeps ~22 bits of h and w2e and holds the
     plain version's tolerance, also at x20 features."""
-    feats, weights = _bf16_case(n, m, c, out_dim, lr_mul, scale)
+    feats, weights = _case(n, m, c, out_dim, lr_mul, scale)
     torch.testing.assert_close(_kernel_emulation(feats, *weights),
                                osg_decode_ref(feats, *weights), **TOL)
 
@@ -127,10 +157,50 @@ def test_kernel_arithmetic_holds_tolerance(n, m, c, out_dim, lr_mul, scale):
 def test_bf16_split_misses_tolerance():
     """Why the second layer splits into fp16 and not bf16 parts: a bf16
     split keeps ~16 bits and leaves the tolerance at x20 features."""
-    feats, weights = _bf16_case(1, 4096, 32, 32, 1.0, 20.0)
+    feats, weights = _case(1, 4096, 32, 32, 1.0, 20.0)
     want = osg_decode_ref(feats, *weights)
     got = _kernel_emulation(feats, *weights, split_dtype=torch.bfloat16)
     assert not torch.allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n,m,c,out_dim,lr_mul,scale", [
+    (1, 4096, 32, 32, 1.0, 1.0),
+    (2, 5000, 32, 32, 1.0, 1.0),    # ragged, batch stride
+    (1, 4096, 32, 32, 1.0, 20.0),   # softplus and sigmoid saturate
+    (2, 5000, 32, 32, 1.0, 20.0),
+    (1, 4096, 8, 8, 0.5, 1.0),      # one k8 step, lr multiplier
+    (1, 4096, 8, 8, 0.5, 20.0),
+])
+def test_f32_kernel_arithmetic_holds_tolerance(n, m, c, out_dim, lr_mul, scale):
+    """3xTF32 keeps ~21-22 bits of the first product and, with the shared
+    split-fp16 second layer, holds the fp32 plain version's tolerance."""
+    feats, weights = _case(n, m, c, out_dim, lr_mul, scale, torch.float32)
+    torch.testing.assert_close(_kernel_emulation_f32(feats, *weights),
+                               osg_decode_ref(feats, *weights), **TOL)
+
+
+@pytest.mark.parametrize("n,m,c,out_dim,lr_mul,scale", [
+    (2, 5000, 32, 32, 1.0, 1.0),
+    (1, 4096, 32, 32, 1.0, 20.0),
+    (1, 4096, 8, 8, 0.5, 20.0),
+])
+def test_f32_kernel_arithmetic_matches_pallas(n, m, c, out_dim, lr_mul, scale):
+    """The fp32 kernel's arithmetic vs the Pallas kernel (interpret mode) on
+    the same fp32 features and parameters."""
+    jdec, params, dec = _pair(c, out_dim, lr_mul, seed=m)
+    feats = (np.random.RandomState(m + 2).randn(n, 3, m, c) * scale).astype(np.float32)
+    want = np.asarray(jdec._apply_fused(params, jnp.asarray(feats), interpret=True))
+    weights = [w.detach() for w in dec.folded_weights(torch.float32)]
+    np.testing.assert_allclose(to_np(_kernel_emulation_f32(t(feats), *weights)), want, **TOL)
+
+
+def test_tf32_single_pass_misses_tolerance():
+    """Why layer 1 takes three TF32 products: one keeps 11 bits of the
+    features and of w1e and leaves the tolerance already at x1 features."""
+    feats, weights = _case(1, 4096, 32, 32, 1.0, 1.0, torch.float32)
+    want = osg_decode_ref(feats, *weights)
+    assert torch.allclose(_kernel_emulation_f32(feats, *weights), want, **TOL)
+    assert not torch.allclose(_kernel_emulation_f32(feats, *weights, passes=1), want, **TOL)
 
 
 def _decode_f64(feats, w1e, b1e, w2e, b2e):
@@ -148,9 +218,21 @@ def test_kernel_arithmetic_scales_huge_rows(c, out_dim, lr_mul):
     per-row power-of-two scaling keeps it finite and as close to the float64
     result as the fp32 plain version is (fp32 itself is off by ~2e-2 there,
     on outputs near 1e5)."""
-    feats, weights = _bf16_case(1, 2048, c, out_dim, lr_mul, 65536.0)
+    feats, weights = _case(1, 2048, c, out_dim, lr_mul, 65536.0)
     exact = _decode_f64(feats, *weights)
     got = _kernel_emulation(feats, *weights).double()
+    plain_err = (osg_decode_ref(feats, *weights).double() - exact).abs().max()
+    assert torch.isfinite(got).all()
+    assert (got - exact).abs().max() <= 2.0 * plain_err
+
+
+@pytest.mark.parametrize("c,out_dim,lr_mul", [(32, 32, 1.0), (8, 8, 0.5)])
+def test_f32_kernel_arithmetic_scales_huge_rows(c, out_dim, lr_mul):
+    """fp32 features x65536: 3xTF32 and the per-row scaling stay as close to
+    the float64 result as the fp32 plain version is, within a factor 2."""
+    feats, weights = _case(1, 2048, c, out_dim, lr_mul, 65536.0, torch.float32)
+    exact = _decode_f64(feats, *weights)
+    got = _kernel_emulation_f32(feats, *weights).double()
     plain_err = (osg_decode_ref(feats, *weights).double() - exact).abs().max()
     assert torch.isfinite(got).all()
     assert (got - exact).abs().max() <= 2.0 * plain_err
@@ -206,6 +288,15 @@ CARD_CASES = {
     "bf16_x20": ("bfloat16", 1, 64 * 64 * 96, 32, 32, 1.0, 20.0),  # main shape, saturating
     "bf16_server_mb4": ("bfloat16", 4, 64 * 64 * 96, 32, 32, 1.0, 1.0),  # micro-batch of 4
     "f32_shape_chunk": ("float32", 1, 1 << 20, 32, 32, 1.0, 1.0),  # shape-sweep chunk
+    "f32_c8_lr_mul": ("float32", 1, 4096, 8, 8, 0.5, 1.0),      # one k8 step per row
+    "f32_m1": ("float32", 1, 1, 32, 32, 1.0, 1.0),
+    "f32_m63": ("float32", 1, 63, 32, 32, 1.0, 1.0),
+    "f32_m5003": ("float32", 1, 5003, 32, 32, 1.0, 1.0),
+    "f32_n2": ("float32", 2, 5000, 32, 32, 1.0, 1.0),
+    "f32_x20": ("float32", 1, 64 * 64 * 96, 32, 32, 1.0, 20.0),
+    "f32_c40": ("float32", 1, 5003, 40, 32, 1.0, 1.0),          # ring rows of 10 chunks
+    "f32_c64_d49": ("float32", 1, 5003, 64, 48, 1.0, 1.0),      # 16 chunks; D > 33
+    "bf16_c64_d49": ("bfloat16", 1, 5003, 64, 48, 1.0, 1.0),
 }
 
 
@@ -229,18 +320,28 @@ def test_kernel_matches_plain_version_on_card(case):
     torch.testing.assert_close(got, osg_decode_ref(feats, *weights), **TOL)
 
 
-@pytest.mark.cuda
-def test_kernel_scales_huge_rows_on_card():
-    """x65536 bf16 features take the kernel's per-row scaling path; it must
-    stay as close to float64 as the fp32 plain version is, within a factor 4:
-    the tensor cores' fp32 sums do not round to nearest."""
+def _huge_rows_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    feats, weights = _bf16_case(1, 2048, 32, 32, 1.0, 65536.0)
+    feats, weights = _case(1, 2048, 32, 32, 1.0, 65536.0, dtype)
     feats, weights = feats.cuda(), [w.cuda() for w in weights]
     got = osg_decode(feats, *weights).double()
     exact = _decode_f64(feats, *weights)
     plain_err = (osg_decode_ref(feats, *weights).double() - exact).abs().max()
     assert torch.isfinite(got).all()
     assert (got - exact).abs().max() <= 4.0 * plain_err
+
+
+@pytest.mark.cuda
+def test_kernel_scales_huge_rows_on_card():
+    """x65536 bf16 features take the kernel's per-row scaling path; it must
+    stay as close to float64 as the fp32 plain version is, within a factor 4:
+    the tensor cores' fp32 sums do not round to nearest."""
+    _huge_rows_on_card(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_scales_huge_rows_on_card():
+    """The same for x65536 fp32 features through the 3xTF32 kernel."""
+    _huge_rows_on_card(torch.float32)
