@@ -26,6 +26,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   8. shapes:  `generate_videos(..., gen_shapes=True, shape_res=256)`: the
               .mrc reads back 256^3, finite, not constant inside the mask; a
               mesh with faces; sweep ms and its 16 fp32 launches.
+  9. train:   the G-NeRF train step at the full width of the `ffhq` preset
+              (ResNeXt50 E in train mode, default G frozen, 48+48 samples,
+              8XDC to 512^2, depth D with R1, VGG16-LPIPS at 256^2, batch 4,
+              fp32, seed-init weights, SyntheticDataset batches): warm-up,
+              then timed steps (ms, images/s, peak memory, losses); every
+              loss finite, E, D and the BN buffers moved, G bitwise frozen,
+              osg_decode launched twice per step; a full-state save and load
+              gives the state back bit for bit, and the next step from both
+              agrees within tolerance.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -54,6 +63,8 @@ H100_BF16_FLOPS = 989e12     # dense tensor cores
 H100_FP32_FLOPS = 67e12      # outside the tensor cores
 FRAMES_DEFAULT = 8
 MAIN_M = 64 * 64 * 96        # points per decoder pass at 64^2 rays x 96 samples
+TRAIN_M = 64 * 64 * 48       # points per training decoder pass (48 coarse or 48 fine)
+TRAIN_BATCH = 4              # the ffhq preset's batch on one card
 ORBIT_FRAMES = 15            # frames per /orbit chunk (GNerfService.frames_per_chunk)
 SHAPE_CHUNK = 1 << 20        # points per shape-sweep chunk (extract_sigma_grid max_batch)
 SHAPE_RES = 256              # voxels per side of the shapes phase (512^3 runs through the CLI)
@@ -189,6 +200,8 @@ def phase_kernels():
         ("server_mb4_bf16", 4, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("orbit_chunk_bf16", 1, ORBIT_FRAMES * MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("shape_chunk_f32", 1, SHAPE_CHUNK, 32, 32, 1.0, f32, 1.0, True),
+        # one pass of the train step: 4 identities x 64^2 rays x 48 samples
+        ("train_f32", TRAIN_BATCH, TRAIN_M, 32, 32, 1.0, f32, 1.0, True),
     ]
     results = {}
     for name, n, m, c, out_dim, lr, dtype, scale, timed in cases:
@@ -225,6 +238,12 @@ def phase_kernels():
                     f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                     f"roofline={row['bound_ms'] / row['ms']:.3f} "
                     f"achieved={moved / row['ms'] / 1e9:.3f} TB/s")
+        if name == "train_f32":
+            ok = _train_gradients(feats, dec, row) and ok
+            msg += (f" backward_ms={row['backward_ms']:.4f} (plain products) "
+                    f"backward_bound_ms={row['backward_bound_ms']:.4f} "
+                    f"grad_max_err={row['grad_max_err']:.3e} of the largest (rtol 1e-4, "
+                    "atol 1e-5 of the largest)")
         log(msg)
         if not ok:
             raise SystemExit(f"chip_smoke: osg_decode {name} disagrees with its plain version")
@@ -232,6 +251,41 @@ def phase_kernels():
         del feats, got, want
         torch.cuda.empty_cache()
     return results
+
+
+def _train_gradients(feats, dec, row) -> bool:
+    """Decoder gradients at the training shape through `OSGDecode` (kernel
+    forward, plain-product backward) vs autograd through the plain version,
+    held to rtol 1e-4 with an atol of 1e-5 of each gradient's largest
+    element; and the backward's time with its byte bound (features and
+    dL/dout read once, the feature gradient written once)."""
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode, osg_decode_backward, osg_decode_ref
+
+    f = feats.detach().requires_grad_()
+    cot = torch.randn(feats.shape[0], feats.shape[2], 33, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(2))
+    inputs = [f, dec.fc0.weight, dec.fc0.bias, dec.fc1.weight, dec.fc1.bias]
+    out = osg_decode(f, *dec.folded_weights(torch.float32))
+    if out.grad_fn is None:
+        raise SystemExit("chip_smoke: osg_decode returned no grad_fn with inputs requiring grad")
+    got = torch.autograd.grad(out, inputs, cot)
+    want = torch.autograd.grad(osg_decode_ref(f, *dec.folded_weights(torch.float32)), inputs, cot)
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        worst = max(worst, float((g - w).abs().max()) / scale)
+        ok = ok and bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=1e-4,
+                                                                       atol=1e-5 * scale)
+    weights = [w.detach() for w in dec.folded_weights(torch.float32)]
+    row["grad_max_err"] = worst
+    row["backward_ms"] = cuda_ms(lambda: osg_decode_backward(cot, feats, *weights),
+                                 iters=10, warmup=2)
+    moved = 2 * feats.numel() * 4 + cot.numel() * 4
+    row["backward_bound_ms"] = moved / H100_BYTES_PER_S * 1e3
+    del got, want, out
+    return ok
 
 
 def phase_small():
@@ -268,6 +322,74 @@ def phase_small():
             "(atol 1e-4)")
         if not (err <= 1e-4 and torch.isfinite(outs["cuda"][k]).all()):
             raise SystemExit(f"chip_smoke: tiny {k} on the card disagrees with the CPU")
+    _small_train_step()
+
+
+def _tiny_trainer(dev, **cfg_overrides):
+    """The tests' tiny training configuration (tests/test_torch_training.py)
+    on `dev`, every weight from fixed seeds."""
+    import torch
+
+    from gnerf_tpu_torch.models import (DEFAULT_RENDERING_KWARGS, Discriminator,
+                                        ResNeXt50Encoder, TriPlaneGenerator)
+    from gnerf_tpu_torch.training import VGG16LPIPS, TrainConfig, init_train_state
+
+    rk = dict(DEFAULT_RENDERING_KWARGS, superresolution_module="SuperresolutionHybrid2X",
+              depth_resolution=4, depth_resolution_importance=4)
+    g = TriPlaneGenerator(z_dim=32, w_dim=32, img_resolution=128, plane_resolution=16,
+                          channel_base=512, channel_max=32, neural_rendering_resolution=8,
+                          rendering_kwargs=rk, device=dev,
+                          generator=torch.Generator().manual_seed(1))
+    enc = ResNeXt50Encoder(out_dim=32, layers=(1, 1, 1, 1), device=dev,
+                           generator=torch.Generator().manual_seed(2))
+    disc = Discriminator(c_dim=25, img_resolution=8, img_channels=1, channel_base=256,
+                         channel_max=32, mbstd_group_size=1, device=dev,
+                         generator=torch.Generator().manual_seed(3))
+    vgg = VGG16LPIPS(resize_to=32, device=dev, generator=torch.Generator().manual_seed(4))
+    cfg = TrainConfig(batch_size=2, neural_rendering_resolution=8, **cfg_overrides)
+    return init_train_state(g, enc, disc, vgg, cfg), cfg
+
+
+def _small_train_step(devices=("cpu", "cuda")):
+    """One tiny train step (rng=None) on the card vs the CPU: every stat
+    within rtol 1e-3, and every gradient the optimizers took (Adam's first
+    moment over 1 - beta1) within 1e-3 of its tensor's largest element:
+    cuDNN, cuBLAS and grid_sample's atomic backward sum in other orders, and
+    Adam's first step maps each gradient to +-lr, so the updated weights
+    themselves are not compared."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gnerf_tpu_torch.training import SyntheticDataset, collate, make_train_step
+
+    items = [SyntheticDataset(resolution=16, depth_resolution=8, size=4)[i] for i in range(2)]
+    batch = collate(items)
+    rs = np.random.RandomState(0)
+    batch["condition_image"] = np.stack([np.asarray(Image.fromarray(
+        rs.randint(0, 256, (8, 8, 3), np.uint8)).resize((64, 64), Image.BILINEAR))
+        .transpose(2, 0, 1) for _ in range(2)])
+    runs = {}
+    for dev in devices:
+        state, cfg = _tiny_trainer(dev)
+        _, stats = make_train_step(cfg)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, None)
+        grads = {}
+        for name in ("opt_g", "opt_d"):
+            opt = getattr(state, name)
+            for i, p in enumerate(p for grp in opt.param_groups for p in grp["params"]):
+                if p in opt.state:
+                    grads[f"{name}.{i}"] = opt.state[p]["exp_avg"].cpu() / 0.1
+        runs[dev] = ({k: float(v) for k, v in stats.items()}, grads)
+    (want, want_g), (got, got_g) = runs[devices[0]], runs[devices[1]]
+    stat_err = max(abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items())
+    grad_err = max(float((got_g[k] - g).abs().max() / g.abs().max().clamp_min(1e-12))
+                   for k, g in want_g.items())
+    log(f"[small] tiny train step {devices[1]} vs {devices[0]}: {len(want)} stats "
+        f"max_rel_err={stat_err:.3e} (1e-3), {len(want_g)} gradients max_err={grad_err:.3e} "
+        "of each tensor's largest (1e-3)")
+    if not (stat_err <= 1e-3 and grad_err <= 1e-3):
+        raise SystemExit("chip_smoke: the tiny train step on the card disagrees with the CPU")
 
 
 def phase_main(frames: int):
@@ -644,6 +766,134 @@ def phase_shapes():
     return launches
 
 
+def _state_tensors(state) -> dict:
+    """Every tensor a train state holds: module state_dicts and Adam states."""
+    out = {}
+    for name in ("g", "g_ema", "enc", "disc", "vgg"):
+        out.update({f"{name}.{k}": v for k, v in getattr(state, name).state_dict().items()})
+    for name in ("opt_g", "opt_d"):
+        opt = getattr(state, name)
+        for i, p in enumerate(p for grp in opt.param_groups for p in grp["params"]):
+            out.update({f"{name}.{i}.{k}": v for k, v in opt.state.get(p, {}).items()})
+    return out
+
+
+def _full_width_trainer(seed: int):
+    """The `ffhq` preset's networks at full width on the card, as
+    `gnerf_tpu_torch.training.train` builds them (seed-init weights)."""
+    import torch
+
+    from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
+    from gnerf_tpu_torch.training import TrainConfig, VGG16LPIPS, init_train_state
+    from gnerf_tpu_torch.training.train import RENDERING_PRESETS, _rendering_kwargs
+
+    rk = _rendering_kwargs(RENDERING_PRESETS["ffhq"], False, 1.0, "none", 0.25, 1.0, "")
+    gen = torch.Generator().manual_seed(seed)
+    g = TriPlaneGenerator(img_resolution=512, rendering_kwargs=rk, device="cuda", generator=gen)
+    enc = ResNeXt50Encoder(device="cuda", generator=gen)
+    disc = Discriminator(c_dim=25, img_resolution=64, img_channels=1, device="cuda",
+                         generator=gen)
+    vgg = VGG16LPIPS(device="cuda", generator=torch.Generator().manual_seed(seed + 7))
+    cfg = TrainConfig(batch_size=TRAIN_BATCH)
+    return init_train_state(g, enc, disc, vgg, cfg), cfg
+
+
+def phase_train(warmup: int = 2, steps: int = 6):
+    """The full-width G-NeRF train step on the card (see the module
+    docstring). Step times are CUDA-event times of whole steps (data already
+    on the card), median and spread over `steps`."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import (SyntheticDataset, data_iterator, load_train_state,
+                                          make_train_step, save_train_state)
+    from gnerf_tpu_torch.training.train import step_generator
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cfg = _full_width_trainer(0)
+    step = make_train_step(cfg)
+    build_s = time.perf_counter() - t0
+    batches = data_iterator(SyntheticDataset(resolution=SIDE, depth_resolution=64),
+                            batch_size=TRAIN_BATCH, seed=0)
+    host = [next(batches) for _ in range(warmup + steps + 1)]
+    dev = [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in b.items()} for b in host]
+    before = {k: v.clone() for k, v in _state_tensors(state).items()
+              if k.split(".")[0] in ("g", "enc", "disc")}
+
+    osg_decode.launches = 0
+    losses, ev = [], [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    for i in range(warmup + steps):
+        if i == warmup:
+            ev[0].record()
+        _, stats = step(state, dev[i], step_generator(0, state.cur_nimg, "cuda"))
+        if i >= warmup:
+            ev[i - warmup + 1].record()
+        losses.append(stats)
+    torch.cuda.synchronize()
+    launches = osg_decode.launches
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [{k: float(v) for k, v in s.items()} for s in losses]
+    after = _state_tensors(state)
+    moved = {name: any(not torch.equal(after[k], v) for k, v in before.items()
+                       if k.startswith(name + "."))
+             for name in ("enc", "disc")}
+    bn_moved = any(not torch.equal(after[k], v) for k, v in before.items()
+                   if k.startswith("enc.") and k.endswith((".mean", ".var")))
+    trained_g = {f"g.{n}" for n, p in state.g.named_parameters() if p.requires_grad}
+    g_frozen = all(torch.equal(after[k], v) for k, v in before.items()
+                   if k.startswith("g.") and k not in trained_g)
+    finite = all(np.isfinite(v) for s in losses for v in s.values())
+    want_launches = 2 * (warmup + steps) * (2 if cfg.remat_synthesis else 1)
+    med = statistics.median(step_ms)
+    log(f"[train] full width fp32, batch {TRAIN_BATCH}: build {build_s:.2f} s; step_ms median="
+        f"{med:.3f} min={min(step_ms):.3f} max={max(step_ms):.3f} (each: "
+        f"{', '.join(f'{x:.3f}' for x in step_ms)}) images_per_s={TRAIN_BATCH * 1e3 / med:.3f} "
+        f"max_memory_allocated={peak} bytes; remat_synthesis={cfg.remat_synthesis} "
+        f"remat_lpips={cfg.remat_lpips}; osg_decode launches={launches} (want {want_launches})")
+    log("[train] losses, last step: " + " ".join(f"{k}={v:.5f}" for k, v in losses[-1].items()))
+    log(f"[train] finite={finite} E moved={moved['enc']} D moved={moved['disc']} "
+        f"BN buffers moved={bn_moved} G bitwise frozen={g_frozen} (outside the "
+        f"{len(trained_g)} G tensors it trains)")
+    if not (finite and moved["enc"] and moved["disc"] and bn_moved and g_frozen):
+        raise SystemExit("chip_smoke: the train step did not update as it should")
+    if launches != want_launches:
+        raise SystemExit(f"chip_smoke: train path launched osg_decode {launches} times")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "training-state.npz")
+        t0 = time.perf_counter()
+        save_train_state(path, state, config={"chip_smoke": True}, best_ssim=0.5)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del before, after
+        again, _ = _full_width_trainer(1)
+        t0 = time.perf_counter()
+        load_train_state(path, again)
+        load_s = time.perf_counter() - t0
+    a, b = _state_tensors(state), _state_tensors(again)
+    bitwise = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+    del a, b
+    nxt = dev[warmup + steps]
+    outs = []
+    for st in (state, again):
+        _, s2 = make_train_step(cfg)(st, nxt, step_generator(0, st.cur_nimg, "cuda"))
+        outs.append({k: float(v) for k, v in s2.items()})
+    err = max(abs(outs[0][k] - v) / max(abs(v), 1e-3) for k, v in outs[1].items())
+    log(f"[train] full-state save {size} bytes in {save_s:.2f} s, load in {load_s:.2f} s: "
+        f"bitwise={bitwise}; next step saved vs loaded: max rel stat err={err:.3e} (1e-3; "
+        "grid_sample's backward uses atomics)")
+    if not bitwise or err > 1e-3:
+        raise SystemExit("chip_smoke: the full-state checkpoint does not give the state back")
+    del state, again, dev
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -664,9 +914,10 @@ def main(argv=None) -> int:
     phase_timing(args.frames, args.profile)
     launches["server"] = phase_server()
     launches["shapes"] = phase_shapes()
+    launches["train"] = phase_train()
 
     main_row = kern["main_bf16"]
-    timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32")
+    timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32")
     print(json.dumps({"kernels": [{
         "name": "osg_decode", "route": "cuda",
         "source": "gnerf_tpu_torch/csrc/osg_decode.cu",

@@ -1,16 +1,19 @@
 """Networks: the tri-plane generator G, its StyleGAN2 parts, the
-superresolution modules and the ResNeXt50 encoder E."""
+superresolution modules, the ResNeXt50 encoder E and the depth
+discriminator D."""
 
 from .encoder import ResNeXt50Encoder
-from .stylegan2 import (Conv2dLayer, FullyConnectedLayer, Generator, MappingNetwork,
-                        SynthesisBlock, SynthesisLayer, SynthesisNetwork, ToRGBLayer,
+from .stylegan2 import (Conv2dLayer, Discriminator, DiscriminatorBlock, DiscriminatorEpilogue,
+                        FullyConnectedLayer, Generator, MappingNetwork, SynthesisBlock,
+                        SynthesisLayer, SynthesisNetwork, ToRGBLayer, minibatch_std,
                         modulated_conv2d, normalize_2nd_moment)
 from .superresolution import SR_REGISTRY, SuperresolutionHybrid8XDC, make_superresolution
 from .triplane import DEFAULT_RENDERING_KWARGS, OSGDecoder, TriPlaneGenerator
 
 __all__ = [
-    "Conv2dLayer", "DEFAULT_RENDERING_KWARGS", "FullyConnectedLayer", "Generator",
+    "Conv2dLayer", "DEFAULT_RENDERING_KWARGS", "Discriminator", "DiscriminatorBlock",
+    "DiscriminatorEpilogue", "FullyConnectedLayer", "Generator",
     "MappingNetwork", "OSGDecoder", "ResNeXt50Encoder", "SR_REGISTRY", "SuperresolutionHybrid8XDC",
     "SynthesisBlock", "SynthesisLayer", "SynthesisNetwork", "ToRGBLayer", "TriPlaneGenerator",
-    "make_superresolution", "modulated_conv2d", "normalize_2nd_moment",
+    "make_superresolution", "minibatch_std", "modulated_conv2d", "normalize_2nd_moment",
 ]

@@ -1,10 +1,11 @@
-"""ResNeXt50-32x4d identity encoder (network E), inference only.
+"""ResNeXt50-32x4d identity encoder (network E).
 
-Port of `gnerf_tpu/models/encoder.py` in eval mode: torchvision-style
-ResNeXt50 (Bottleneck [3, 4, 6, 3], groups=32, width_per_group=4), a 2x2
-adaptive average pool and a dense projection 8192 -> z_dim. Input is a
-[-1, 1] RGB image. BatchNorm uses the running statistics (`mean` / `var`
-buffers beside the `scale` / `bias` parameters, the JAX package's names).
+Port of `gnerf_tpu/models/encoder.py`: torchvision-style ResNeXt50
+(Bottleneck [3, 4, 6, 3], groups=32, width_per_group=4), a 2x2 adaptive
+average pool and a dense projection 8192 -> z_dim. Input is a [-1, 1] RGB
+image. BatchNorm keeps `mean` / `var` buffers beside the `scale` / `bias`
+parameters (the JAX package's names): eval mode normalizes with them, train
+mode with the batch moments, and updates them in place.
 The grouped 3x3 is a native `groups=32` convolution; the JAX package's
 `groups_as_dense` TPU layout is not ported.
 """
@@ -35,11 +36,24 @@ class _BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # Statistics in fp32; the normalization itself in x's dtype.
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1) -> torch.Tensor:
+        # Statistics in fp32; the normalization itself in x's dtype. Train
+        # mode takes the batch moments as E[x^2] - E[x]^2 and moves the
+        # running mean and unbiased variance toward them.
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            with torch.no_grad():
+                self.mean.copy_((1 - momentum) * self.mean + momentum * mean)
+                self.var.copy_((1 - momentum) * self.var + momentum * (var * n / max(n - 1, 1)))
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
         shape = (1, -1, 1, 1)
-        return ((x - self.mean.to(x.dtype).reshape(shape)) * inv.to(x.dtype).reshape(shape)
+        return ((x - mean.to(x.dtype).reshape(shape)) * inv.to(x.dtype).reshape(shape)
                 + self.bias.to(x.dtype).reshape(shape))
 
 
@@ -65,14 +79,15 @@ class _Bottleneck(nn.Module):
             self.downsample_conv = _kaiming((out_c, in_c, 1, 1), generator)
             self.downsample_bn = _BatchNorm(out_c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(_conv(x, self.conv1)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(_conv(x, self.conv1), train))
         out = F.relu(self.bn2(_conv(out, self.conv2, stride=self.stride, padding=1,
-                                    groups=self.groups)))
-        out = self.bn3(_conv(out, self.conv3))
+                                    groups=self.groups), train))
+        out = self.bn3(_conv(out, self.conv3), train)
         identity = x
         if hasattr(self, "downsample_conv"):
-            identity = self.downsample_bn(_conv(x, self.downsample_conv, stride=self.stride))
+            identity = self.downsample_bn(_conv(x, self.downsample_conv, stride=self.stride),
+                                          train)
         return F.relu(out + identity)
 
 
@@ -106,19 +121,18 @@ class ResNeXt50Encoder(nn.Module):
             self.fc.bias.uniform_(-bound, bound, generator=generator)
         self.to(device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(_conv(images, self.conv1, stride=2, padding=3)))
+    def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.relu(self.bn1(_conv(images, self.conv1, stride=2, padding=3), train))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)  # pads with -inf
         for stage, blocks in enumerate(self.layers):
             for b in range(blocks):
-                x = getattr(self, f"layer{stage + 1}_{b}")(x)
+                x = getattr(self, f"layer{stage + 1}_{b}")(x, train)
         x = F.adaptive_avg_pool2d(x, 2)  # region i spans [floor(iS/2), ceil((i+1)S/2))
         x = x.reshape(x.shape[0], -1)
         return F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
 
     def apply(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Eval-mode encode, the JAX package's `apply(..., train=False)`.
-        (Shadows `nn.Module.apply`, to keep that name.)"""
-        if train:
-            raise NotImplementedError("encoder training (batch statistics) is not ported yet")
-        return self.forward(images)
+        """Encode, the JAX package's `apply(params, state, images, train)`:
+        z, with the BN buffers updated in place when `train`. (Shadows
+        `nn.Module.apply`, to keep that name.)"""
+        return self.forward(images, train)

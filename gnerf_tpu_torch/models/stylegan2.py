@@ -1,12 +1,14 @@
-"""StyleGAN2 generator networks as PyTorch modules.
+"""StyleGAN2 networks as PyTorch modules: generator and discriminator.
 
-Port of the generator half of `gnerf_tpu/models/stylegan2.py`. Parameter
+Port of `gnerf_tpu/models/stylegan2.py`. Parameter
 names and layouts are the JAX package's (which mirror the reference
 state_dict: `fc0`, `b4.conv1.affine.weight`, OIHW conv weights, `[out, in]`
 dense weights), so `utils.checkpoint.load_jax_params` is a rename. Weights
 stay fp32 and are cast to the activation dtype at use; `dtype=bf16` runs the
 blocks in bf16 while the ToRGB skip accumulates in fp32, as in the JAX
-package. Random init draws from an explicit `torch.Generator`.
+package. Random init draws from an explicit `torch.Generator`, and so does
+`noise_mode="random"`. Every op is plain PyTorch, so the discriminator is
+twice differentiable, as the R1 penalty needs.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..utils.device import resolve_device
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
@@ -187,6 +190,8 @@ class SynthesisLayer(nn.Module):
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == "random":
+            if rng is None:
+                raise ValueError("noise_mode='random' needs an explicit torch.Generator (rng)")
             noise = torch.randn((x.shape[0], 1, self.resolution, self.resolution),
                                 generator=rng, device=x.device) * self.noise_strength
         if self.use_noise and noise_mode == "const":
@@ -338,3 +343,165 @@ class Generator(nn.Module):
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, noise_mode=noise_mode, rng=rng, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator
+
+
+class DiscriminatorBlock(nn.Module):
+    """Downsampling block, resnet or skip architecture."""
+
+    def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
+                 resolution: int, img_channels: int, architecture: str = "resnet",
+                 activation: str = "lrelu", resample_filter: Sequence[int] = (1, 3, 3, 1),
+                 conv_clamp: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if architecture not in ("orig", "skip", "resnet"):
+            raise ValueError(f"unknown architecture {architecture!r}")
+        self.in_channels = in_channels
+        self.architecture = architecture
+        g = generator
+        if in_channels == 0 or architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
+                                       activation=activation, conv_clamp=conv_clamp, generator=g)
+        self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3,
+                                 activation=activation, conv_clamp=conv_clamp, generator=g)
+        self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3,
+                                 activation=activation, down=2, resample_filter=resample_filter,
+                                 conv_clamp=conv_clamp, generator=g)
+        if architecture == "resnet":
+            self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1, bias=False,
+                                    down=2, resample_filter=resample_filter, generator=g)
+        self.register_buffer("resample_filter", setup_filter(list(resample_filter)),
+                             persistent=False)
+
+    def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
+                dtype: torch.dtype = torch.float32):
+        if x is not None:
+            x = x.to(dtype)
+        if self.in_channels == 0 or self.architecture == "skip":
+            img = img.to(dtype)
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = (downsample2d(img, self.resample_filter)
+                   if self.architecture == "skip" else None)
+        if self.architecture == "resnet":
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x)
+            x = self.conv1(x, gain=math.sqrt(0.5))
+            x = y + x
+        else:
+            x = self.conv0(x)
+            x = self.conv1(x)
+        return x, img
+
+
+def minibatch_std(x: torch.Tensor, group_size: Optional[int],
+                  num_channels: int = 1) -> torch.Tensor:
+    """Append cross-sample standard-deviation channels, over groups of
+    `min(group_size, N)` samples."""
+    n, c, h, w = x.shape
+    g = min(group_size, n) if group_size is not None else n
+    f = num_channels
+    y = x.reshape(g, -1, f, c // f, h, w)
+    y = y - y.mean(dim=0)
+    y = y.square().mean(dim=0)
+    y = (y + 1e-8).sqrt()
+    y = y.mean(dim=(2, 3, 4))
+    y = y.reshape(-1, f, 1, 1).repeat(g, 1, h, w)
+    return torch.cat([x, y], dim=1)
+
+
+class DiscriminatorEpilogue(nn.Module):
+    """4x4 head: minibatch std, conv, fc, out, and the projection onto the
+    conditioning map."""
+
+    def __init__(self, in_channels: int, cmap_dim: int, resolution: int, img_channels: int,
+                 architecture: str = "resnet", mbstd_group_size: Optional[int] = 4,
+                 mbstd_num_channels: int = 1, activation: str = "lrelu",
+                 conv_clamp: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cmap_dim = cmap_dim
+        self.architecture = architecture
+        self.mbstd_group_size = mbstd_group_size
+        self.mbstd_num_channels = mbstd_num_channels
+        g = generator
+        self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels, kernel_size=3,
+                                activation=activation, conv_clamp=conv_clamp, generator=g)
+        self.fc = FullyConnectedLayer(in_channels * resolution ** 2, in_channels,
+                                      activation=activation, generator=g)
+        self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim, generator=g)
+        if architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, in_channels, kernel_size=1,
+                                       activation=activation, generator=g)
+
+    def forward(self, x, img, cmap):
+        x = x.float()
+        if self.architecture == "skip":
+            x = x + self.fromrgb(img.float())
+        if self.mbstd_num_channels > 0:
+            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_num_channels)
+        x = self.conv(x)
+        x = self.fc(x.reshape(x.shape[0], -1))
+        x = self.out(x)
+        if self.cmap_dim > 0:
+            x = (x * cmap).sum(dim=1, keepdim=True) * (1 / math.sqrt(self.cmap_dim))
+        return x
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator, conditioned on the camera label through a
+    mapping network. G-NeRF's depth discriminator takes one-channel 64^2
+    depth maps. Constructed on CUDA unless `device` names another device;
+    parameters are drawn on the CPU from `generator` (seed 0 when None)."""
+
+    def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 architecture: str = "resnet", channel_base: int = 32768,
+                 channel_max: int = 512, conv_clamp: Optional[float] = 256,
+                 cmap_dim: Optional[int] = None, mbstd_group_size: Optional[int] = 4,
+                 mapping_layers: int = 8, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        log2 = int(math.log2(img_resolution))
+        self.block_resolutions = [2 ** i for i in range(log2, 2, -1)]
+        self.c_dim = c_dim
+
+        def channels(res):
+            return min(channel_base // res, channel_max)
+
+        cmap = cmap_dim if cmap_dim is not None else channels(4)
+        cmap = 0 if c_dim == 0 else cmap
+        for res in self.block_resolutions:
+            setattr(self, f"b{res}", DiscriminatorBlock(
+                channels(res) if res < img_resolution else 0, channels(res), channels(res // 2),
+                res, img_channels, architecture=architecture, conv_clamp=conv_clamp,
+                generator=generator))
+        if c_dim > 0:
+            self.mapping = MappingNetwork(z_dim=0, c_dim=c_dim, w_dim=cmap, num_ws=None,
+                                          w_avg_beta=None, num_layers=mapping_layers,
+                                          generator=generator)
+        self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim=cmap, resolution=4,
+                                        img_channels=img_channels, architecture=architecture,
+                                        mbstd_group_size=mbstd_group_size, conv_clamp=conv_clamp,
+                                        generator=generator)
+        self.to(device)
+
+    def forward(self, img: torch.Tensor, c: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """[N, img_channels, R, R] images (+ labels [N, c_dim]) -> logits [N, 1]."""
+        x = None
+        for res in self.block_resolutions:
+            x, img = getattr(self, f"b{res}")(x, img, dtype=dtype)
+        cmap = self.mapping(None, c) if self.c_dim > 0 else None
+        return self.b4(x, img, cmap)
+
+    def apply(self, img, c=None, dtype=torch.float32) -> torch.Tensor:
+        """The JAX package's name for the forward pass. (Shadows
+        `nn.Module.apply`.)"""
+        return self.forward(img, c, dtype=dtype)

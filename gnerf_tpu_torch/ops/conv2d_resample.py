@@ -15,16 +15,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
+from .upfirdn2d import _get_filter_size, _parse_padding, conv2d, upfirdn2d
 
 
 def _conv2d(x, w, stride=1, padding=0, groups=1, flip_weight=True):
     """Grouped NCHW conv. flip_weight=True -> correlation (torch conv2d)."""
     if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
         w = w.flip([2, 3])
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding, groups=groups)
+    return conv2d(x, w.to(x.dtype), stride=stride, padding=padding, groups=groups)
 
 
 def conv2d_resample(

@@ -12,6 +12,11 @@ the second in split fp16; layer 1 is bf16 x bf16 for bf16 features and
 hi.w_lo + lo.w_hi), which keeps ~21-22 bits, within the fp32 tolerance. That
 is not the TF32 mode that `resolve_device` turns off for torch's own fp32
 products. See the kernel source for the design.
+
+Training differentiates the decoder through `OSGDecode`, whose forward is
+the same route and whose backward is plain PyTorch products
+(`osg_decode_backward`), as the JAX package differentiates its plain XLA
+decoder: the Pallas kernel has no VJP.
 """
 
 from __future__ import annotations
@@ -89,9 +94,19 @@ def osg_decode(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
     """[N, 3, M, C] features (fp32 or bf16) -> [N, M, D] fp32 [sigma | rgb].
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    `osg_decode_ref`. `osg_decode.launches` counts kernel launches, from
-    every thread (the server launches from several)."""
+    `osg_decode_ref`. With grad mode on and an input that requires grad, the
+    call goes through `OSGDecode`, so the result has a `grad_fn`.
+    `osg_decode.launches` counts forward kernel launches, from every thread
+    (the server launches from several)."""
     _check(feats, w1e, b1e, w2e, b2e)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (feats, w1e, b1e, w2e, b2e)):
+        return OSGDecode.apply(feats, w1e, b1e, w2e, b2e)
+    return _decode(feats, w1e, b1e, w2e, b2e)
+
+
+def _decode(feats, w1e, b1e, w2e, b2e):
+    """The forward route of checked inputs: the kernel or the plain version."""
     if feats.device.type == "cpu":
         return osg_decode_ref(feats, w1e, b1e, w2e, b2e)
     if feats.device.type != "cuda":
@@ -110,6 +125,52 @@ def osg_decode(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
     with _count_lock:
         osg_decode.launches += 1
     return out
+
+
+def osg_decode_backward(dout: torch.Tensor, feats: torch.Tensor, w1e: torch.Tensor,
+                        b1e: torch.Tensor, w2e: torch.Tensor, b2e: torch.Tensor,
+                        needs=(True,) * 5):
+    """Gradients of `osg_decode_ref` given dL/d(out) [N, M, D]: (dfeats in the
+    features' dtype, dw1e in w1e's, db1e, dw2e, db2e in fp32), None where
+    `needs` says no. The hidden layer is recomputed: x = (f0 + f1 + f2) w1e / 3
+    + b1e, h = softplus(x), o = h w2e + b2e, in fp32 (float64 inputs stay
+    float64). The three planes share one feature gradient,
+    ((do w2e^T) * sigmoid(x) / 3) w1e^T."""
+    ct = torch.promote_types(feats.dtype, torch.float32)
+    n, _, m, c = feats.shape
+    s = feats.to(ct).sum(dim=1).reshape(n * m, c)
+    w1, w2 = w1e.to(ct), w2e.to(ct)
+    x = (s @ w1) / 3.0 + b1e.to(ct)
+    h = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    do = dout.to(ct).reshape(n * m, -1).clone()
+    sig = torch.sigmoid(h @ w2[:, 1:] + b2e[1:].to(ct))
+    do[:, 1:] *= sig * (1.0 - sig) * (1 + 2 * 0.001)
+    dw2e = (h.t() @ do).to(w2e.dtype) if needs[3] else None
+    db2e = do.sum(dim=0).to(b2e.dtype) if needs[4] else None
+    dx = (do @ w2.t()) * torch.sigmoid(x)
+    db1e = dx.sum(dim=0).to(b1e.dtype) if needs[2] else None
+    dacc = dx / 3.0
+    dw1e = (s.t() @ dacc).to(w1e.dtype) if needs[1] else None
+    dfeats = None
+    if needs[0]:
+        ds = (dacc @ w1.t()).reshape(n, 1, m, c)
+        dfeats = ds.expand(n, 3, m, c).to(feats.dtype)
+    return dfeats, dw1e, db1e, dw2e, db2e
+
+
+class OSGDecode(torch.autograd.Function):
+    """`osg_decode` with a backward: the forward is the kernel on CUDA tensors
+    (the plain version on CPU ones) and saves the inputs only; the backward
+    is `osg_decode_backward`, plain PyTorch products."""
+
+    @staticmethod
+    def forward(ctx, feats, w1e, b1e, w2e, b2e):
+        ctx.save_for_backward(feats, w1e, b1e, w2e, b2e)
+        return _decode(feats, w1e, b1e, w2e, b2e)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return osg_decode_backward(dout, *ctx.saved_tensors, needs=ctx.needs_input_grad)
 
 
 _count_lock = threading.Lock()

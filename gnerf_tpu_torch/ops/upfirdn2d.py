@@ -1,8 +1,8 @@
 """Up-FIR-down 2D resampling as plain PyTorch.
 
-Port of `gnerf_tpu/ops/upfirdn2d.py` (forward only; inference needs no
-VJP): zero-insert upsample -> pad/crop -> FIR filter (convolution unless
-`flip_filter`) scaled by `gain` -> keep every `down`-th sample. Padding is
+Port of `gnerf_tpu/ops/upfirdn2d.py`: zero-insert upsample -> pad/crop ->
+FIR filter (convolution unless `flip_filter`) scaled by `gain` -> keep
+every `down`-th sample. Differentiable (twice, for R1) through autograd. Padding is
 given w.r.t. the upsampled image; negative padding crops. The helpers
 `filter2d` / `upsample2d` / `downsample2d` keep the reference padding
 conventions.
@@ -64,6 +64,51 @@ def setup_filter(f, normalize: bool = True, flip_filter: bool = False,
     return f * (gain ** (f.dim() / 2))
 
 
+class _Conv2d(torch.autograd.Function):
+    """F.conv2d with a backward made of a transposed convolution (input
+    gradient) and a weight-gradient convolution (only when the weight needs
+    one).
+
+    The R1 penalty differentiates D's input gradient once more. Through
+    F.conv2d's own backward that takes `_convolution_double_backward`, which
+    forms a weight term even for a constant weight (the FIR filters), as a
+    forward convolution whose kernel is the whole output gradient, and for
+    a grouped convolution runs it once per group: together over half of a
+    full-width training step (PERF.md, the train cell). Here the input
+    gradient is an ordinary `conv_transpose2d`, whose own backward uses
+    cuDNN's data- and weight-gradient kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups)
+        return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            extra = [x.shape[i] - ((gy.shape[i] - 1) * stride - 2 * padding + w.shape[i])
+                     for i in (2, 3)]
+            gx = F.conv_transpose2d(gy, w, stride=stride, padding=padding,
+                                    output_padding=extra, groups=groups)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, stride=stride, padding=padding,
+                                             groups=groups)
+        return gx, gw, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
+           groups: int = 1) -> torch.Tensor:
+    """F.conv2d, through `_Conv2d` when autograd records it (training):
+    the convolution of every op in this package's resampling stack."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv2d.apply(x, w, stride, padding, groups)
+    return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+
+
 def upfirdn2d(
     x: torch.Tensor,
     f: Optional[torch.Tensor],
@@ -97,10 +142,10 @@ def upfirdn2d(
         f = f.flip(list(range(f.dim())))
     f = f[None, None].repeat([c, 1] + [1] * f.dim())
     if f.dim() == 4:
-        x = F.conv2d(x, f, groups=c)
+        x = conv2d(x, f, groups=c)
     else:
-        x = F.conv2d(x, f.unsqueeze(2), groups=c)
-        x = F.conv2d(x, f.unsqueeze(3), groups=c)
+        x = conv2d(x, f.unsqueeze(2), groups=c)
+        x = conv2d(x, f.unsqueeze(3), groups=c)
     return x[:, :, ::downy, ::downx]
 
 

@@ -1,0 +1,486 @@
+"""Training CLI: G-NeRF encoder-inversion training on one CUDA card.
+
+Port of `gnerf_tpu/training/train.py`'s `--objective gnerf` branch: builds
+the rendering recipe (dataset preset, SR module, knobs), writes the run
+directory (`training_options.json`, `log.txt`, `stats.jsonl`,
+`id_images.png`, `fakes-*.png`, `network-snapshot-{best,latest,final,
+NNNNNN}.npz`, `training-state-latest.npz`) and drives the tick and snapshot
+loop. SIGTERM and SIGINT finish the step, save the full state and exit;
+`--resume` continues from it bit for bit, or starts from a network
+snapshot of either package.
+
+    python -m gnerf_tpu_torch.training.train --outdir runs --dataset_name synthetic \\
+        --preset ffhq --batch 4 --kimg 1 --tick 1 [--device cpu]
+
+Runs on CUDA unless `--device` names another device. Not ported:
+`--objective eg3d`, `--chain` > 1 and `--ray_shards` > 1 (they raise).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import time
+from typing import Optional
+
+import click
+import numpy as np
+import torch
+
+RENDERING_PRESETS = {
+    "ffhq": dict(depth_resolution=48, depth_resolution_importance=48,
+                 ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                 avg_camera_radius=2.7, avg_camera_pivot=(0, 0, 0.2),
+                 superresolution_module="SuperresolutionHybrid8XDC",
+                 image_resolution=512),
+    "afhqv2": dict(depth_resolution=48, depth_resolution_importance=48,
+                   ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                   avg_camera_radius=2.7, avg_camera_pivot=(0, 0, -0.06),
+                   superresolution_module="SuperresolutionHybrid8XDC",
+                   image_resolution=512),
+    "shapenet": dict(depth_resolution=64, depth_resolution_importance=64,
+                     ray_start=0.1, ray_end=2.6, box_warp=1.6, white_back=True,
+                     avg_camera_radius=1.7, avg_camera_pivot=(0, 0, 0),
+                     superresolution_module="SuperresolutionHybrid2X",
+                     image_resolution=128),
+    # EG3D-format folder or zip data (ImageFolderDataset): FFHQ optics.
+    "folder": dict(depth_resolution=48, depth_resolution_importance=48,
+                   ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                   avg_camera_radius=2.7, avg_camera_pivot=(0, 0, 0.2),
+                   superresolution_module="SuperresolutionHybrid8XDC",
+                   image_resolution=512),
+    "synthetic": dict(depth_resolution=12, depth_resolution_importance=12,
+                      ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                      avg_camera_radius=2.7, avg_camera_pivot=(0, 0, 0.2),
+                      superresolution_module="SuperresolutionHybrid2X",
+                      image_resolution=128),
+}
+
+
+def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1),
+                    grid_w: Optional[int] = None) -> None:
+    """Tile [N, C, H, W] into one PNG."""
+    from PIL import Image
+
+    lo, hi = drange
+    img = (np.asarray(images, np.float32) - lo) * (255 / (hi - lo))
+    img = np.rint(img).clip(0, 255).astype(np.uint8)
+    n, c, h, w = img.shape
+    gw = grid_w or int(np.ceil(np.sqrt(n)))
+    gh = int(np.ceil(n / gw))
+    pad = gw * gh - n
+    if pad:
+        img = np.concatenate([img, np.zeros((pad, c, h, w), np.uint8)])
+    img = img.reshape(gh, gw, c, h, w).transpose(0, 3, 1, 4, 2)
+    img = img.reshape(gh * h, gw * w, c)
+    if c == 1:
+        img = img[..., 0]
+    Image.fromarray(img).save(path)
+
+
+def make_validator(g, enc, vgg=None, lpips_pretrained: bool = True):
+    """validate_batch(batch) -> (ssim, psnr, lpips, images) on the held-out
+    grid: E in eval mode, G without noise. SSIM gates the best snapshot;
+    the perceptual distance is computed only with pretrained VGG weights (a
+    random-VGG curve would look like a real metric) and is 0 otherwise."""
+    from .losses import lpips_distance, ssim as ssim_fn
+    from .metrics import psnr as psnr_fn
+
+    vgg = vgg if lpips_pretrained else None
+
+    @torch.no_grad()
+    def validate_batch(batch):
+        id_images = batch["condition_image"].float() / 127.5 - 1.0
+        z = enc.apply(id_images, train=False)
+        c = batch["loss_c"].float()
+        ws = g.mapping(z, c)
+        out = g.synthesis(ws, c, noise_mode="none")
+        real = batch["loss_image"].float() / 127.5 - 1.0
+        val = ssim_fn(real * 0.5 + 0.5, out["image"] * 0.5 + 0.5, data_range=1.0)
+        psnr = psnr_fn(real * 0.5 + 0.5, out["image"] * 0.5 + 0.5, data_range=1.0).mean()
+        lp = (lpips_distance(vgg, real, out["image"]).mean() if vgg is not None
+              else torch.zeros((), device=real.device))
+        return val, psnr, lp, out["image"]
+
+    return validate_batch
+
+
+def _paired_dataset(dataset_name, data, real_data, img_resolution):
+    """dataset_name -> the paired dataset of that family."""
+    from .dataset import Afhqv2Dataset, FFHQGenDataset, ShapeNetDataset
+
+    cls = {"ffhq": FFHQGenDataset, "afhqv2": Afhqv2Dataset,
+           "shapenet": ShapeNetDataset}.get(dataset_name)
+    if cls is None:
+        raise ValueError(f"unknown --dataset_name {dataset_name!r} "
+                         "(expected ffhq/afhqv2/shapenet/folder/synthetic)")
+    return cls(path=data, real_path=real_data or None, resolution=img_resolution)
+
+
+def pick_run_dir(outdir: str, desc: str) -> str:
+    os.makedirs(outdir, exist_ok=True)
+    prev = [int(m.group(1)) for d in os.listdir(outdir) if (m := re.match(r"^(\d+)-", d))]
+    run_id = max(prev, default=-1) + 1
+    run_dir = os.path.join(outdir, f"{run_id:05d}-{desc}")
+    os.makedirs(run_dir, exist_ok=False)
+    return run_dir
+
+
+def step_generator(seed: int, cur_nimg: int, device: torch.device) -> torch.Generator:
+    """The step's generator, a pure function of (seed, cur_nimg): a resumed
+    run continues the stream instead of replaying it from step 0."""
+    words = np.random.SeedSequence([seed + 1, cur_nimg]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(words[0]) << 31) ^ int(words[1]))
+
+
+def _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode, density_reg,
+                      decoder_lr_mul, sr_module):
+    from ..models.triplane import DEFAULT_RENDERING_KWARGS
+
+    rk = dict(DEFAULT_RENDERING_KWARGS)
+    rk.update(preset_cfg)
+    rk.update(c_gen_conditioning_zero=not gen_pose_cond, c_scale=c_scale,
+              superresolution_noise_mode=sr_noise_mode, density_reg=density_reg,
+              decoder_lr_mul=decoder_lr_mul)
+    if sr_module:
+        rk["superresolution_module"] = sr_module
+    return rk
+
+
+def _resume(state, path, disc):
+    """Load a full-state checkpoint of the port, or a network snapshot of
+    either package (G_ema into G and G_ema; E with its BN state; D).
+    Returns the best SSIM the full state recorded, else None."""
+    from ..utils import checkpoint as ckpt_lib
+    from .train_loop import load_train_state
+
+    trees, _ = ckpt_lib.load_checkpoint(path)
+    if "train_state_torch" in trees:
+        _, _, best = load_train_state(path, state)
+        return best
+    if "train_state" in trees:
+        raise ValueError(f"{path} is a JAX full-state checkpoint (optax leaves by index); "
+                         "resume the port from a network snapshot instead")
+    if "G_ema" in trees:
+        ckpt_lib.load_jax_params(state.g, trees["G_ema"])
+        ckpt_lib.load_jax_params(state.g_ema, trees["G_ema"])
+    if "E" in trees:
+        state_e = trees.get("E_state") or {
+            k: v for k, v in ckpt_lib.module_params(state.enc).items()
+            if k.endswith(("/mean", "/var"))}
+        ckpt_lib.load_jax_params(state.enc, trees["E"], state_e)
+    if "D" in trees and disc is not None:
+        ckpt_lib.load_jax_params(disc, trees["D"])
+    return None
+
+
+def run_training(
+    outdir: str,
+    dataset_name: str = "synthetic",
+    data: str = "",
+    real_data: str = "",
+    batch: int = 8,
+    glr: float = 1e-3,
+    dlr: float = 8e-6,
+    gamma: float = 1.0,
+    kimg: int = 4000,
+    tick: int = 2,
+    snap: int = 50,
+    seed: int = 0,
+    z_dim: int = 512,
+    w_dim: int = 512,
+    train_gen: bool = False,
+    train_en: bool = True,
+    gan_depth: bool = True,
+    resume: str = "",
+    dry_run: bool = False,
+    gen_pose_cond: bool = False,
+    c_scale: float = 1.0,
+    sr_module: str = "",
+    sr_noise_mode: str = "none",
+    density_reg: float = 0.25,
+    decoder_lr_mul: float = 1.0,
+    objective: str = "gnerf",
+    lpips_weights: str = "",
+    dtype: str = "fp32",
+    aug: str = "noaug",
+    aug_p: float = 0.0,
+    ada_target: float = 0.6,
+    ada_kimg: float = 500.0,
+    ray_shards: int = 1,
+    freezed: int = 0,
+    neural_rendering_resolution_final: int = 0,
+    neural_rendering_resolution_fade_kimg: float = 1000.0,
+    style_mixing_prob: float = 0.0,
+    preset: str = "",
+    density_reg_every: int = 4,
+    d_reg_interval: int = 16,
+    chain: int = 1,
+    chain_dreg_split: bool = False,
+    device=None,
+):
+    """The G-NeRF training run; the JAX CLI's options plus `device`.
+    Returns the run directory (None for a dry run)."""
+    from ..utils.device import resolve_device
+    from .train_loop import TrainConfig, config_dict
+
+    if objective != "gnerf":
+        raise NotImplementedError(
+            f"--objective {objective} is not ported to gnerf_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 11: the dual discriminator and the EG3D objective)")
+    if int(chain) != 1:
+        raise ValueError("--chain > 1 is the JAX package's dispatch workaround and is not "
+                         "ported: one step is one Python call here")
+    if int(ray_shards) != 1:
+        raise ValueError("--ray_shards > 1 (sharding the render over cards) is not ported "
+                         "(ROADMAP.md Queue 1 item 14)")
+    device = resolve_device(device)
+
+    preset_cfg = RENDERING_PRESETS[preset or dataset_name]
+    rendering_kwargs = _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode,
+                                         density_reg, decoder_lr_mul, sr_module)
+    img_resolution = preset_cfg["image_resolution"]
+    cfg = TrainConfig(total_kimg=kimg, kimg_per_tick=tick, batch_size=batch, glr=glr,
+                      dlr=dlr, r1_gamma=gamma, gan_depth=gan_depth, train_en=train_en,
+                      train_gen=train_gen, snapshot_ticks=snap, random_seed=seed,
+                      dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
+    rk_json = {k: (list(v) if isinstance(v, tuple) else v) for k, v in rendering_kwargs.items()}
+    options = {
+        "dataset_name": dataset_name,
+        "preset": preset or dataset_name,
+        "config": config_dict(cfg),
+        "generator": {"z_dim": z_dim, "w_dim": w_dim, "img_resolution": img_resolution,
+                      "rendering_kwargs": rk_json},
+        "rendering_kwargs": rk_json,
+        "num_devices": torch.cuda.device_count() if device.type == "cuda" else 1,
+        "ray_shards": ray_shards,
+        "lpips_pretrained": bool(lpips_weights),
+        "aug": {"mode": aug, "p0": aug_p, "ada_target": ada_target, "ada_kimg": ada_kimg},
+        "neural_rendering_resolution_final": neural_rendering_resolution_final or None,
+        "neural_rendering_resolution_fade_kimg": neural_rendering_resolution_fade_kimg,
+        "style_mixing_prob": style_mixing_prob,
+        "held_out_scheme": "md5-basename-v1",
+        "num_processes": 1,
+    }
+    print(json.dumps(options, indent=2))
+    if dry_run:
+        print("Dry run -- exiting.")
+        return None
+
+    run_dir = pick_run_dir(outdir, dataset_name)
+    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+        json.dump(options, f, indent=2)
+    from ..utils.logger import Logger
+
+    logger = Logger(os.path.join(run_dir, "log.txt"))  # tee stdout / stderr
+    try:
+        return _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name,
+                      data, real_data, z_dim, w_dim, lpips_weights, resume, device)
+    finally:
+        logger.close()
+
+
+def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name, data,
+           real_data, z_dim, w_dim, lpips_weights, resume, device):
+    import signal
+
+    from ..models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
+    from ..utils.stats import Collector
+    from .dataset import ImageFolderDataset, SyntheticDataset, collate, data_iterator
+    from .losses import lpips_params_or_warn
+    from .train_loop import init_train_state, make_train_step, save_snapshot, save_train_state
+
+    seed, batch = cfg.random_seed, cfg.batch_size
+    # kimg and tick may be fractions when called from Python (a test's
+    # one-step run); the loop counts whole images.
+    total_nimg = int(round(cfg.total_kimg * 1000))
+    tick_nimg = max(int(round(cfg.kimg_per_tick * 1000)), 1)
+    gen = torch.Generator().manual_seed(seed)
+    g = TriPlaneGenerator(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
+                          rendering_kwargs=rendering_kwargs, device=device, generator=gen)
+    enc = ResNeXt50Encoder(out_dim=z_dim, device=device, generator=gen)
+    disc = (Discriminator(c_dim=25, img_resolution=cfg.neural_rendering_resolution,
+                          img_channels=1, device=device, generator=gen)
+            if cfg.gan_depth else None)
+    vgg, lpips_pretrained = lpips_params_or_warn(
+        lpips_weights or None, device=device, generator=torch.Generator().manual_seed(seed + 7))
+    state = init_train_state(g, enc, disc, vgg, cfg)
+    best_ssim = -100.0
+    if resume:
+        resumed = _resume(state, resume, disc)
+        if resumed is not None:
+            best_ssim = resumed
+        print(f"Resumed from {resume} at kimg {state.cur_nimg / 1000:.1f}")
+    train_step = make_train_step(cfg)
+
+    if dataset_name == "synthetic":
+        dataset = SyntheticDataset(resolution=img_resolution,
+                                   depth_resolution=cfg.neural_rendering_resolution)
+    elif dataset_name == "folder" or data.endswith(".zip"):
+        dataset = ImageFolderDataset(path=data, resolution=img_resolution)
+    else:
+        dataset = _paired_dataset(dataset_name, data, real_data, img_resolution)
+    # Seeded from the resume position: a resumed run walks a fresh order.
+    batches = data_iterator(dataset, batch_size=batch, seed=seed + state.cur_nimg)
+
+    def to_device(host):
+        return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+                for k, v in host.items()}
+
+    validate_batch = make_validator(state.g_ema, state.enc, vgg=vgg,
+                                    lpips_pretrained=lpips_pretrained)
+    val_items = [dataset[i] for i in range(min(4, len(dataset)))]
+    val_batch = to_device({k: v for k, v in collate(val_items).items()
+                           if k in ("condition_image", "loss_image", "loss_c")})
+    save_image_grid(val_batch["condition_image"].float().cpu().numpy(),
+                    os.path.join(run_dir, "id_images.png"), drange=(0, 255))
+
+    tb_writer = None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        tb_writer = SummaryWriter(run_dir)
+    except Exception as err:  # noqa: BLE001 - TensorBoard is optional
+        print("Skipping tfevents export:", err)
+
+    stop_requested = {"flag": False}
+
+    def _request_stop(signum, frame):
+        stop_requested["flag"] = True
+        print(f"signal {signum}: finishing step, checkpointing, exiting...")
+
+    prev_handlers = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    collector = Collector()
+    cur_nimg = state.cur_nimg
+    tick_idx = cur_nimg // tick_nimg
+    tick_start = start = time.time()
+    pending = next(batches)
+    print(f"Training for {cfg.total_kimg} kimg in {run_dir} ...")
+    try:
+        while cur_nimg < total_nimg and not stop_requested["flag"]:
+            rng = step_generator(seed, cur_nimg, device)
+            _, stats = train_step(state, to_device(pending), rng)
+            pending = next(batches)
+            cur_nimg = state.cur_nimg
+            for name, value in stats.items():
+                collector.report(name, value)
+            if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
+                tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
+                now = time.time()
+                fields = collector.update()
+                msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}" for k, v in fields.items())
+                val_ssim, val_psnr, val_lpips, val_images = validate_batch(val_batch)
+                val_ssim, val_psnr = float(val_ssim), float(val_psnr)
+                val_metrics = {"Metrics/val_ssim": val_ssim, "Metrics/val_psnr": val_psnr}
+                if lpips_pretrained:  # never log a random-VGG "perceptual" curve
+                    val_metrics["Metrics/val_lpips"] = float(val_lpips)
+                print(f"tick {tick_idx:<5d} kimg {cur_nimg / 1000:<8.1f} "
+                      f"sec/tick {now - tick_start:<7.1f} val_ssim {val_ssim:.4f} "
+                      f"val_psnr {val_psnr:.2f} {msg}")
+                collector.write_jsonl(os.path.join(run_dir, "stats.jsonl"),
+                                      extra={"kimg": cur_nimg / 1000, **val_metrics})
+                if tb_writer is not None:
+                    for name, v in fields.items():
+                        tb_writer.add_scalar(name, v["mean"], global_step=cur_nimg)
+                    for name, v in val_metrics.items():
+                        tb_writer.add_scalar(name, v, global_step=cur_nimg)
+                    tb_writer.flush()
+                is_best = val_ssim > best_ssim
+                best_ssim = max(best_ssim, val_ssim)
+                try:  # a full disk costs snapshots, not the run
+                    if is_best:
+                        save_snapshot(os.path.join(run_dir, "network-snapshot-best.npz"),
+                                      state, config=options)
+                    save_snapshot(os.path.join(run_dir, "network-snapshot-latest.npz"),
+                                  state, config=options)
+                    save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
+                                     config=options, best_ssim=best_ssim)
+                    save_image_grid(val_images.float().cpu().numpy(),
+                                    os.path.join(run_dir, f"fakes-{cur_nimg // 1000:06d}.png"))
+                    if tick_idx % cfg.snapshot_ticks == 0:
+                        save_snapshot(os.path.join(
+                            run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz"),
+                            state, config=options)
+                except OSError as err:
+                    print(f"WARNING: snapshot write failed: {err}")
+                tick_start = now
+    finally:
+        for s, h in prev_handlers.items():
+            signal.signal(s, h)
+        if tb_writer is not None:
+            tb_writer.close()
+    try:
+        save_snapshot(os.path.join(run_dir, "network-snapshot-final.npz"), state,
+                      config=options)
+        save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
+                         config=options, best_ssim=best_ssim)
+    except OSError as err:
+        print(f"WARNING: final snapshot failed: {err}")
+    if stop_requested["flag"]:
+        print(f"preempted at {cur_nimg / 1000:.1f} kimg — full state saved; resume with "
+              f"--resume {os.path.join(run_dir, 'training-state-latest.npz')}")
+    print(f"done in {time.time() - start:.1f}s")
+    return run_dir
+
+
+@click.command()
+@click.option("--outdir", type=str, required=True)
+@click.option("--dataset_name", type=str, default="synthetic")
+@click.option("--data", type=str, default="")
+@click.option("--real_data", type=str, default="")
+@click.option("--batch", type=int, default=8)
+@click.option("--glr", type=float, default=1e-3)
+@click.option("--dlr", type=float, default=8e-6)
+@click.option("--gamma", type=float, default=1.0)
+@click.option("--kimg", type=int, default=4000)
+@click.option("--tick", type=int, default=2)
+@click.option("--snap", type=int, default=50)
+@click.option("--seed", type=int, default=0)
+@click.option("--z_dim", type=int, default=512)
+@click.option("--train_gen", type=bool, default=False)
+@click.option("--train_en", type=bool, default=True)
+@click.option("--gan_depth", type=bool, default=True)
+@click.option("--resume", type=str, default="")
+@click.option("--dry-run", "dry_run", is_flag=True, default=False)
+@click.option("--gen_pose_cond", type=bool, default=False)
+@click.option("--c_scale", type=float, default=1.0)
+@click.option("--sr_module", type=str, default="")
+@click.option("--sr_noise_mode", type=str, default="none")
+@click.option("--density_reg", type=float, default=0.25)
+@click.option("--decoder_lr_mul", type=float, default=1.0)
+@click.option("--dtype", type=click.Choice(["fp32", "bf16"]), default="fp32",
+              help="forward-pass precision (optimizers and compositing stay fp32)")
+@click.option("--lpips-weights", "lpips_weights", type=str, default="",
+              help="converted vgg16.pt npz (tools/convert_vgg16_lpips.py); "
+                   "empty = RANDOM VGG features (loudly flagged)")
+@click.option("--objective", type=click.Choice(["gnerf", "eg3d"]), default="gnerf",
+              help="gnerf = encoder-inversion training; eg3d is not ported yet (raises)")
+@click.option("--aug", type=click.Choice(["noaug", "ada", "fixed"]), default="noaug",
+              help="EG3D-objective augmentation (recorded; unused by gnerf)")
+@click.option("--aug_p", type=float, default=0.0)
+@click.option("--freezed", type=int, default=0)
+@click.option("--ray_shards", type=int, default=1,
+              help="only 1: sharding the render over cards is not ported")
+@click.option("--neural_rendering_resolution_final", type=int, default=0)
+@click.option("--neural_rendering_resolution_fade_kimg", type=float, default=1000.0)
+@click.option("--style_mixing_prob", type=float, default=0.0)
+@click.option("--ada_target", type=float, default=0.6)
+@click.option("--density_reg_every", type=int, default=4)
+@click.option("--d_reg_interval", type=int, default=16)
+@click.option("--preset", type=str, default="",
+              help="rendering/SR/resolution recipe (a RENDERING_PRESETS key; default "
+                   "= dataset_name's own); --dataset_name synthetic --preset ffhq trains "
+                   "the full-width 512^2 / 8XDC / 48+48 shape on procedural data")
+@click.option("--chain", type=int, default=1, help="only 1 (raises otherwise)")
+@click.option("--chain_dreg_split", type=bool, default=False)
+@click.option("--ada_kimg", type=float, default=500.0)
+@click.option("--device", type=str, default=None,
+              help="torch device; default CUDA (refuses to run without a card)")
+def main(**kwargs):
+    run_training(**kwargs)
+
+
+if __name__ == "__main__":
+    main()

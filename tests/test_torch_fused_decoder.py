@@ -345,3 +345,135 @@ def test_kernel_scales_huge_rows_on_card():
 def test_f32_kernel_scales_huge_rows_on_card():
     """The same for x65536 fp32 features through the 3xTF32 kernel."""
     _huge_rows_on_card(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Gradients (training differentiates the decoder through `OSGDecode`)
+
+GRAD_CASES = [("float32", 1.0), ("float32", 20.0), ("bfloat16", 1.0), ("bfloat16", 20.0)]
+
+
+def _grad_inputs(dtype, scale, n=2, m=600, c=32, out_dim=32, seed=4):
+    jdec, params, dec = _pair(c, out_dim, 1.0, seed=seed)
+    rs = np.random.RandomState(seed)
+    feats = t(rs.randn(n, 3, m, c) * scale).to(getattr(torch, dtype))
+    cot = t(rs.randn(n, m, out_dim + 1))
+    return jdec, params, dec, feats, cot
+
+
+@pytest.mark.parametrize("dtype,scale", GRAD_CASES)
+def test_decoder_gradients_match_jax(dtype, scale):
+    """The module's gradients (features, fc0 / fc1 weights and biases)
+    against jax.grad of the JAX plain decoder. With bf16 features the port
+    runs w1e in bf16 too, so the JAX decoder gets the bf16 values of the
+    features and an fc0 weight whose folded w1e is the port's bf16 w1e; the
+    feature and fc0 gradients then come back through bf16 (w1e's dtype) and
+    are held to one bf16 ulp (rtol 2^-7)."""
+    jdec, params, dec, feats, cot = _grad_inputs(dtype, scale)
+    if dtype == "bfloat16":
+        w1e = dec.folded_weights(torch.bfloat16)[0].float()
+        params = dict(params, fc0=dict(params["fc0"], weight=jnp.asarray(
+            to_np(w1e.t() * math.sqrt(dec.n_features)))))
+    f = feats.detach().requires_grad_()
+    out = dec(f)
+    loss = (out["sigma"] * cot[..., :1]).sum() + (out["rgb"] * cot[..., 1:]).sum()
+    got = torch.autograd.grad(loss, [f, dec.fc0.weight, dec.fc0.bias, dec.fc1.weight,
+                                     dec.fc1.bias])
+
+    def jloss(p, x):
+        o = jdec.apply(p, x, use_fused=False)
+        return (o["sigma"] * cot[..., :1].numpy()).sum() + (o["rgb"] * cot[..., 1:].numpy()).sum()
+
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(to_np(feats.float())))
+    assert got[0].dtype == feats.dtype
+    loose = 2 ** -7 if dtype == "bfloat16" else 1e-4
+    names = [("fc0", "weight"), ("fc0", "bias"), ("fc1", "weight"), ("fc1", "bias")]
+    for g, want, name, rtol in zip(got, [gx] + [gp[a][b] for a, b in names],
+                                   ["feats"] + [f"{a}/{b}" for a, b in names],
+                                   [loose, loose, 1e-4, 1e-4, 1e-4]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(to_np(g.float()), want, rtol=rtol,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,scale", GRAD_CASES)
+def test_decoder_function_matches_plain_autograd(dtype, scale):
+    """OSGDecode's gradients with respect to each of its five inputs equal
+    autograd through `osg_decode_ref`."""
+    _, _, dec, feats, cot = _grad_inputs(dtype, scale, seed=7)
+    dt = getattr(torch, dtype)
+    inputs = [x.detach().requires_grad_() for x in [feats, *dec.folded_weights(dt)]]
+    out = osg_decode(*inputs)
+    assert type(out.grad_fn).__name__ == "OSGDecodeBackward"
+    got = torch.autograd.grad(out, inputs, cot)
+    want = torch.autograd.grad(osg_decode_ref(*inputs), inputs, cot)
+    for name, g, w in zip(["feats", "w1e", "b1e", "w2e", "b2e"], got, want):
+        assert g.dtype == w.dtype, name
+        tol = 2 ** -7 if g.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=1e-5 * float(w.float().abs().max()), msg=name)
+
+
+def test_backward_formula_gradcheck():
+    """`osg_decode_backward` in float64 against finite differences of the
+    float64 decoder (torch.autograd.gradcheck)."""
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode_backward
+
+    class Decode64(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return _decode_f64(*args)
+
+        @staticmethod
+        def backward(ctx, dout):
+            return osg_decode_backward(dout, *ctx.saved_tensors)
+
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(s, generator=g, dtype=torch.float64, requires_grad=True)
+            for s in [(2, 3, 5, 8), (8, 6), (6,), (6, 4), (4,)]]
+    assert torch.autograd.gradcheck(Decode64.apply, args, eps=1e-6, atol=1e-8, rtol=1e-6)
+
+
+def test_gradient_route_only_when_needed():
+    """Without grad mode, or with no input requiring grad, osg_decode is the
+    direct call (no graph); with one, the result has OSGDecode's grad_fn."""
+    _, _, dec = _pair(32, 32, 1.0, seed=3)
+    feats = t(np.random.RandomState(3).randn(1, 3, 64, 32))
+    with torch.no_grad():
+        assert dec(feats.requires_grad_())["rgb"].grad_fn is None
+    with torch.inference_mode():
+        assert dec(t(np.ones((1, 3, 8, 32))))["sigma"].grad_fn is None
+    frozen = [w.detach() for w in dec.folded_weights(torch.float32)]
+    assert osg_decode(feats.detach(), *frozen).grad_fn is None
+    assert osg_decode(feats.detach().requires_grad_(), *frozen).grad_fn is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_gradients_match_plain_version_on_card(dtype):
+    """On the card the forward is the kernel and the backward plain products:
+    the gradients equal those through `osg_decode_ref`, at the tolerance of
+    the kernel's forward (the backward recomputes from the inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    _, _, dec = _pair(32, 32, 1.0, seed=5)
+    dec = dec.cuda()
+    gen = torch.Generator().manual_seed(1)
+    feats = torch.randn(2, 3, 50000, 32, generator=gen).to("cuda", dt).requires_grad_()
+    cot = torch.randn(2, 50000, 33, generator=gen).cuda()
+    weights = list(dec.folded_weights(dt))
+    before = osg_decode.launches
+    out = osg_decode(feats, *weights)
+    got = torch.autograd.grad(out, [feats, dec.fc0.weight, dec.fc1.weight], cot)
+    assert osg_decode.launches == before + 1 and out.grad_fn is not None
+    want = torch.autograd.grad(osg_decode_ref(feats, *dec.folded_weights(dt)),
+                               [feats, dec.fc0.weight, dec.fc1.weight], cot)
+    # The feature and fc0 gradients come back through bf16 (the features'
+    # and w1e's dtype) when the features are bf16: one bf16 ulp, 2^-7.
+    for g, w, through_bf16 in zip(got, want, (True, True, False)):
+        tol = 2 ** -7 if through_bf16 and dt == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=1e-5 * float(w.float().abs().max()))

@@ -168,3 +168,56 @@ def test_triplane_synthesis_matches_jax(generator_pair):
     for name, atol in (("image_depth", 1e-4), ("image_raw", 1e-4), ("image", 1e-4)):
         np.testing.assert_allclose(to_np(got[name]), np.asarray(want[name]), rtol=1e-4,
                                    atol=atol, err_msg=name)
+
+
+def _smooth_photos(n, res, seed):
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    return np.stack([np.asarray(Image.fromarray(rs.randint(0, 256, (8, 8, 3), np.uint8))
+                                .resize((res, res), Image.BILINEAR)).transpose(2, 0, 1)
+                     for _ in range(n)]).astype(np.float32) / 127.5 - 1.0
+
+
+def test_encoder_train_mode_matches_jax(encoder_pair):
+    """Batch statistics (fp32 moments as E[x^2] - E[x]^2): z and the updated
+    running mean and unbiased variance against JAX apply(train=True)."""
+    from gnerf_tpu_torch.utils.checkpoint import module_params
+
+    jenc, params, state, _, _ = encoder_pair
+    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="cpu")
+    load_jax_params(enc, params, state)
+    img = _smooth_photos(2, 64, seed=3)
+    want, new_state = jenc.apply(params, state, jnp.asarray(img), train=True)
+    got = enc.apply(t(img), train=True)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
+    buffers = module_params(enc)
+    from gnerf_tpu_torch.utils.checkpoint import flatten_tree
+
+    for k, v in flatten_tree(new_state).items():
+        np.testing.assert_allclose(buffers[k], np.asarray(v), rtol=1e-4, atol=1e-5, err_msg=k)
+    assert not np.allclose(buffers["bn1/mean"], np.asarray(state["bn1"]["mean"]))
+
+
+@pytest.mark.parametrize("n,group,arch,cmap", [
+    (2, 4, "resnet", None),   # group min(4, 2) = 2
+    (4, 4, "resnet", None),   # group 4
+    (4, 2, "resnet", None),   # two groups of 2
+    (4, None, "skip", 16),    # one group of N; skip architecture; explicit cmap_dim
+])
+def test_discriminator_matches_jax(n, group, arch, cmap):
+    """Depth D logits against the JAX Discriminator, through the minibatch
+    std group cases and both architectures."""
+    kw = dict(c_dim=25, img_resolution=16, img_channels=1, channel_base=256, channel_max=32,
+              mbstd_group_size=group, architecture=arch, cmap_dim=cmap)
+    jd = jsg.Discriminator(**kw)
+    params = jd.init(jax.random.PRNGKey(n))
+    d = stylegan2.Discriminator(**kw, device="cpu")
+    load_jax_params(d, params)
+    rs = np.random.RandomState(n)
+    img = (2.25 + rs.rand(n, 1, 16, 16) * 1.05).astype(np.float32)
+    c = rs.randn(n, 25).astype(np.float32)
+    want = jd.apply(params, jnp.asarray(img), jnp.asarray(c))
+    got = d.apply(t(img), t(c))
+    assert tuple(got.shape) == (n, 1)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-5)

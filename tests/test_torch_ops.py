@@ -110,3 +110,78 @@ def test_interpolate_bilinear_matches_jax(in_hw, out_hw, antialias):
     want = jops.interpolate_bilinear(jnp.asarray(x), out_hw[0], out_hw[1], antialias=antialias)
     got = ops.interpolate_bilinear(t(x), out_hw[0], out_hw[1], antialias=antialias)
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("taps,up,down,padding", [
+    ([1, 3, 3, 1], 1, 2, (1, 1, 1, 1)),                # D's FIR downsampling
+    ([1, 3, 3, 1], 2, 1, (2, 1, 2, 1)),                # G's FIR upsampling
+    ([1, 3, 5, 7, 7, 5, 3, 1], 2, 1, (3, 3, 3, 3)),    # separable
+])
+def test_upfirdn2d_differentiated_matches_jax(taps, up, down, padding):
+    """With an input that requires grad (the differentiable convolution):
+    the values and the input gradient equal the JAX op's and its VJP's, and
+    the values those of the inference path."""
+    import jax
+    import torch
+
+    rs = np.random.RandomState(len(taps) + up)
+    x = rs.randn(2, 3, 10, 10).astype(np.float32)
+    fj, ft = jops.setup_filter(taps), ops.setup_filter(taps)
+    xt = t(x).requires_grad_()
+    got = ops.upfirdn2d(xt, ft, up=up, down=down, padding=padding, gain=up * up)
+    want, vjp = jax.vjp(lambda a: jops.upfirdn2d(a, fj, up=up, down=down, padding=padding,
+                                                 gain=up * up), jnp.asarray(x))
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+    cot = rs.randn(*want.shape).astype(np.float32)
+    (gx,) = torch.autograd.grad(got, xt, t(cot))
+    np.testing.assert_allclose(to_np(gx), np.asarray(vjp(jnp.asarray(cot))[0]), rtol=RTOL,
+                               atol=ATOL)
+    with torch.no_grad():
+        grouped = ops.upfirdn2d(t(x), ft, up=up, down=down, padding=padding, gain=up * up)
+    np.testing.assert_allclose(to_np(got), to_np(grouped), rtol=1e-6, atol=1e-6)
+
+
+def test_upfirdn2d_double_backward_is_not_per_channel():
+    """R1 differentiates the FIR filtering twice; that must not run one
+    convolution per channel (PyTorch's double backward of a grouped
+    convolution does, even for a constant filter)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    c = 32
+    x = torch.randn(2, c, 12, 12, requires_grad=True)
+    w = torch.randn(c, c, 3, 3, requires_grad=True)
+    f = ops.setup_filter([1, 3, 3, 1])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = ops.upfirdn2d(torch.nn.functional.conv2d(x, w, padding=1), f, down=2,
+                          padding=1)
+        (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        torch.autograd.grad(gx.square().sum(), w)
+    convs = sum(e.count for e in prof.key_averages() if e.key == "aten::convolution")
+    assert convs < c, convs
+
+
+@pytest.mark.parametrize("stride,padding,size,groups", [(1, 1, 9, 1), (2, 0, 10, 1), (2, 0, 9, 1),
+                                                         (1, 0, 8, 2)])
+def test_conv2d_twice_differentiated_matches_native(stride, padding, size, groups):
+    """The resampling ops' differentiable convolution: values, first and
+    second derivatives (an R1-style penalty's weight gradient) equal those
+    through F.conv2d's own backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from gnerf_tpu_torch.ops.upfirdn2d import conv2d
+
+    g = torch.Generator().manual_seed(stride + size)
+    x = torch.randn(2, 4, size, size, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(6, 4 // groups, 3, 3, generator=g, dtype=torch.float64, requires_grad=True)
+    out = {}
+    for name, conv in (("port", lambda a: conv2d(a, w, stride, padding, groups)),
+                       ("native", lambda a: F.conv2d(a, w, stride=stride, padding=padding,
+                                                     groups=groups))):
+        y = conv(x)
+        (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        gw = torch.autograd.grad(gx.square().sum(), w)[0]
+        out[name] = (y, gx, gw)
+    for a, b in zip(out["port"], out["native"]):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)

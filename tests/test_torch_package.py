@@ -28,6 +28,9 @@ def test_import_pulls_in_no_jax():
         "import gnerf_tpu_torch.ops, gnerf_tpu_torch.render, gnerf_tpu_torch.utils.checkpoint\n"
         "import gnerf_tpu_torch.infer.server, gnerf_tpu_torch.infer.shape_utils\n"
         "import gnerf_tpu_torch.infer.crosssection, gnerf_tpu_torch.utils.alignment\n"
+        "import gnerf_tpu_torch.training, gnerf_tpu_torch.training.train\n"
+        "import gnerf_tpu_torch.utils.misc, gnerf_tpu_torch.utils.stats\n"
+        "import gnerf_tpu_torch.utils.logger\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -98,8 +101,27 @@ def _extract_sigma_grid(g):
     return extract_sigma_grid(g, torch.zeros((1, g.num_ws, g.w_dim)), voxel_resolution=4)
 
 
+def _discriminator():
+    from gnerf_tpu_torch.models import Discriminator
+
+    return Discriminator(c_dim=25, img_resolution=8, img_channels=1, channel_base=256,
+                         channel_max=32)
+
+
+def _vgg():
+    from gnerf_tpu_torch.training import VGG16LPIPS
+
+    return VGG16LPIPS()
+
+
+def _run_training(tmp_path):
+    from gnerf_tpu_torch.training.train import run_training
+
+    return run_training(outdir=str(tmp_path), dry_run=True)
+
+
 ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
-           "load_service", "extract_sigma_grid"]
+           "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -108,7 +130,7 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
     work. With device="cpu" the service and the sweep run."""
     from gnerf_tpu_torch.models import TriPlaneGenerator
 
-    g = TriPlaneGenerator(**tiny_gen_cfg(), device="cpu") if entry in ENTRIES[3:] else None
+    g = TriPlaneGenerator(**tiny_gen_cfg(), device="cpu") if entry in ENTRIES[3:6] else None
     if g is not None:
         from gnerf_tpu_torch.utils import checkpoint
 
@@ -118,7 +140,9 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
     calls = {"TriPlaneGenerator": _tiny_generator, "ResNeXt50Encoder": _encoder,
              "generate_videos": lambda: _generate_videos(tmp_path),
              "GNerfService": lambda: _service(g), "load_service": lambda: _load_service(tmp_path),
-             "extract_sigma_grid": lambda: _extract_sigma_grid(g)}
+             "extract_sigma_grid": lambda: _extract_sigma_grid(g),
+             "Discriminator": _discriminator, "VGG16LPIPS": _vgg,
+             "run_training": lambda: _run_training(tmp_path)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     if entry == "GNerfService":
@@ -137,6 +161,17 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
         vol = extract_sigma_grid(g, torch.zeros((1, g.num_ws, g.w_dim)), voxel_resolution=4,
                                  device="cpu")
         assert vol.shape == (4, 4, 4)
+    elif entry == "run_training":
+        from click.testing import CliRunner
+
+        from gnerf_tpu_torch.training.train import main
+
+        result = CliRunner().invoke(main, ["--outdir", str(tmp_path), "--dry-run",
+                                           "--device", "cpu"])
+        assert result.exit_code == 0, result.output
+        assert "Dry run" in result.output
+        failed = CliRunner().invoke(main, ["--outdir", str(tmp_path), "--dry-run"])
+        assert isinstance(failed.exception, RuntimeError)
 
 
 def test_decoder_wrapper_has_no_silent_fallback():

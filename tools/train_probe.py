@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""The full-width G-NeRF train step of `gnerf_tpu_torch`, measured on one CUDA card.
+
+    python3 tools/train_probe.py [--steps 5] [--profile FILE]
+
+Builds the networks of the `ffhq` preset as `chip_smoke.py`'s train phase
+does (seed-init weights, fp32, batch 4, SyntheticDataset batches) and
+prints, after the card's name and power limit:
+
+  - for each rematerialisation setting (synthesis, fakes' VGG pass: off/off,
+    on/off, off/on, on/on): the median step ms over `--steps` steps after
+    two warm-up steps, the spread, images/s and the peak memory allocated;
+  - the step split by CUDA events (no remat): the forward of E (train mode),
+    G's mapping, the backbone's planes, the 48+48 render, the 8XDC SR, the
+    reconstruction losses with LPIPS and D on the fake depth; the backward
+    of the G loss; the D loss with R1, forward and backward; both Adam
+    steps and the G_ema update;
+  - with `--profile FILE`, a torch.profiler table of one step (no remat),
+    sorted by device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _split(state, cfg, batch, rng):
+    """One step, its parts bracketed by CUDA events; returns {part: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from gnerf_tpu_torch.ops.interpolate import interpolate_bilinear
+    from gnerf_tpu_torch.training import losses as L
+    from gnerf_tpu_torch.utils.misc import ema_update, nan_to_num
+
+    g, enc, disc, vgg = state.g, state.enc, state.disc, state.vgg
+    res = cfg.neural_rendering_resolution
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    z = enc.apply(batch["condition_image"].float() / 127.5 - 1.0, train=True)
+    mark("E forward")
+    c = batch["loss_c"].float()
+    ws = g.mapping(z, c)
+    mark("mapping")
+    planes = g.backbone_planes(ws, noise_mode="random", rng=rng)
+    mark("backbone planes")
+    raw = g.render_planes(planes, c, ws, neural_rendering_resolution=res, noise_mode="random",
+                          rng=rng, superres=False)
+    mark("render 48+48")
+    fi = raw["feature_image"]
+    image, image_raw = g.superresolution(fi[:, :3], fi, ws, noise_mode="none")
+    mark("SR 8XDC")
+    loss_image = batch["loss_image"].float()
+    real = loss_image / 127.5 - 1.0
+    real_raw = interpolate_bilinear(loss_image, res, res, antialias=True) / 127.5 - 1.0
+    total = 0.0
+    for r, f in ((real_raw, image_raw), (real, image)):
+        total = total + (r - f).abs().mean() + (1 - L.ssim(r * 0.5 + 0.5, f * 0.5 + 0.5))
+
+    def to256(x):
+        return interpolate_bilinear(x, vgg.resize_to, vgg.resize_to, antialias=True)
+
+    total = total + L.lpips_training_distance(  # targets and fakes as two batches of 2N
+        vgg, torch.cat([to256(real_raw), to256(real)]),
+        torch.cat([to256(image_raw), to256(image)])).mean()
+    mark("L1 + SSIM + LPIPS")
+    depth = raw["image_depth"]
+    total = total + 1.2 * L.g_nonsaturating_loss(disc.apply(depth, c))
+    mark("D on fake depth")
+    params = [p for grp in state.opt_g.param_groups for p in grp["params"]]
+    grads = torch.autograd.grad(total, params)
+    mark("G loss backward")
+    d_params = list(disc.parameters())
+    depth_real = interpolate_bilinear(batch["c_depth_image"].float(), res, res, antialias=True)
+    cond = batch["condition_c"].float()
+    loss_d = (F.softplus(disc.apply(depth.detach(), c)).mean()
+              + F.softplus(-disc.apply(depth_real, cond)).mean()
+              + (L.r1_penalty(lambda x: disc.apply(x, cond), depth_real) * 0.5).mean())
+    d_grads = torch.autograd.grad(loss_d, d_params)
+    mark("D loss + R1, fwd + bwd")
+    for opt, ps, gs in ((state.opt_g, params, grads), (state.opt_d, d_params, d_grads)):
+        for p, gr in zip(ps, gs):
+            p.grad = gr
+        nan_to_num(gs)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    ema_update(state.g_ema.state_dict(), g.state_dict(), 0.99)
+    mark("Adam x2 + G_ema")
+    torch.cuda.synchronize()
+    return {name: marks[i - 1][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks) if i}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--profile", metavar="FILE", default=None)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("train_probe: needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    import chip_smoke
+    from gnerf_tpu_torch.training import SyntheticDataset, data_iterator, make_train_step
+    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    batches = data_iterator(SyntheticDataset(resolution=512, depth_resolution=64),
+                            batch_size=chip_smoke.TRAIN_BATCH, seed=0)
+    dev = [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in next(batches).items()}
+           for _ in range(args.steps + 2)]
+    state, cfg = chip_smoke._full_width_trainer(0)
+    for remat_synthesis, remat_lpips in ((False, False), (True, False), (False, True),
+                                         (True, True)):
+        c = dataclasses.replace(cfg, remat_synthesis=remat_synthesis, remat_lpips=remat_lpips)
+        step = make_train_step(c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(args.steps + 1)]
+        for i, b in enumerate(dev):
+            if i == 2:
+                ev[0].record()
+            step(state, b, step_generator(0, state.cur_nimg, "cuda"))
+            if i >= 2:
+                ev[i - 1].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(args.steps)]
+        med = statistics.median(ms)
+        print(f"[remat synthesis={remat_synthesis} lpips={remat_lpips}] step_ms median={med:.3f} "
+              f"min={min(ms):.3f} max={max(ms):.3f} images_per_s="
+              f"{chip_smoke.TRAIN_BATCH * 1e3 / med:.3f} max_memory_allocated="
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+    parts = [_split(state, cfg, b, step_generator(0, 4 * i, "cuda")) for i, b in enumerate(dev)]
+    parts = parts[2:]
+    whole = sum(statistics.median(p[k] for p in parts) for k in parts[0])
+    print(f"[split] medians over {len(parts)} steps (no remat), sum {whole:.3f} ms:", flush=True)
+    for k in parts[0]:
+        v = statistics.median(p[k] for p in parts)
+        print(f"[split]   {k:26s} {v:9.3f} ms  {100 * v / whole:5.1f}%", flush=True)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        step = make_train_step(cfg)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, dev[0], step_generator(0, state.cur_nimg, "cuda"))
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+        os.makedirs(os.path.dirname(os.path.abspath(args.profile)), exist_ok=True)
+        with open(args.profile, "w") as fh:
+            fh.write(table)
+        print("[profile] one step, top device ops:\n" + "\n".join(table.splitlines()[:30]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
