@@ -8,8 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build:   compiles every kernel of the paths from csrc/ with nvcc;
               prints ptxas's registers and spills per kernel instance.
   3. kernels: each kernel vs its plain PyTorch version on the card, at the
-              shapes of the main, server and shape paths and at the edge
-              cases, with its time, its bound and the plain version's time.
+              shapes of the main, server, shape and training paths (with
+              gradients at the G-NeRF and EG3D step's shapes, fp32 and
+              bf16, and at Greg's) and at the edge cases, with its time,
+              its bound and the plain version's time.
   4. small:   a tiny generator on the card (fp32) vs the same weights on
               the CPU, through render + 8XDC, and through `sample_mixed`.
   5. main:    `generate_videos` at the full width of the default
@@ -35,6 +37,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               osg_decode launched twice per step; a full-state save and load
               gives the state back bit for bit, and the next step from both
               agrees within tolerance.
+ 10. eg3d:    the EG3D objective at the full width of the `ffhq` preset (all
+              of G trained against DualDiscriminator(c_dim=25, 512^2, 3),
+              lazy regularization at the CLI's cadence: Gmain + Dmain every
+              step, Greg every 4, Dreg every 16; batch 4, fp32,
+              seed-init weights, SyntheticDataset batches on the card):
+              2 warm-up steps, then 16 timed scheduled steps (16 Gmain+Dmain,
+              4 Greg, 1 Dreg); the CUDA-event ms of each phase, the
+              amortised step ms, images/s, peak memory and the osg_decode
+              launches of each phase (checked exactly); every loss finite,
+              G, D, G_ema and w_avg moved; a profile of one Dreg shows no
+              convolution double backward; a full-state save and load gives
+              the state back bit for bit and the next step from both agrees
+              within tolerance; under Freeze-D (2 layers) the frozen layers
+              stay bitwise through a main and a Dreg step.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -65,6 +81,7 @@ FRAMES_DEFAULT = 8
 MAIN_M = 64 * 64 * 96        # points per decoder pass at 64^2 rays x 96 samples
 TRAIN_M = 64 * 64 * 48       # points per training decoder pass (48 coarse or 48 fine)
 TRAIN_BATCH = 4              # the ffhq preset's batch on one card
+GREG_M = 2 * 1000            # points of the density regularizer (density_reg_points x 2)
 ORBIT_FRAMES = 15            # frames per /orbit chunk (GNerfService.frames_per_chunk)
 SHAPE_CHUNK = 1 << 20        # points per shape-sweep chunk (extract_sigma_grid max_batch)
 SHAPE_RES = 256              # voxels per side of the shapes phase (512^3 runs through the CLI)
@@ -200,9 +217,14 @@ def phase_kernels():
         ("server_mb4_bf16", 4, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("orbit_chunk_bf16", 1, ORBIT_FRAMES * MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("shape_chunk_f32", 1, SHAPE_CHUNK, 32, 32, 1.0, f32, 1.0, True),
-        # one pass of the train step: 4 identities x 64^2 rays x 48 samples
+        # one pass of the train step: 4 identities x 64^2 rays x 48 samples;
+        # the same in bf16 (the EG3D step under --dtype bf16); the EG3D
+        # density regularizer's points (Greg)
         ("train_f32", TRAIN_BATCH, TRAIN_M, 32, 32, 1.0, f32, 1.0, True),
+        ("train_bf16", TRAIN_BATCH, TRAIN_M, 32, 32, 1.0, bf16, 1.0, True),
+        ("greg_f32", TRAIN_BATCH, GREG_M, 32, 32, 1.0, f32, 1.0, True),
     ]
+    grad_cases = ("train_f32", "train_bf16", "greg_f32")
     results = {}
     for name, n, m, c, out_dim, lr, dtype, scale, timed in cases:
         gen = torch.Generator().manual_seed(m + c)
@@ -238,11 +260,12 @@ def phase_kernels():
                     f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                     f"roofline={row['bound_ms'] / row['ms']:.3f} "
                     f"achieved={moved / row['ms'] / 1e9:.3f} TB/s")
-        if name == "train_f32":
+        if name in grad_cases:
             ok = _train_gradients(feats, dec, row) and ok
+            rtol = "2^-7 for the feature and fc0 gradients, 1e-4 else" if dtype == bf16 else "1e-4"
             msg += (f" backward_ms={row['backward_ms']:.4f} (plain products) "
                     f"backward_bound_ms={row['backward_bound_ms']:.4f} "
-                    f"grad_max_err={row['grad_max_err']:.3e} of the largest (rtol 1e-4, "
+                    f"grad_max_err={row['grad_max_err']:.3e} of the largest (rtol {rtol}, "
                     "atol 1e-5 of the largest)")
         log(msg)
         if not ok:
@@ -254,35 +277,41 @@ def phase_kernels():
 
 
 def _train_gradients(feats, dec, row) -> bool:
-    """Decoder gradients at the training shape through `OSGDecode` (kernel
+    """Decoder gradients at a training shape through `OSGDecode` (kernel
     forward, plain-product backward) vs autograd through the plain version,
     held to rtol 1e-4 with an atol of 1e-5 of each gradient's largest
-    element; and the backward's time with its byte bound (features and
-    dL/dout read once, the feature gradient written once)."""
+    element (bf16 features: the feature and fc0 gradients come back through
+    bf16, the features' and w1e's dtype, so rtol 2^-7, one bf16 ulp); and
+    the backward's time with its byte bound (features and dL/dout read once,
+    the feature gradient written once)."""
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode, osg_decode_backward, osg_decode_ref
 
+    dt = feats.dtype
     f = feats.detach().requires_grad_()
     cot = torch.randn(feats.shape[0], feats.shape[2], 33, device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(2))
     inputs = [f, dec.fc0.weight, dec.fc0.bias, dec.fc1.weight, dec.fc1.bias]
-    out = osg_decode(f, *dec.folded_weights(torch.float32))
+    through_bf16 = (True, True, False, False, False)
+    out = osg_decode(f, *dec.folded_weights(dt))
     if out.grad_fn is None:
         raise SystemExit("chip_smoke: osg_decode returned no grad_fn with inputs requiring grad")
     got = torch.autograd.grad(out, inputs, cot)
-    want = torch.autograd.grad(osg_decode_ref(f, *dec.folded_weights(torch.float32)), inputs, cot)
+    want = torch.autograd.grad(osg_decode_ref(f, *dec.folded_weights(dt)), inputs, cot)
     worst, ok = 0.0, True
-    for g, w in zip(got, want):
+    for g, w, bf in zip(got, want, through_bf16):
+        g, w = g.float(), w.float()
         scale = float(w.abs().max())
+        rtol = 2 ** -7 if bf and dt == torch.bfloat16 else 1e-4
         worst = max(worst, float((g - w).abs().max()) / scale)
-        ok = ok and bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=1e-4,
+        ok = ok and bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=rtol,
                                                                        atol=1e-5 * scale)
-    weights = [w.detach() for w in dec.folded_weights(torch.float32)]
+    weights = [w.detach() for w in dec.folded_weights(dt)]
     row["grad_max_err"] = worst
     row["backward_ms"] = cuda_ms(lambda: osg_decode_backward(cot, feats, *weights),
                                  iters=10, warmup=2)
-    moved = 2 * feats.numel() * 4 + cot.numel() * 4
+    moved = 2 * feats.numel() * feats.element_size() + cot.numel() * 4
     row["backward_bound_ms"] = moved / H100_BYTES_PER_S * 1e3
     del got, want, out
     return ok
@@ -767,10 +796,13 @@ def phase_shapes():
 
 
 def _state_tensors(state) -> dict:
-    """Every tensor a train state holds: module state_dicts and Adam states."""
+    """Every tensor a train state (G-NeRF or EG3D) holds: module state_dicts
+    and Adam states."""
     out = {}
     for name in ("g", "g_ema", "enc", "disc", "vgg"):
-        out.update({f"{name}.{k}": v for k, v in getattr(state, name).state_dict().items()})
+        module = getattr(state, name, None)
+        if module is not None:
+            out.update({f"{name}.{k}": v for k, v in module.state_dict().items()})
     for name in ("opt_g", "opt_d"):
         opt = getattr(state, name)
         for i, p in enumerate(p for grp in opt.param_groups for p in grp["params"]):
@@ -894,6 +926,237 @@ def phase_train(warmup: int = 2, steps: int = 6):
     return launches
 
 
+def _full_width_eg3d(seed: int, **cfg_overrides):
+    """The `ffhq` preset's G and the 512^2 dual D on the card, with the
+    EG3DLossConfig and lazy optimizers `gnerf_tpu_torch.training.train`
+    builds for `--objective eg3d --batch 4` (seed-init weights)."""
+    import dataclasses
+
+    import torch
+
+    from gnerf_tpu_torch.models import DualDiscriminator, TriPlaneGenerator
+    from gnerf_tpu_torch.training import TrainConfig, init_eg3d_state
+    from gnerf_tpu_torch.training.train import (RENDERING_PRESETS, _rendering_kwargs,
+                                                eg3d_loss_config)
+
+    rk = _rendering_kwargs(RENDERING_PRESETS["ffhq"], False, 1.0, "none", 0.25, 1.0, "")
+    gen = torch.Generator().manual_seed(seed)
+    g = TriPlaneGenerator(img_resolution=512, rendering_kwargs=rk, device="cuda", generator=gen)
+    disc = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=3, device="cuda",
+                             generator=gen)
+    cfg = eg3d_loss_config(rk, TrainConfig(batch_size=TRAIN_BATCH), g.neural_rendering_resolution)
+    cfg = dataclasses.replace(cfg, **cfg_overrides)
+    return init_eg3d_state(g, disc, cfg, lazy=True), cfg
+
+
+def _eg3d_batches(n: int) -> list:
+    """n batches of SyntheticDataset at 512^2 on the card, z from the CLI's
+    step generators (cur_nimg = 4 i)."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.training import SyntheticDataset, data_iterator
+    from gnerf_tpu_torch.training.train import step_generator
+
+    it = data_iterator(SyntheticDataset(resolution=SIDE), batch_size=TRAIN_BATCH, seed=0)
+    out = []
+    for i in range(n):
+        raw = next(it)
+        c = torch.from_numpy(np.asarray(raw["loss_c"], np.float32)).cuda()
+        z = torch.randn((TRAIN_BATCH, 512), device="cuda",
+                        generator=step_generator(0, TRAIN_BATCH * i, "cuda", phase=3))
+        real = torch.from_numpy(np.asarray(raw["loss_image"])).cuda().float() / 127.5 - 1.0
+        out.append({"z": z, "c": c, "real_image": real, "real_c": c})
+    return out
+
+
+def _eg3d_step(phases, state, batch, seed=0):
+    """One scheduled EG3D step as the CLI runs it: Gmain + Dmain, Greg when
+    sched_idx % 4 == 0, Dreg when sched_idx % 16 == 0. Returns
+    ({phase: (start event, end event, osg_decode launches)}, stats)."""
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training.train import step_generator
+
+    main, greg, dreg = phases
+    cur = state.cur_nimg
+    sched = cur // TRAIN_BATCH
+    runs = [("main", lambda: main(state, batch, step_generator(seed, cur, "cuda")))]
+    if sched % 4 == 0:
+        runs.append(("greg", lambda: greg(state, batch, step_generator(seed, cur, "cuda", 1))))
+    if sched % 16 == 0:
+        runs.append(("dreg", lambda: dreg(state, batch, step_generator(seed, cur, "cuda", 2))))
+    marks, stats = {}, {}
+    for name, fn in runs:
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        before = osg_decode.launches
+        ev[0].record()
+        stats.update(fn()[1])
+        ev[1].record()
+        marks[name] = (ev[0], ev[1], osg_decode.launches - before)
+    return marks, stats
+
+
+def phase_eg3d(warmup: int = 2, steps: int = 16):
+    """The full-width EG3D objective on the card (see the module docstring).
+    Phase times are CUDA-event times with the batches already on the card."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import make_eg3d_phase_steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cfg = _full_width_eg3d(0)
+    phases = make_eg3d_phase_steps(cfg)
+    build_s = time.perf_counter() - t0
+    batches = _eg3d_batches(warmup + steps + 1)
+    before = {k: v.clone() for k, v in _state_tensors(state).items()
+              if k.split(".")[0] in ("g", "g_ema", "disc")}
+
+    osg_decode.launches = 0
+    runs, losses = [], []
+    window = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+    for i in range(warmup + steps):
+        if i == warmup:
+            window[0].record()
+        marks, stats = _eg3d_step(phases, state, batches[i])
+        runs.append(marks)
+        losses.append(stats)
+    window[1].record()
+    torch.cuda.synchronize()
+    launches = osg_decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    window_ms = window[0].elapsed_time(window[1])
+    # Gmain's 2 passes with grad (again in the recompute under remat), the
+    # D phase's 2 regenerated without; Greg's one sample_mixed pass.
+    want = {"main": 2 * (2 if cfg.remat_synthesis else 1) + 2, "greg": 1, "dreg": 0}
+    by_phase = {}
+    for i, marks in enumerate(runs):
+        for name, (a, b, n) in marks.items():
+            if n != want[name]:
+                raise SystemExit(f"chip_smoke: eg3d {name} launched osg_decode {n} times "
+                                 f"in step {i}, want {want[name]}")
+            if i >= warmup:
+                by_phase.setdefault(name, []).append(a.elapsed_time(b))
+    counts = {k: len(v) for k, v in by_phase.items()}
+    if counts != {"main": steps, "greg": steps // 4, "dreg": 1}:
+        raise SystemExit(f"chip_smoke: the eg3d window ran {counts}")
+    amortised = window_ms / steps
+    for name, ms in by_phase.items():
+        log(f"[eg3d] {name}: n={len(ms)} median_ms={statistics.median(ms):.3f} "
+            f"min={min(ms):.3f} max={max(ms):.3f} (each: {', '.join(f'{x:.3f}' for x in ms)}) "
+            f"osg_decode launches per call={want[name]}")
+    total_launches = sum(n for marks in runs for _, _, n in marks.values())
+    log(f"[eg3d] full width fp32, batch {TRAIN_BATCH}, lazy (Greg / 4, Dreg / 16): build "
+        f"{build_s:.2f} s; {steps} scheduled steps in {window_ms:.3f} ms: amortised step_ms="
+        f"{amortised:.3f} images_per_s={TRAIN_BATCH * 1e3 / amortised:.3f} "
+        f"max_memory_allocated={peak} bytes; remat_synthesis={cfg.remat_synthesis}; "
+        f"osg_decode launches={launches} (per phase summed: {total_launches})")
+    losses = [{k: float(v) for k, v in s.items()} for s in losses]
+    log("[eg3d] losses, last step: " + " ".join(f"{k}={v:.5f}" for k, v in losses[-1].items()))
+    after = _state_tensors(state)
+    moved = {name: any(not torch.equal(after[k], v) for k, v in before.items()
+                       if k.startswith(name + "."))
+             for name in ("g", "g_ema", "disc")}
+    key = "g.backbone.mapping.w_avg"
+    moved["w_avg"] = not torch.equal(after[key], before[key])
+    finite = all(np.isfinite(v) for s in losses for v in s.values())
+    log(f"[eg3d] finite={finite} moved: " + " ".join(f"{k}={v}" for k, v in moved.items()))
+    if not (finite and all(moved.values())) or launches != total_launches:
+        raise SystemExit("chip_smoke: the eg3d steps did not update as they should")
+    del before, after
+
+    _eg3d_dreg_profile(phases, state, batches[0])
+    _eg3d_save_load(phases, state, batches[warmup + steps])
+    _eg3d_freeze(batches[0])
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _eg3d_dreg_profile(phases, state, batch):
+    """One Dreg (R1 through both inputs of the 512^2 D, and its weight
+    gradient) under torch.profiler: no `aten::_convolution_double_backward`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnerf_tpu_torch.training.train import step_generator
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        phases[2](state, batch, step_generator(0, state.cur_nimg, "cuda", 2))
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    keys = {e.key: e.count for e in avg}
+    convs = keys.get("aten::convolution", 0)
+    log(f"[eg3d] Dreg profile: {convs} convolutions, _convolution_double_backward calls="
+        f"{keys.get('aten::_convolution_double_backward', 0)}; top device ops:\n"
+        + "\n".join(avg.table(sort_by="cuda_time_total", row_limit=12).splitlines()[:16]))
+    if "aten::_convolution_double_backward" in keys:
+        raise SystemExit("chip_smoke: R1 through the dual D ran a convolution double backward")
+
+
+def _eg3d_save_load(phases, state, batch):
+    """Full-state save and load into a second full-width state: bitwise; the
+    next scheduled step from both agrees within 1e-3 (grid_sample's backward
+    uses atomics)."""
+    import torch
+
+    from gnerf_tpu_torch.training import load_train_state, save_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "training-state.npz")
+        t0 = time.perf_counter()
+        save_train_state(path, state, config={"chip_smoke": True, "aug_p_live": 0.0})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        again, _ = _full_width_eg3d(1)
+        t0 = time.perf_counter()
+        _, config, _ = load_train_state(path, again)
+        load_s = time.perf_counter() - t0
+    a, b = _state_tensors(state), _state_tensors(again)
+    bitwise = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+    del a, b
+    outs = []
+    for st in (state, again):
+        _, s2 = _eg3d_step(phases, st, batch)
+        outs.append({k: float(v) for k, v in s2.items()})
+    err = max(abs(outs[0][k] - v) / max(abs(v), 1e-3) for k, v in outs[1].items())
+    log(f"[eg3d] full-state save {size} bytes in {save_s:.2f} s, load in {load_s:.2f} s: "
+        f"bitwise={bitwise} aug_p_live={config['aug_p_live']}; next step saved vs loaded: "
+        f"max rel stat err={err:.3e} (1e-3)")
+    if not bitwise or err > 1e-3 or sorted(outs[0]) != sorted(outs[1]):
+        raise SystemExit("chip_smoke: the eg3d full-state checkpoint does not give the state back")
+
+
+def _eg3d_freeze(batch):
+    """--freezed 2 at full width: b512's fromrgb and conv0 stay bitwise
+    through a main and a Dreg step; every other D tensor moves."""
+    import torch
+
+    from gnerf_tpu_torch.training import make_eg3d_phase_steps
+    from gnerf_tpu_torch.training.train import step_generator
+
+    state, cfg = _full_width_eg3d(2, freeze_d_layers=2)
+    main, _, dreg = make_eg3d_phase_steps(cfg)
+    before = {k: v.clone() for k, v in state.disc.state_dict().items()}
+    main(state, batch, step_generator(2, 0, "cuda"))
+    dreg(state, batch, step_generator(2, 0, "cuda", 2))
+    top = f"b{state.disc.block_resolutions[0]}"  # b512, D's first block
+    frozen = (f"{top}.fromrgb.", f"{top}.conv0.")
+    wrong = [k for k, v in state.disc.state_dict().items()
+             if torch.equal(v, before[k]) != k.startswith(frozen)]
+    n_frozen = sum(k.startswith(frozen) for k in before)
+    log(f"[eg3d] --freezed 2: {n_frozen} D tensors frozen bitwise, the other "
+        f"{len(before) - n_frozen} moved: {not wrong}")
+    if wrong:
+        raise SystemExit(f"chip_smoke: Freeze-D moved or froze the wrong tensors: {wrong[:4]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -915,9 +1178,11 @@ def main(argv=None) -> int:
     launches["server"] = phase_server()
     launches["shapes"] = phase_shapes()
     launches["train"] = phase_train()
+    launches["eg3d"] = phase_eg3d()
 
     main_row = kern["main_bf16"]
-    timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32")
+    timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32",
+             "train_bf16", "greg_f32")
     print(json.dumps({"kernels": [{
         "name": "osg_decode", "route": "cuda",
         "source": "gnerf_tpu_torch/csrc/osg_decode.cu",

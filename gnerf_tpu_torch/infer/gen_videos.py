@@ -5,8 +5,9 @@ identity photo(s) with E, map to ws and build the tri-planes ONCE, then
 render the camera orbit frame by frame (8 frames per host round trip, uint8
 conversion on the device) and write `<name>.mp4` + `<name>_raw.mp4` (or the
 fallback formats of `video_io`). Sampling density is doubled at load, as in
-the reference. Photos are decoded with PIL and resized (bilinear) to 512^2,
-or FFHQ-aligned first when `--align_lm` names a folder of landmark files;
+the reference. Photos are decoded and resized to 512^2 by the native loader
+(`utils/native_loader.py`, PIL bilinear without the library), or
+FFHQ-aligned first when `--align_lm` names a folder of landmark files;
 `--gen_shapes true` also writes the sigma volume `<outdir>/<name>/<frames-1>.mrc`.
 
     python -m gnerf_tpu_torch.infer.gen_videos --seed-init 0 --frames 8
@@ -46,12 +47,12 @@ def _load_images(id_image: Optional[str], prepared: Optional[str],
 
     With no photo, a deterministic synthetic identity (as the JAX CLI's
     --seed-init smoke runs). A photo with a landmark file in `align_lm` is
-    FFHQ-aligned to a size^2 crop; any other photo is resized to size^2 with
-    PIL's bilinear filter (the JAX package's decoder without its native
-    library)."""
+    FFHQ-aligned to a size^2 crop; any other photo is decoded and resized to
+    size^2 by `native_loader.decode_image`, as in the JAX package."""
     from PIL import Image
 
     from ..utils.alignment import align_face, load_landmarks
+    from ..utils.native_loader import decode_image
 
     if prepared:
         paths = sorted(os.path.join(prepared, f) for f in os.listdir(prepared)
@@ -63,13 +64,13 @@ def _load_images(id_image: Optional[str], prepared: Optional[str],
         paths = [id_image]
     imgs = []
     for p in paths:
-        img = Image.open(p).convert("RGB")
         lm_path = _find_landmarks(align_lm, p) if align_lm else None
         if lm_path is not None:
-            img = align_face(np.asarray(img), load_landmarks(lm_path), output_size=size)
-        elif img.size != (size, size):
-            img = img.resize((size, size), Image.BILINEAR)
-        imgs.append(np.asarray(img).transpose(2, 0, 1)[None])
+            raw = np.asarray(Image.open(p).convert("RGB"))
+            img = align_face(raw, load_landmarks(lm_path), output_size=size).transpose(2, 0, 1)
+        else:
+            img = decode_image(p, size, size)
+        imgs.append(img[None])
     return np.concatenate(imgs, axis=0)
 
 

@@ -25,6 +25,7 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 _MAX_C, _MAX_H, _MAX_D = 64, 64, 64
 
@@ -42,7 +43,10 @@ def osg_decode_ref(feats: torch.Tensor, w1e: torch.Tensor, b1e: torch.Tensor,
     w1 = w1e.float()
     acc = f[:, 0] @ w1 + f[:, 1] @ w1 + f[:, 2] @ w1
     x = acc / 3.0 + b1e.float()
-    h = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    # F.softplus, as jax.nn.softplus: differentiated at x = 0 exactly (bf16
+    # inputs reach it) it gives 1/2, where max(x, 0) + log1p(exp(-|x|))
+    # would give 1.
+    h = F.softplus(x)
     o = h @ w2e.float() + b2e.float()
     rgb = torch.sigmoid(o[..., 1:]) * (1 + 2 * 0.001) - 0.001
     return torch.cat([o[..., :1], rgb], dim=-1)

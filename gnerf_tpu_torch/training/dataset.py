@@ -13,9 +13,11 @@ on-disk layouts, item dicts and batches for the same seed:
   ImageFolderDataset — an EG3D-style folder or zip with `dataset.json`.
   SyntheticDataset — procedural items with valid orbit poses; no files.
 
-Images decode and resize with PIL (the JAX package's native decoder is not
-ported). `data_iterator` shards indices across hosts with InfiniteSampler
-and prefetches batches on a thread.
+Paired-dataset images decode and resize through the native loader
+(`utils/native_loader.py`, PIL bilinear without the library), folder
+images with PIL LANCZOS, as in the JAX package. `data_iterator` shards
+indices across hosts with InfiniteSampler and prefetches batches on a
+thread.
 """
 
 from __future__ import annotations
@@ -68,14 +70,16 @@ BatchDict = Mapping[str, np.ndarray]
 
 
 def _imread_rgb_chw(path: str, resolution: Optional[int] = None) -> np.ndarray:
-    """File -> CHW uint8, decoded with PIL. With `resolution`, an image of
-    another size is resized (bilinear) to it, as the JAX package's loader
-    does when its native decoder is not built."""
+    """File -> CHW uint8. With `resolution`, the native loader decodes it and
+    resizes an image of another size to it (`native_loader.decode_image`,
+    as the JAX package does); without, PIL decodes it at its file size."""
+    if resolution is not None:
+        from ..utils.native_loader import decode_image
+
+        return decode_image(path, resolution, resolution)
     from PIL import Image
 
     img = Image.open(path).convert("RGB")
-    if resolution is not None and img.size != (resolution, resolution):
-        img = img.resize((resolution, resolution), Image.BILINEAR)
     return np.asarray(img).transpose(2, 0, 1).copy()  # HWC -> CHW uint8
 
 

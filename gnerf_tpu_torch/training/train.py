@@ -1,23 +1,29 @@
-"""Training CLI: G-NeRF encoder-inversion training on one CUDA card.
+"""Training CLI: G-NeRF encoder-inversion training, or EG3D adversarial
+pretraining, on one CUDA card.
 
-Port of `gnerf_tpu/training/train.py`'s `--objective gnerf` branch: builds
-the rendering recipe (dataset preset, SR module, knobs), writes the run
-directory (`training_options.json`, `log.txt`, `stats.jsonl`,
-`id_images.png`, `fakes-*.png`, `network-snapshot-{best,latest,final,
-NNNNNN}.npz`, `training-state-latest.npz`) and drives the tick and snapshot
-loop. SIGTERM and SIGINT finish the step, save the full state and exit;
-`--resume` continues from it bit for bit, or starts from a network
-snapshot of either package.
+Port of `gnerf_tpu/training/train.py`: builds the rendering recipe (dataset
+preset, SR module, knobs), writes the run directory and drives the tick and
+snapshot loop. `--objective gnerf` writes `training_options.json`,
+`log.txt`, `stats.jsonl`, `id_images.png`, `fakes-*.png`,
+`network-snapshot-{best,latest,final,NNNNNN}.npz` and
+`training-state-latest.npz`; `--resume` continues from the last bit for bit,
+or starts from a network snapshot of either package. `--objective eg3d`
+trains all of G against the dual discriminator with lazy regularization
+(Greg every `--density_reg_every`, Dreg every `--d_reg_interval` steps) and
+writes the same layout without the validation files (snapshots hold G_ema,
+G and D); `--resume` continues from its full state. SIGTERM and SIGINT
+finish the step, save the full state and exit.
 
     python -m gnerf_tpu_torch.training.train --outdir runs --dataset_name synthetic \\
-        --preset ffhq --batch 4 --kimg 1 --tick 1 [--device cpu]
+        --preset ffhq --batch 4 --kimg 1 --tick 1 [--objective eg3d] [--device cpu]
 
-Runs on CUDA unless `--device` names another device. Not ported:
-`--objective eg3d`, `--chain` > 1 and `--ray_shards` > 1 (they raise).
+Runs on CUDA unless `--device` names another device. Not ported (they
+raise): `--aug ada|fixed`, `--chain` > 1 and `--ray_shards` > 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -127,12 +133,84 @@ def pick_run_dir(outdir: str, desc: str) -> str:
     return run_dir
 
 
-def step_generator(seed: int, cur_nimg: int, device: torch.device) -> torch.Generator:
+def step_generator(seed: int, cur_nimg: int, device: torch.device,
+                   phase: int = 0) -> torch.Generator:
     """The step's generator, a pure function of (seed, cur_nimg): a resumed
-    run continues the stream instead of replaying it from step 0."""
-    words = np.random.SeedSequence([seed + 1, cur_nimg]).generate_state(2, np.uint32)
+    run continues the stream instead of replaying it from step 0. `phase` > 0
+    gives a stream of its own to a phase of the same step (the EG3D loop's
+    Greg is 1 and Dreg 2, as the JAX loop folds 1 and 2 into the step key)."""
+    entropy = [seed + 1, cur_nimg] + ([phase] if phase else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         (int(words[0]) << 31) ^ int(words[1]))
+
+
+def check_fade_sr_compat(g, cfg, img_resolution: int) -> None:
+    """Fail fast when the render-resolution fade can visit a resolution at
+    which G's `image` is not img_resolution (D's fixed input): the FFHQ-style
+    SR variants resize off-size inputs to their fixed input resolution, the
+    2X one does not. Runs the SR module alone on zeros, batch 1, at each
+    bucket the fade can visit."""
+    if cfg.neural_rendering_resolution_final is None:
+        return
+    lo = min(cfg.neural_rendering_resolution, cfg.neural_rendering_resolution_final)
+    hi = max(cfg.neural_rendering_resolution, cfg.neural_rendering_resolution_final)
+    b = max(int(cfg.res_bucket), 1)
+    buckets = {cfg.neural_rendering_resolution, cfg.neural_rendering_resolution_final}
+    buckets |= {r for r in range(lo, hi + 1) if r % b == 0}
+    dev = next(g.parameters()).device
+    ws = torch.zeros((1, g.num_ws, g.w_dim), device=dev)
+    for r in sorted(buckets):
+        # The rendered feature image has the decoder's 32 rgb-feature channels.
+        x = torch.zeros((1, 32, r, r), device=dev)
+        with torch.no_grad():
+            image, _ = g.superresolution(x[:, :3], x, ws, noise_mode="none")
+        if image.shape[-1] != img_resolution:
+            raise ValueError(
+                f"render-resolution fade visits res={r} at which the configured SR module "
+                f"emits a {image.shape[-1]}^2 image instead of {img_resolution}^2 — use an SR "
+                "variant with the fixed-input resize guard (8XDC/8X/4X family) or set "
+                "rendering_kwargs['sr_input_resolution']")
+
+
+def _dataset(dataset_name, data, real_data, img_resolution, **synthetic_kw):
+    from .dataset import ImageFolderDataset, SyntheticDataset
+
+    if dataset_name == "synthetic":
+        return SyntheticDataset(resolution=img_resolution, **synthetic_kw)
+    if dataset_name == "folder" or data.endswith(".zip"):
+        return ImageFolderDataset(path=data, resolution=img_resolution)
+    return _paired_dataset(dataset_name, data, real_data, img_resolution)
+
+
+@contextlib.contextmanager
+def _stop_on_signals():
+    """Within the block, SIGTERM and SIGINT set the yielded flag (the loop
+    finishes its step, checkpoints and exits) instead of killing the run."""
+    import signal
+
+    stop_requested = {"flag": False}
+
+    def _request_stop(signum, frame):
+        stop_requested["flag"] = True
+        print(f"signal {signum}: finishing step, checkpointing, exiting...")
+
+    prev = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield stop_requested
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+
+def _tb_writer(run_dir):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(run_dir)
+    except Exception as err:  # noqa: BLE001 - TensorBoard is optional
+        print("Skipping tfevents export:", err)
+        return None
 
 
 def _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode, density_reg,
@@ -221,15 +299,16 @@ def run_training(
     chain_dreg_split: bool = False,
     device=None,
 ):
-    """The G-NeRF training run; the JAX CLI's options plus `device`.
-    Returns the run directory (None for a dry run)."""
+    """The training run of `objective` (gnerf or eg3d); the JAX CLI's
+    options plus `device`. Returns the run directory (None for a dry run)."""
     from ..utils.device import resolve_device
+    from .eg3d_loss import ADA_NOT_PORTED
     from .train_loop import TrainConfig, config_dict
 
-    if objective != "gnerf":
-        raise NotImplementedError(
-            f"--objective {objective} is not ported to gnerf_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 11: the dual discriminator and the EG3D objective)")
+    if objective not in ("gnerf", "eg3d"):
+        raise ValueError(f"unknown --objective {objective!r} (expected gnerf or eg3d)")
+    if objective == "eg3d" and aug != "noaug":
+        raise NotImplementedError(ADA_NOT_PORTED)
     if int(chain) != 1:
         raise ValueError("--chain > 1 is the JAX package's dispatch workaround and is not "
                          "ported: one step is one Python call here")
@@ -276,6 +355,15 @@ def run_training(
 
     logger = Logger(os.path.join(run_dir, "log.txt"))  # tee stdout / stderr
     try:
+        if objective == "eg3d":
+            eg3d = dict(freezed=freezed, style_mixing_prob=style_mixing_prob,
+                        neural_rendering_resolution_final=neural_rendering_resolution_final,
+                        neural_rendering_resolution_fade_kimg=(
+                            neural_rendering_resolution_fade_kimg),
+                        density_reg_every=density_reg_every, d_reg_interval=d_reg_interval)
+            return _train_eg3d(run_dir, options, cfg, rendering_kwargs, img_resolution,
+                               dataset_name, data, real_data, z_dim, w_dim, resume, aug_p,
+                               eg3d, device)
         return _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name,
                       data, real_data, z_dim, w_dim, lpips_weights, resume, device)
     finally:
@@ -284,11 +372,9 @@ def run_training(
 
 def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name, data,
            real_data, z_dim, w_dim, lpips_weights, resume, device):
-    import signal
-
     from ..models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
     from ..utils.stats import Collector
-    from .dataset import ImageFolderDataset, SyntheticDataset, collate, data_iterator
+    from .dataset import collate, data_iterator
     from .losses import lpips_params_or_warn
     from .train_loop import init_train_state, make_train_step, save_snapshot, save_train_state
 
@@ -315,13 +401,8 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
         print(f"Resumed from {resume} at kimg {state.cur_nimg / 1000:.1f}")
     train_step = make_train_step(cfg)
 
-    if dataset_name == "synthetic":
-        dataset = SyntheticDataset(resolution=img_resolution,
-                                   depth_resolution=cfg.neural_rendering_resolution)
-    elif dataset_name == "folder" or data.endswith(".zip"):
-        dataset = ImageFolderDataset(path=data, resolution=img_resolution)
-    else:
-        dataset = _paired_dataset(dataset_name, data, real_data, img_resolution)
+    dataset = _dataset(dataset_name, data, real_data, img_resolution,
+                       depth_resolution=cfg.neural_rendering_resolution)
     # Seeded from the resume position: a resumed run walks a fresh order.
     batches = data_iterator(dataset, batch_size=batch, seed=seed + state.cur_nimg)
 
@@ -337,21 +418,7 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
     save_image_grid(val_batch["condition_image"].float().cpu().numpy(),
                     os.path.join(run_dir, "id_images.png"), drange=(0, 255))
 
-    tb_writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-
-        tb_writer = SummaryWriter(run_dir)
-    except Exception as err:  # noqa: BLE001 - TensorBoard is optional
-        print("Skipping tfevents export:", err)
-
-    stop_requested = {"flag": False}
-
-    def _request_stop(signum, frame):
-        stop_requested["flag"] = True
-        print(f"signal {signum}: finishing step, checkpointing, exiting...")
-
-    prev_handlers = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    tb_writer = _tb_writer(run_dir)
     collector = Collector()
     cur_nimg = state.cur_nimg
     tick_idx = cur_nimg // tick_nimg
@@ -359,56 +426,55 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
     pending = next(batches)
     print(f"Training for {cfg.total_kimg} kimg in {run_dir} ...")
     try:
-        while cur_nimg < total_nimg and not stop_requested["flag"]:
-            rng = step_generator(seed, cur_nimg, device)
-            _, stats = train_step(state, to_device(pending), rng)
-            pending = next(batches)
-            cur_nimg = state.cur_nimg
-            for name, value in stats.items():
-                collector.report(name, value)
-            if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
-                tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
-                now = time.time()
-                fields = collector.update()
-                msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}" for k, v in fields.items())
-                val_ssim, val_psnr, val_lpips, val_images = validate_batch(val_batch)
-                val_ssim, val_psnr = float(val_ssim), float(val_psnr)
-                val_metrics = {"Metrics/val_ssim": val_ssim, "Metrics/val_psnr": val_psnr}
-                if lpips_pretrained:  # never log a random-VGG "perceptual" curve
-                    val_metrics["Metrics/val_lpips"] = float(val_lpips)
-                print(f"tick {tick_idx:<5d} kimg {cur_nimg / 1000:<8.1f} "
-                      f"sec/tick {now - tick_start:<7.1f} val_ssim {val_ssim:.4f} "
-                      f"val_psnr {val_psnr:.2f} {msg}")
-                collector.write_jsonl(os.path.join(run_dir, "stats.jsonl"),
-                                      extra={"kimg": cur_nimg / 1000, **val_metrics})
-                if tb_writer is not None:
-                    for name, v in fields.items():
-                        tb_writer.add_scalar(name, v["mean"], global_step=cur_nimg)
-                    for name, v in val_metrics.items():
-                        tb_writer.add_scalar(name, v, global_step=cur_nimg)
-                    tb_writer.flush()
-                is_best = val_ssim > best_ssim
-                best_ssim = max(best_ssim, val_ssim)
-                try:  # a full disk costs snapshots, not the run
-                    if is_best:
-                        save_snapshot(os.path.join(run_dir, "network-snapshot-best.npz"),
+        with _stop_on_signals() as stop_requested:
+            while cur_nimg < total_nimg and not stop_requested["flag"]:
+                rng = step_generator(seed, cur_nimg, device)
+                _, stats = train_step(state, to_device(pending), rng)
+                pending = next(batches)
+                cur_nimg = state.cur_nimg
+                for name, value in stats.items():
+                    collector.report(name, value)
+                if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
+                    tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
+                    now = time.time()
+                    fields = collector.update()
+                    msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}" for k, v in fields.items())
+                    val_ssim, val_psnr, val_lpips, val_images = validate_batch(val_batch)
+                    val_ssim, val_psnr = float(val_ssim), float(val_psnr)
+                    val_metrics = {"Metrics/val_ssim": val_ssim, "Metrics/val_psnr": val_psnr}
+                    if lpips_pretrained:  # never log a random-VGG "perceptual" curve
+                        val_metrics["Metrics/val_lpips"] = float(val_lpips)
+                    print(f"tick {tick_idx:<5d} kimg {cur_nimg / 1000:<8.1f} "
+                          f"sec/tick {now - tick_start:<7.1f} val_ssim {val_ssim:.4f} "
+                          f"val_psnr {val_psnr:.2f} {msg}")
+                    collector.write_jsonl(os.path.join(run_dir, "stats.jsonl"),
+                                          extra={"kimg": cur_nimg / 1000, **val_metrics})
+                    if tb_writer is not None:
+                        for name, v in fields.items():
+                            tb_writer.add_scalar(name, v["mean"], global_step=cur_nimg)
+                        for name, v in val_metrics.items():
+                            tb_writer.add_scalar(name, v, global_step=cur_nimg)
+                        tb_writer.flush()
+                    is_best = val_ssim > best_ssim
+                    best_ssim = max(best_ssim, val_ssim)
+                    try:  # a full disk costs snapshots, not the run
+                        if is_best:
+                            save_snapshot(os.path.join(run_dir, "network-snapshot-best.npz"),
+                                          state, config=options)
+                        save_snapshot(os.path.join(run_dir, "network-snapshot-latest.npz"),
                                       state, config=options)
-                    save_snapshot(os.path.join(run_dir, "network-snapshot-latest.npz"),
-                                  state, config=options)
-                    save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
-                                     config=options, best_ssim=best_ssim)
-                    save_image_grid(val_images.float().cpu().numpy(),
-                                    os.path.join(run_dir, f"fakes-{cur_nimg // 1000:06d}.png"))
-                    if tick_idx % cfg.snapshot_ticks == 0:
-                        save_snapshot(os.path.join(
-                            run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz"),
-                            state, config=options)
-                except OSError as err:
-                    print(f"WARNING: snapshot write failed: {err}")
-                tick_start = now
+                        save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
+                                         config=options, best_ssim=best_ssim)
+                        save_image_grid(val_images.float().cpu().numpy(),
+                                        os.path.join(run_dir, f"fakes-{cur_nimg // 1000:06d}.png"))
+                        if tick_idx % cfg.snapshot_ticks == 0:
+                            save_snapshot(os.path.join(
+                                run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz"),
+                                state, config=options)
+                    except OSError as err:
+                        print(f"WARNING: snapshot write failed: {err}")
+                    tick_start = now
     finally:
-        for s, h in prev_handlers.items():
-            signal.signal(s, h)
         if tb_writer is not None:
             tb_writer.close()
     try:
@@ -416,6 +482,159 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
                       config=options)
         save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
                          config=options, best_ssim=best_ssim)
+    except OSError as err:
+        print(f"WARNING: final snapshot failed: {err}")
+    if stop_requested["flag"]:
+        print(f"preempted at {cur_nimg / 1000:.1f} kimg — full state saved; resume with "
+              f"--resume {os.path.join(run_dir, 'training-state-latest.npz')}")
+    print(f"done in {time.time() - start:.1f}s")
+    return run_dir
+
+
+def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: int,
+                     aug_p: float = 0.0, freezed: int = 0, style_mixing_prob: float = 0.0,
+                     neural_rendering_resolution_final: int = 0,
+                     neural_rendering_resolution_fade_kimg: float = 1000.0,
+                     density_reg_every: int = 4, d_reg_interval: int = 16):
+    """The EG3DLossConfig the CLI trains with, built as the JAX CLI builds
+    it: the regularizer and blur knobs from the rendering kwargs, gamma,
+    batch and dtype from the G-NeRF TrainConfig, the rest from the flags.
+    As in the JAX CLI, --glr and --dlr do not reach it (it keeps 0.0025 and
+    0.002)."""
+    from .eg3d_loss import EG3DLossConfig
+
+    rk = rendering_kwargs
+    return EG3DLossConfig(
+        r1_gamma=train_cfg.r1_gamma, neural_rendering_resolution=neural_rendering_resolution,
+        density_reg=rk.get("density_reg", 0.25), gpc_reg_prob=rk.get("gpc_reg_prob", 0.5),
+        gpc_reg_fade_kimg=rk.get("gpc_reg_fade_kimg", 1000.0),
+        blur_init_sigma=rk.get("blur_init_sigma", 0.0),
+        blur_fade_kimg=rk.get("blur_fade_kimg", train_cfg.batch_size * 200 / 32),
+        aug_p=aug_p, freeze_d_layers=freezed,
+        neural_rendering_resolution_final=neural_rendering_resolution_final or None,
+        neural_rendering_resolution_fade_kimg=neural_rendering_resolution_fade_kimg,
+        style_mixing_prob=style_mixing_prob, dtype=train_cfg.dtype,
+        g_reg_interval=int(density_reg_every), d_reg_interval=int(d_reg_interval))
+
+
+def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, dataset_name,
+                data, real_data, z_dim, w_dim, resume, aug_p, eg3d, device):
+    """EG3D adversarial pretraining (z, c) -> image at the JAX loop's
+    cadence: Gmain + Dmain every step, Greg when sched_idx = cur_nimg //
+    batch is a multiple of g_reg_interval, Dreg when it is one of
+    d_reg_interval, on the step's generator and its phases 1 and 2. Each
+    tick writes `network-snapshot-latest.npz` (G_ema, G, D), every `--snap`
+    ticks `network-snapshot-NNNNNN.npz`, and the full state with the live
+    ADA p (`aug_p_live`) in its config; `--resume` restores that state."""
+    from ..models import DualDiscriminator, TriPlaneGenerator
+    from ..utils import checkpoint as ckpt_lib
+    from ..utils.stats import Collector
+    from .dataset import data_iterator
+    from .eg3d_loss import (blur_kernel_size, blur_sigma_schedule, init_eg3d_state,
+                            make_eg3d_phase_steps, make_eg3d_train_step,
+                            neural_resolution_schedule)
+    from .train_loop import load_train_state, save_train_state
+
+    seed, batch = train_cfg.random_seed, train_cfg.batch_size
+    total_nimg = int(round(train_cfg.total_kimg * 1000))
+    tick_nimg = max(int(round(train_cfg.kimg_per_tick * 1000)), 1)
+    gen = torch.Generator().manual_seed(seed)
+    g = TriPlaneGenerator(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
+                          rendering_kwargs=rendering_kwargs, device=device, generator=gen)
+    disc = DualDiscriminator(c_dim=25, img_resolution=img_resolution, img_channels=3,
+                             device=device, generator=gen)
+    cfg = eg3d_loss_config(rendering_kwargs, train_cfg, g.neural_rendering_resolution,
+                           aug_p=aug_p, **eg3d)
+    # An interval <= 1 on both sides fuses the regularizers into every step.
+    lazy = cfg.g_reg_interval > 1 or cfg.d_reg_interval > 1
+    if lazy:
+        main_fn, greg_fn, dreg_fn = make_eg3d_phase_steps(cfg)
+    else:
+        main_fn, greg_fn, dreg_fn = make_eg3d_train_step(cfg), None, None
+    state = init_eg3d_state(g, disc, cfg, lazy=lazy)
+    check_fade_sr_compat(g, cfg, img_resolution)
+    cur_aug_p = float(aug_p)
+    if resume:
+        _, ckpt_cfg, _ = load_train_state(resume, state)
+        if ckpt_cfg and "aug_p_live" in ckpt_cfg:
+            cur_aug_p = float(ckpt_cfg["aug_p_live"])
+        print(f"Resumed EG3D training state from {resume} at kimg {state.cur_nimg / 1000:.1f}")
+
+    dataset = _dataset(dataset_name, data, real_data, img_resolution)
+    batches = data_iterator(dataset, batch_size=batch, seed=seed + state.cur_nimg)
+
+    def snapshot(name):
+        ckpt_lib.save_checkpoint(os.path.join(run_dir, name),
+                                 {"G_ema": state.g_ema, "G": state.g, "D": state.disc},
+                                 config=options)
+
+    def save_state():
+        save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
+                         config={**options, "aug_p_live": cur_aug_p})
+
+    tb_writer = _tb_writer(run_dir)
+    collector = Collector()
+    cur_nimg = state.cur_nimg
+    tick_idx = cur_nimg // tick_nimg
+    tick_start = start = time.time()
+    pending = next(batches)
+    print(f"EG3D pretraining for {train_cfg.total_kimg} kimg in {run_dir} "
+          f"(aug=noaug, p0={cur_aug_p}) ...")
+    try:
+        with _stop_on_signals() as stop_requested:
+            while cur_nimg < total_nimg and not stop_requested["flag"]:
+                rng = step_generator(seed, cur_nimg, device)
+                c = torch.from_numpy(np.asarray(pending["loss_c"], np.float32)).to(device)
+                real = torch.from_numpy(np.asarray(pending["loss_image"])).to(device)
+                gan_batch = {"z": torch.randn((batch, g.z_dim), generator=rng, device=device),
+                             "c": c, "real_image": real.float() / 127.5 - 1.0, "real_c": c}
+                pending = next(batches)
+                sigma = blur_sigma_schedule(cur_nimg, cfg)
+                size = blur_kernel_size(sigma)
+                sigma = max(sigma, 1e-8)
+                res = neural_resolution_schedule(cur_nimg, cfg)
+                sched_idx = cur_nimg // batch
+                _, stats = main_fn(state, gan_batch, rng, sigma, blur_size=size, res=res)
+                if greg_fn is not None and sched_idx % max(cfg.g_reg_interval, 1) == 0:
+                    stats.update(greg_fn(state, gan_batch,
+                                         step_generator(seed, cur_nimg, device, phase=1))[1])
+                if dreg_fn is not None and sched_idx % max(cfg.d_reg_interval, 1) == 0:
+                    stats.update(dreg_fn(state, gan_batch,
+                                         step_generator(seed, cur_nimg, device, phase=2),
+                                         sigma, blur_size=size, res=res)[1])
+                cur_nimg = state.cur_nimg
+                for name, value in stats.items():
+                    collector.report(name, value)
+                collector.report("Progress/augment", cur_aug_p)
+                if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
+                    tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
+                    now = time.time()
+                    fields = collector.update()
+                    msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}"
+                                   for k, v in fields.items())
+                    print(f"tick {tick_idx:<4d} kimg {cur_nimg / 1000:<7.1f} "
+                          f"sec/tick {now - tick_start:<7.1f} {msg}")
+                    collector.write_jsonl(os.path.join(run_dir, "stats.jsonl"),
+                                          extra={"kimg": cur_nimg / 1000})
+                    if tb_writer is not None:
+                        for name, v in fields.items():
+                            tb_writer.add_scalar(name, v["mean"], global_step=cur_nimg)
+                        tb_writer.flush()
+                    try:  # a full disk costs snapshots, not the run
+                        snapshot("network-snapshot-latest.npz")
+                        snap = train_cfg.snapshot_ticks
+                        if snap > 0 and tick_idx % snap == 0:
+                            snapshot(f"network-snapshot-{cur_nimg // 1000:06d}.npz")
+                        save_state()
+                    except OSError as err:
+                        print(f"WARNING: snapshot write failed: {err}")
+                    tick_start = now
+    finally:
+        if tb_writer is not None:
+            tb_writer.close()
+    try:
+        snapshot("network-snapshot-final.npz")
+        save_state()
     except OSError as err:
         print(f"WARNING: final snapshot failed: {err}")
     if stop_requested["flag"]:
@@ -456,9 +675,10 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
               help="converted vgg16.pt npz (tools/convert_vgg16_lpips.py); "
                    "empty = RANDOM VGG features (loudly flagged)")
 @click.option("--objective", type=click.Choice(["gnerf", "eg3d"]), default="gnerf",
-              help="gnerf = encoder-inversion training; eg3d is not ported yet (raises)")
+              help="gnerf = encoder-inversion training; eg3d = EG3D GAN pretraining of G")
 @click.option("--aug", type=click.Choice(["noaug", "ada", "fixed"]), default="noaug",
-              help="EG3D-objective augmentation (recorded; unused by gnerf)")
+              help="EG3D-objective augmentation (unused by gnerf); ada and fixed are not "
+                   "ported yet (raise under eg3d)")
 @click.option("--aug_p", type=float, default=0.0)
 @click.option("--freezed", type=int, default=0)
 @click.option("--ray_shards", type=int, default=1,

@@ -304,17 +304,17 @@ def _exact(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def save_train_state(path: str, state: TrainState, config: Optional[dict] = None,
+def save_train_state(path: str, state, config: Optional[dict] = None,
                      best_ssim: Optional[float] = None) -> None:
-    """Full-state checkpoint: every module's state_dict, both optimizers'
-    states in their own dtypes, cur_nimg and best_ssim, under the
-    `train_state_torch` root of an npz (the port's own layout; the JAX
-    package keys its optax state by leaf index). Resuming from it continues
-    bit for bit on the CPU."""
+    """Full-state checkpoint of a TrainState or an EG3DState (which has no
+    E and no VGG): every module's state_dict, both optimizers' states in
+    their own dtypes, cur_nimg and best_ssim, under the `train_state_torch`
+    root of an npz (the port's own layout; the JAX package keys its optax
+    state by leaf index). Resuming from it continues bit for bit on the CPU."""
     tree: dict = {"cur_nimg": np.asarray(state.cur_nimg, np.int64),
                   "best_ssim": np.asarray(-100.0 if best_ssim is None else best_ssim, np.float64)}
     for name in _MODULES:
-        module = getattr(state, name)
+        module = getattr(state, name, None)
         if module is not None:
             tree[name] = {k.replace(".", ckpt_lib.SEP): _exact(v)
                           for k, v in module.state_dict().items()}
@@ -331,17 +331,17 @@ def save_train_state(path: str, state: TrainState, config: Optional[dict] = None
     ckpt_lib.save_checkpoint(path, {"train_state_torch": tree}, config=config)
 
 
-def load_train_state(path: str, state: TrainState) -> tuple[TrainState, Optional[dict], float]:
-    """Restore `save_train_state` into a TrainState built with the same
-    config, in place. Returns (state, config, best_ssim). Raises on any
-    missing, extra or mis-shaped entry."""
+def load_train_state(path: str, state) -> tuple[Any, Optional[dict], float]:
+    """Restore `save_train_state` into a TrainState or EG3DState built with
+    the same config, in place. Returns (state, config, best_ssim). Raises on
+    any missing, extra or mis-shaped entry."""
     trees, config = ckpt_lib.load_checkpoint(path)
     if "train_state_torch" not in trees:
         raise ValueError(f"{path} is not a gnerf_tpu_torch full-state checkpoint "
                          f"(roots {sorted(trees)}); resume from a network snapshot instead")
     tree = trees["train_state_torch"]
     for name in _MODULES:
-        module = getattr(state, name)
+        module = getattr(state, name, None)
         if module is None:
             if name in tree:
                 raise ValueError(f"checkpoint has {name}, the state has none")

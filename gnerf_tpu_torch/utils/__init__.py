@@ -1,1 +1,2 @@
-"""Host helpers: checkpoints and the JAX weight bridge, cameras, devices."""
+"""Host helpers: checkpoints and the JAX weight bridge, cameras, devices,
+the native image loader."""

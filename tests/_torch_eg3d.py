@@ -1,0 +1,165 @@
+"""Shared set-up of the EG3D parity tests (tests/test_torch_eg3d_step.py,
+tests/test_torch_eg3d_phases.py; tests/test_torch_eg3d.py takes the JAX
+density points): the tiny G of tests/test_torch_training.py
+with its JAX key withheld from the synthesis, a tiny dual D, one batch of
+the JAX SyntheticDataset, and the comparison of the port's state with the
+JAX state after Adam steps.
+
+The draws of a JAX step are taken out of play: the synthesis gets no key
+(constant noise, deterministic sampling: the port's rng=None), the swap
+probability is exactly 1 (gpc_reg_fade_kimg 1e9 keeps it there in float32
+after the first step), style mixing is off, and the density regularizer's
+points are derived from the JAX key exactly as `density_regularization`
+splits it, then handed to the port's TV.
+"""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from _torch_port import to_np
+from gnerf_tpu.models import TriPlaneGenerator as JGen
+from gnerf_tpu.models.dual_discriminator import DualDiscriminator as JDual
+from gnerf_tpu.training import dataset as jds
+from gnerf_tpu.training import eg3d_loss as JE
+from gnerf_tpu_torch.models import DualDiscriminator, TriPlaneGenerator
+from gnerf_tpu_torch.training import eg3d_loss as E
+from gnerf_tpu_torch.utils.checkpoint import flatten_tree, load_jax_params, module_params
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+TINY_G = dict(z_dim=32, w_dim=32, img_resolution=128, plane_resolution=16, channel_base=512,
+              channel_max=32, mapping_layers=2, neural_rendering_resolution=8)
+TINY_D = dict(c_dim=25, img_resolution=16, img_channels=3, channel_base=256, channel_max=32,
+              mbstd_group_size=2)
+# density_reg_p_dist 0.05 (default 0.004): at the default the TV is a
+# difference of nearly equal sigmas, where fp32 rounding alone is ~1e-4 of it.
+CFG = dict(neural_rendering_resolution=8, density_reg_points=16, density_reg_p_dist=0.05,
+           blur_init_sigma=1.0, blur_fade_kimg=1.0, gpc_reg_fade_kimg=1e9, r1_gamma=2.0)
+
+
+def tiny_rendering_kwargs():
+    from gnerf_tpu.models.triplane import DEFAULT_RENDERING_KWARGS
+
+    return dict(DEFAULT_RENDERING_KWARGS, superresolution_module="SuperresolutionHybrid2X",
+                depth_resolution=4, depth_resolution_importance=4)
+
+
+class JGenNoRng(JGen):
+    """The JAX G with the step's key withheld from the synthesis."""
+
+    def synthesis(self, params, ws, c, neural_rendering_resolution=None, noise_mode="const",
+                  rng=None, **kw):
+        return super().synthesis(params, ws, c,
+                                 neural_rendering_resolution=neural_rendering_resolution,
+                                 noise_mode="const", rng=None, **kw)
+
+
+def jax_networks(**cfg_overrides):
+    g = JGenNoRng(**TINY_G, rendering_kwargs=tiny_rendering_kwargs())
+    disc = JDual(**TINY_D)
+    return g, disc, JE.EG3DLossConfig(**CFG, remat_synthesis=False, **cfg_overrides)
+
+
+def port_state(jstate, lazy, **cfg_overrides):
+    """The port's EG3DState holding the JAX state's parameters."""
+    g = TriPlaneGenerator(**TINY_G, rendering_kwargs=tiny_rendering_kwargs(), device="cpu")
+    load_jax_params(g, jstate["params_g"])
+    d = DualDiscriminator(**TINY_D, device="cpu")
+    load_jax_params(d, jstate["params_d"])
+    cfg = E.EG3DLossConfig(**CFG, **cfg_overrides)
+    return E.init_eg3d_state(g, d, cfg, lazy=lazy), cfg
+
+
+def tiny_batch(seed=0):
+    ds = jds.SyntheticDataset(resolution=16, depth_resolution=8, size=16)
+    items = jds.collate([ds[i] for i in range(2 * seed, 2 * seed + 2)])
+    c = np.asarray(items["loss_c"], np.float32)
+    return {"z": np.random.RandomState(seed).randn(2, 32).astype(np.float32), "c": c,
+            "real_image": np.asarray(items["loss_image"], np.float32) / 127.5 - 1.0,
+            "real_c": c}
+
+
+def jnp_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def jax_density_points(key, n, cfg):
+    """JAX's density_regularization draws for `key`, as torch tensors."""
+    k1, k2, k3 = jax.random.split(key, 3)
+    initial = jax.random.uniform(k1, (n, cfg.density_reg_points, 3)) * 2 - 1
+    perturbed = initial + jax.random.normal(k2, initial.shape) * cfg.density_reg_p_dist
+    coords = jnp.concatenate([initial, perturbed], axis=1)
+    dirs = jax.random.normal(k3, coords.shape)
+    return torch.from_numpy(np.array(coords)), torch.from_numpy(np.array(dirs))
+
+
+def use_jax_points(monkeypatch, key, jcfg):
+    """The port's next density draws become JAX's for `key`."""
+    pts = jax_density_points(key, 2, jcfg)
+    monkeypatch.setattr(E, "density_reg_points", lambda n, cfg, rng, device: pts)
+
+
+class AdamLog:
+    """The gradient of every Adam step a phase takes: with beta1 = 0 the
+    first moment is the last gradient itself."""
+
+    def __init__(self, state):
+        self.state = state
+        self.grads = {}
+        self.lr_sum = {}
+
+    def record(self, opt_name):
+        opt = getattr(self.state, opt_name)
+        lr = opt.param_groups[0]["lr"]
+        for p in (p for grp in opt.param_groups for p in grp["params"]):
+            self.grads.setdefault(id(p), []).append(to_np(opt.state[p]["exp_avg"]))
+            self.lr_sum[id(p)] = self.lr_sum.get(id(p), 0.0) + lr
+
+
+def assert_adam_steps_match(name, jax_new, param, log):
+    """Adam maps each gradient to about +-lr (exactly so on the first step),
+    so a weight whose gradient lies within fp32 summation noise may move the
+    other way in the other package. Every weight off rtol 1e-4 / atol 1e-5
+    of the JAX result must have had such a gradient in one of its steps
+    (below 3e-4 of its tensor's largest), be within two steps' lr of it,
+    and be one of under 1% of the tensor's weights."""
+    got, want = to_np(param), np.asarray(jax_new)
+    off = ~np.isclose(got, want, **TOL)
+    if not off.any():
+        return
+    tiny = np.zeros(got.shape, bool)
+    for gr in log.grads.get(id(param), []):
+        tiny |= np.abs(gr) < 3e-4 * np.abs(gr).max()
+    assert off.mean() < 0.01, (name, off.mean())
+    assert tiny[off].all(), (name, int((off & ~tiny).sum()))
+    assert np.abs(got - want).max() <= 2 * log.lr_sum[id(param)] + 1e-5, name
+
+
+def assert_state_matches(jstate, state, log):
+    """G (with w_avg), D and G_ema equal the JAX state's, trained weights
+    under the Adam rule above."""
+    for root, module in (("params_g", state.g), ("params_d", state.disc)):
+        params = {n.replace(".", "/"): p for n, p in module.named_parameters()}
+        bufs = module_params(module)
+        flat = flatten_tree(jstate[root])
+        assert set(flat) == set(bufs), sorted(set(flat) ^ set(bufs))[:5]
+        for k, v in flat.items():
+            if k in params and params[k].requires_grad:
+                assert_adam_steps_match(f"{root}/{k}", v, params[k], log)
+            else:
+                np.testing.assert_allclose(bufs[k], np.asarray(v), **TOL, err_msg=f"{root}/{k}")
+    ema = module_params(state.g_ema)
+    for k, v in flatten_tree(jstate["params_g_ema"]).items():
+        np.testing.assert_allclose(ema[k], np.asarray(v), **TOL, err_msg=f"G_ema/{k}")
+
+
+def assert_stats_match(stats, jstats):
+    assert sorted(stats) == sorted(jstats)
+    for k, v in jstats.items():
+        np.testing.assert_allclose(float(stats[k]), float(v), **TOL, err_msg=k)

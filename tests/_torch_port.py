@@ -49,6 +49,30 @@ def with_noise_strength(params, value=0.5):
     return params
 
 
+def load_native_loader(monkeypatch):
+    """Build `native/libgnerf_loader.so` as tests/test_native_loader.py does
+    and load it into both packages' native_loader modules, whichever was
+    imported before the library existed. Another worker may be building it
+    at the same moment: a failed load builds and loads again."""
+    import os
+    import subprocess
+    import time
+
+    import gnerf_tpu.utils.native_loader as jnative
+    import gnerf_tpu_torch.utils.native_loader as tnative
+
+    native = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+    for attempt in range(5):
+        subprocess.run(["make", "-C", native], check=False, capture_output=True)
+        libs = jnative._load_lib(), tnative._load_lib()
+        if all(lib is not None for lib in libs):
+            break
+        time.sleep(1 + attempt)
+    assert all(lib is not None for lib in libs), "libgnerf_loader.so failed to build/load"
+    monkeypatch.setattr(jnative, "_LIB", libs[0])
+    monkeypatch.setattr(tnative, "_LIB", libs[1])
+
+
 def to_np(x):
     return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x)
 

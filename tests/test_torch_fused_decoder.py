@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from _torch_port import one_torch_thread, t, to_np  # noqa: F401
 from gnerf_tpu.models import OSGDecoder as JDecoder
 from gnerf_tpu_torch.models import OSGDecoder
-from gnerf_tpu_torch.ops.fused_decoder import osg_decode, osg_decode_ref
+from gnerf_tpu_torch.ops.fused_decoder import OSGDecode, osg_decode, osg_decode_ref
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -412,6 +412,33 @@ def test_decoder_function_matches_plain_autograd(dtype, scale):
         tol = 2 ** -7 if g.dtype == torch.bfloat16 else 1e-4
         torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                    atol=1e-5 * float(w.float().abs().max()), msg=name)
+
+
+def test_plain_gradient_at_zero_preactivation_matches_jax():
+    """Where the hidden pre-activation is exactly 0 (bf16 features and
+    weights reach it: 2 of 50M units at the EG3D training shape), autograd
+    through `osg_decode_ref` takes softplus' derivative 1/2, as
+    jax.nn.softplus and OSGDecode do (here: zero features, zero fc0 bias)."""
+    jdec, params, dec, feats, cot = _grad_inputs("float32", 1.0, m=16, seed=5)
+    feats[:, :, :4] = 0
+    assert not dec.fc0.bias.any()
+    weights = [dec.fc0.weight, dec.fc0.bias, dec.fc1.weight, dec.fc1.bias]
+    ref = torch.autograd.grad(osg_decode_ref(feats, *dec.folded_weights(torch.float32)),
+                              weights, cot)
+    fn = torch.autograd.grad(OSGDecode.apply(feats, *dec.folded_weights(torch.float32)),
+                             weights, cot)
+
+    def jloss(p):
+        o = jdec.apply(p, jnp.asarray(to_np(feats)), use_fused=False)
+        return (o["sigma"] * cot[..., :1].numpy()).sum() + (o["rgb"] * cot[..., 1:].numpy()).sum()
+
+    gp = jax.grad(jloss)(params)
+    for g, g_fn, (a, b) in zip(ref, fn, [("fc0", "weight"), ("fc0", "bias"), ("fc1", "weight"),
+                                          ("fc1", "bias")]):
+        want = np.asarray(gp[a][b])
+        for got in (g, g_fn):
+            np.testing.assert_allclose(to_np(got), want, rtol=1e-4,
+                                       atol=1e-5 * np.abs(want).max(), err_msg=f"{a}/{b}")
 
 
 def test_backward_formula_gradcheck():

@@ -143,17 +143,17 @@ def test_gen_shapes_writes_the_jax_runs_mrc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("source", ["prepared", "id_image"])
 def test_align_lm_and_resize_match_jax(tmp_path, monkeypatch, source):
-    """Photos with a landmark file are FFHQ-aligned, others resized with
-    PIL's bilinear filter: the same [N, 3, size, size] uint8 as the JAX
-    CLI's `_load_images` when its native library is absent."""
+    """Photos with a landmark file are FFHQ-aligned, others decoded and
+    resized by the native loader: the same [N, 3, size, size] uint8 as the
+    JAX CLI's `_load_images`, with the library built and loaded in both."""
     import json
 
     from PIL import Image
 
-    import gnerf_tpu.utils.native_loader as jnative
+    from _torch_port import load_native_loader
     from test_alignment import _smooth_image, _synthetic_landmarks
 
-    monkeypatch.setattr(jnative, "_LIB", None)
+    load_native_loader(monkeypatch)
     photos, lms = tmp_path / "photos", tmp_path / "lms"
     photos.mkdir()
     lms.mkdir()

@@ -30,7 +30,8 @@ def test_import_pulls_in_no_jax():
         "import gnerf_tpu_torch.infer.crosssection, gnerf_tpu_torch.utils.alignment\n"
         "import gnerf_tpu_torch.training, gnerf_tpu_torch.training.train\n"
         "import gnerf_tpu_torch.utils.misc, gnerf_tpu_torch.utils.stats\n"
-        "import gnerf_tpu_torch.utils.logger\n"
+        "import gnerf_tpu_torch.utils.logger, gnerf_tpu_torch.utils.native_loader\n"
+        "import gnerf_tpu_torch.models.dual_discriminator, gnerf_tpu_torch.training.eg3d_loss\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -108,6 +109,13 @@ def _discriminator():
                          channel_max=32)
 
 
+def _dual_discriminator():
+    from gnerf_tpu_torch.models import DualDiscriminator
+
+    return DualDiscriminator(c_dim=25, img_resolution=8, img_channels=3, channel_base=256,
+                             channel_max=32)
+
+
 def _vgg():
     from gnerf_tpu_torch.training import VGG16LPIPS
 
@@ -121,7 +129,8 @@ def _run_training(tmp_path):
 
 
 ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
-           "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training"]
+           "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training",
+           "DualDiscriminator"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -142,7 +151,8 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
              "GNerfService": lambda: _service(g), "load_service": lambda: _load_service(tmp_path),
              "extract_sigma_grid": lambda: _extract_sigma_grid(g),
              "Discriminator": _discriminator, "VGG16LPIPS": _vgg,
-             "run_training": lambda: _run_training(tmp_path)}
+             "run_training": lambda: _run_training(tmp_path),
+             "DualDiscriminator": _dual_discriminator}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     if entry == "GNerfService":

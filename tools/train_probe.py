@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""The full-width G-NeRF train step of `gnerf_tpu_torch`, measured on one CUDA card.
+"""The full-width train steps of `gnerf_tpu_torch`, measured on one CUDA card.
 
-    python3 tools/train_probe.py [--steps 5] [--profile FILE]
+    python3 tools/train_probe.py [--objective gnerf|eg3d] [--steps 5] [--profile FILE]
 
-Builds the networks of the `ffhq` preset as `chip_smoke.py`'s train phase
-does (seed-init weights, fp32, batch 4, SyntheticDataset batches) and
+Builds the networks of the `ffhq` preset as `chip_smoke.py`'s train (or
+eg3d) phase does (seed-init weights, batch 4, SyntheticDataset batches) and
 prints, after the card's name and power limit:
 
-  - for each rematerialisation setting (synthesis, fakes' VGG pass: off/off,
-    on/off, off/on, on/on): the median step ms over `--steps` steps after
-    two warm-up steps, the spread, images/s and the peak memory allocated;
-  - the step split by CUDA events (no remat): the forward of E (train mode),
-    G's mapping, the backbone's planes, the 48+48 render, the 8XDC SR, the
-    reconstruction losses with LPIPS and D on the fake depth; the backward
-    of the G loss; the D loss with R1, forward and backward; both Adam
-    steps and the G_ema update;
-  - with `--profile FILE`, a torch.profiler table of one step (no remat),
-    sorted by device time.
+  - gnerf (fp32): for each rematerialisation setting (synthesis, fakes' VGG
+    pass: off/off, on/off, off/on, on/on) the median step ms over `--steps`
+    steps after two warm-up steps, the spread, images/s and the peak memory
+    allocated; the step split by CUDA events (no remat): the forward of E
+    (train mode), G's mapping, the backbone's planes, the 48+48 render, the
+    8XDC SR, the reconstruction losses with LPIPS and D on the fake depth;
+    the backward of the G loss; the D loss with R1, forward and backward;
+    both Adam steps and the G_ema update;
+  - eg3d (the 512^2 dual D, lazy regularization): for fp32 and bf16
+    (`--dtype bf16`: G's synthesis and both D stacks), each with the
+    synthesis remat off and on, the median ms of Gmain + Dmain over
+    `--steps` steps after two warm-up steps, of a Greg and of a Dreg, and
+    the peak memory allocated; then for each dtype (no remat) the phases
+    split by CUDA events: G forward, D on the fakes, G backward with Adam
+    and w_avg, D main (fakes regenerated without a graph, reals, backward,
+    Adam), G_ema, Greg, Dreg;
+  - with `--profile FILE`, a torch.profiler table of one step (no remat,
+    fp32; for eg3d one Gmain + Dmain, Greg and Dreg), sorted by device time.
 """
 
 from __future__ import annotations
@@ -104,8 +112,133 @@ def _split(state, cfg, batch, rng):
     return {name: marks[i - 1][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks) if i}
 
 
+def _eg3d_split(state, cfg, phases, batch, seed, cur):
+    """One scheduled EG3D step with Greg and Dreg, its parts bracketed by
+    CUDA events, composed from `eg3d_loss`'s own pieces as its main step
+    composes them; returns {part: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from gnerf_tpu_torch.training import eg3d_loss as E
+    from gnerf_tpu_torch.training.train import step_generator
+
+    run_g, run_d = E._make_runners(cfg)
+    res = cfg.neural_rendering_resolution
+    rng = step_generator(seed, cur, "cuda")
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    gen_img, ws = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
+    mark("G forward")
+    loss_g = F.softplus(-run_d(state.disc, gen_img, batch["c"])).mean()
+    mark("D on the fakes")
+    E._adam_step(state.opt_g, loss_g)
+    E._update_w_avg(state.g, ws[:, 0].detach())
+    del gen_img, ws, loss_g
+    mark("G backward + Adam + w_avg")
+    loss_d, _, _ = E._d_main(run_g, run_d, state, batch, rng, 0.0, 0, res)
+    E._adam_step(state.opt_d, loss_d)
+    del loss_d
+    mark("D main + Adam")
+    E._finish_main(state, int(batch["z"].shape[0]))
+    mark("G_ema")
+    phases[1](state, batch, step_generator(seed, cur, "cuda", 1))
+    mark("Greg")
+    phases[2](state, batch, step_generator(seed, cur, "cuda", 2))
+    mark("Dreg")
+    torch.cuda.synchronize()
+    return {name: marks[i - 1][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks) if i}
+
+
+def _probe_eg3d(args) -> int:
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from gnerf_tpu_torch.training import make_eg3d_phase_steps
+    from gnerf_tpu_torch.training.train import step_generator
+
+    n = args.steps + 2
+    batches = chip_smoke._eg3d_batches(n)
+    state, cfg = chip_smoke._full_width_eg3d(0)
+
+    def timed(fn):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        return ev
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, dtype=dtype, remat_synthesis=remat)
+            main, greg, dreg = make_eg3d_phase_steps(c)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            evs = {"main": [], "greg": [], "dreg": []}
+            for i, b in enumerate(batches):
+                cur = state.cur_nimg
+                evs["main"].append(timed(lambda: main(state, b, step_generator(0, cur, "cuda"))))
+                if i in (0, n - 1):  # one regularizer call of each kind warms up
+                    evs["greg"].append(timed(
+                        lambda: greg(state, b, step_generator(0, cur, "cuda", 1))))
+                    evs["dreg"].append(timed(
+                        lambda: dreg(state, b, step_generator(0, cur, "cuda", 2))))
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(e) for a, e in evs["main"][2:]]
+            greg_ms, dreg_ms = (evs[k][-1][0].elapsed_time(evs[k][-1][1])
+                                for k in ("greg", "dreg"))
+            med = statistics.median(ms)
+            print(f"[eg3d {str(dtype).split('.')[-1]} remat_synthesis={remat}] Gmain+Dmain "
+                  f"median_ms={med:.3f} min={min(ms):.3f} max={max(ms):.3f} images_per_s="
+                  f"{chip_smoke.TRAIN_BATCH * 1e3 / med:.3f}; Greg_ms={greg_ms:.3f} "
+                  f"Dreg_ms={dreg_ms:.3f}; lazy step (main + Greg/4 + Dreg/16) ms="
+                  f"{med + greg_ms / 4 + dreg_ms / 16:.3f}; max_memory_allocated="
+                  f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        phases = make_eg3d_phase_steps(c)
+        parts = [_eg3d_split(state, c, phases, b, 0, state.cur_nimg) for b in batches]
+        parts = parts[2:]
+        whole = sum(statistics.median(p[k] for p in parts) for k in parts[0])
+        print(f"[eg3d split {str(dtype).split('.')[-1]}] medians over {len(parts)} steps with "
+              f"Greg and Dreg (no remat), sum {whole:.3f} ms:", flush=True)
+        for k in parts[0]:
+            v = statistics.median(p[k] for p in parts)
+            print(f"[eg3d split]   {k:26s} {v:9.3f} ms  {100 * v / whole:5.1f}%", flush=True)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        main, greg, dreg = make_eg3d_phase_steps(cfg)
+        b, cur = batches[0], state.cur_nimg
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            main(state, b, step_generator(0, cur, "cuda"))
+            greg(state, b, step_generator(0, cur, "cuda", 1))
+            dreg(state, b, step_generator(0, cur, "cuda", 2))
+            torch.cuda.synchronize()
+        _write_profile(prof, args.profile, "one Gmain + Dmain, Greg and Dreg (fp32)")
+    return 0
+
+
+def _write_profile(prof, path, what):
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(table)
+    print(f"[profile] {what}, top device ops:\n" + "\n".join(table.splitlines()[:30]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--objective", choices=("gnerf", "eg3d"), default="gnerf")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile", metavar="FILE", default=None)
     args = ap.parse_args(argv)
@@ -123,6 +256,8 @@ def main(argv=None) -> int:
     from gnerf_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")
+    if args.objective == "eg3d":
+        return _probe_eg3d(args)
     batches = data_iterator(SyntheticDataset(resolution=512, depth_resolution=64),
                             batch_size=chip_smoke.TRAIN_BATCH, seed=0)
     dev = [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in next(batches).items()}
@@ -164,11 +299,7 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(state, dev[0], step_generator(0, state.cur_nimg, "cuda"))
             torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-        os.makedirs(os.path.dirname(os.path.abspath(args.profile)), exist_ok=True)
-        with open(args.profile, "w") as fh:
-            fh.write(table)
-        print("[profile] one step, top device ops:\n" + "\n".join(table.splitlines()[:30]))
+        _write_profile(prof, args.profile, "one step")
     return 0
 
 
