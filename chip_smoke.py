@@ -51,6 +51,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               the state back bit for bit and the next step from both agrees
               within tolerance; under Freeze-D (2 layers) the frozen layers
               stay bitwise through a main and a Dreg step.
+ 11. eg3d_ada: the same EG3D run with `--aug ada` from p = 0.2 (2 warm-up +
+              16 timed steps): phase ms, amortised step, images/s, peak
+              memory, launches checked exactly; the controller's p after
+              each window equals ada_update_p's arithmetic; a Dreg profile
+              (R1 through grid_sample's backward, no convolution double
+              backward); the pipe's forward ms on a [4, 6, 512, 512] pair;
+              the share of 256 samples the pipe changes at p = 0.2 within
+              3 sigma of its expected value.
+ 12. pti:     `make_pti_step` on the full-width G (8XDC to 512^2, 48+48)
+              with VGG16-LPIPS at 256^2, batch 4, fp32: 2 warm-up + 8 timed
+              steps without and with the locality regularizer (step ms, peak
+              memory, losses finite, the SR module bitwise, every weight the
+              loss reaches moved, launches per step exact), then `project_w`
+              steps (ms per step).
+ 13. eval:    `run_eval` on a full-width snapshot the phase writes (seed
+              weights), 8 items in batches of 4: PSNR / SSIM / LPIPS with E,
+              the VGG Frechet distance without; InceptionV3Features at 299^2,
+              batch 4, on weights the phase writes, and the host-side Frechet
+              distance of 2048-d features (times and finiteness only).
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -810,18 +829,32 @@ def _state_tensors(state) -> dict:
     return out
 
 
+def _full_width_g_cfg() -> dict:
+    """The `ffhq` preset's G at full width, as `gnerf_tpu_torch.training.train`
+    builds it: its constructor arguments (the rest are the defaults)."""
+    from gnerf_tpu_torch.training.train import RENDERING_PRESETS, _rendering_kwargs
+
+    rk = _rendering_kwargs(RENDERING_PRESETS["ffhq"], False, 1.0, "none", 0.25, 1.0, "")
+    return dict(img_resolution=SIDE, rendering_kwargs=rk)
+
+
+def _full_width_g(gen):
+    """That G on the card, drawn from `gen`."""
+    from gnerf_tpu_torch.models import TriPlaneGenerator
+
+    return TriPlaneGenerator(**_full_width_g_cfg(), device="cuda", generator=gen)
+
+
 def _full_width_trainer(seed: int):
     """The `ffhq` preset's networks at full width on the card, as
     `gnerf_tpu_torch.training.train` builds them (seed-init weights)."""
     import torch
 
-    from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
+    from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder
     from gnerf_tpu_torch.training import TrainConfig, VGG16LPIPS, init_train_state
-    from gnerf_tpu_torch.training.train import RENDERING_PRESETS, _rendering_kwargs
 
-    rk = _rendering_kwargs(RENDERING_PRESETS["ffhq"], False, 1.0, "none", 0.25, 1.0, "")
     gen = torch.Generator().manual_seed(seed)
-    g = TriPlaneGenerator(img_resolution=512, rendering_kwargs=rk, device="cuda", generator=gen)
+    g = _full_width_g(gen)
     enc = ResNeXt50Encoder(device="cuda", generator=gen)
     disc = Discriminator(c_dim=25, img_resolution=64, img_channels=1, device="cuda",
                          generator=gen)
@@ -934,17 +967,16 @@ def _full_width_eg3d(seed: int, **cfg_overrides):
 
     import torch
 
-    from gnerf_tpu_torch.models import DualDiscriminator, TriPlaneGenerator
+    from gnerf_tpu_torch.models import DualDiscriminator
     from gnerf_tpu_torch.training import TrainConfig, init_eg3d_state
-    from gnerf_tpu_torch.training.train import (RENDERING_PRESETS, _rendering_kwargs,
-                                                eg3d_loss_config)
+    from gnerf_tpu_torch.training.train import eg3d_loss_config
 
-    rk = _rendering_kwargs(RENDERING_PRESETS["ffhq"], False, 1.0, "none", 0.25, 1.0, "")
     gen = torch.Generator().manual_seed(seed)
-    g = TriPlaneGenerator(img_resolution=512, rendering_kwargs=rk, device="cuda", generator=gen)
-    disc = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=3, device="cuda",
+    g = _full_width_g(gen)
+    disc = DualDiscriminator(c_dim=25, img_resolution=SIDE, img_channels=3, device="cuda",
                              generator=gen)
-    cfg = eg3d_loss_config(rk, TrainConfig(batch_size=TRAIN_BATCH), g.neural_rendering_resolution)
+    cfg = eg3d_loss_config(g.rendering_kwargs, TrainConfig(batch_size=TRAIN_BATCH),
+                           g.neural_rendering_resolution)
     cfg = dataclasses.replace(cfg, **cfg_overrides)
     return init_eg3d_state(g, disc, cfg, lazy=True), cfg
 
@@ -970,10 +1002,11 @@ def _eg3d_batches(n: int) -> list:
     return out
 
 
-def _eg3d_step(phases, state, batch, seed=0):
+def _eg3d_step(phases, state, batch, seed=0, aug_p=0.0):
     """One scheduled EG3D step as the CLI runs it: Gmain + Dmain, Greg when
-    sched_idx % 4 == 0, Dreg when sched_idx % 16 == 0. Returns
-    ({phase: (start event, end event, osg_decode launches)}, stats)."""
+    sched_idx % 4 == 0, Dreg when sched_idx % 16 == 0, D's inputs augmented
+    at strength `aug_p` under aug='ada'. Returns ({phase: (start event, end
+    event, osg_decode launches)}, stats)."""
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
@@ -982,11 +1015,12 @@ def _eg3d_step(phases, state, batch, seed=0):
     main, greg, dreg = phases
     cur = state.cur_nimg
     sched = cur // TRAIN_BATCH
-    runs = [("main", lambda: main(state, batch, step_generator(seed, cur, "cuda")))]
+    runs = [("main", lambda: main(state, batch, step_generator(seed, cur, "cuda"), 0.0, aug_p))]
     if sched % 4 == 0:
         runs.append(("greg", lambda: greg(state, batch, step_generator(seed, cur, "cuda", 1))))
     if sched % 16 == 0:
-        runs.append(("dreg", lambda: dreg(state, batch, step_generator(seed, cur, "cuda", 2))))
+        runs.append(("dreg", lambda: dreg(state, batch, step_generator(seed, cur, "cuda", 2),
+                                          0.0, aug_p)))
     marks, stats = {}, {}
     for name, fn in runs:
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -998,32 +1032,30 @@ def _eg3d_step(phases, state, batch, seed=0):
     return marks, stats
 
 
-def phase_eg3d(warmup: int = 2, steps: int = 16):
-    """The full-width EG3D objective on the card (see the module docstring).
-    Phase times are CUDA-event times with the batches already on the card."""
+def _eg3d_run(tag, phases, state, cfg, batches, warmup, steps, ada=None):
+    """`warmup` + `steps` scheduled EG3D steps (see `_eg3d_step`), the ADA
+    strength from `ada` (an AdaController) when given. Checks osg_decode's
+    launches per phase exactly (Gmain's 2 passes with grad, again in the
+    recompute under remat, the D phase's 2 regenerated without; Greg's one
+    sample_mixed pass; none in Dreg) and the phases run; prints per-phase
+    CUDA-event ms, the amortised step, images/s and peak memory. Returns
+    (launches, per-step stats, the p each step ran at)."""
     import numpy as np
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
-    from gnerf_tpu_torch.training import make_eg3d_phase_steps
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, cfg = _full_width_eg3d(0)
-    phases = make_eg3d_phase_steps(cfg)
-    build_s = time.perf_counter() - t0
-    batches = _eg3d_batches(warmup + steps + 1)
-    before = {k: v.clone() for k, v in _state_tensors(state).items()
-              if k.split(".")[0] in ("g", "g_ema", "disc")}
 
     osg_decode.launches = 0
-    runs, losses = [], []
+    runs, losses, ps = [], [], []
     window = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+    p = ada.p if ada is not None else 0.0
     for i in range(warmup + steps):
         if i == warmup:
             window[0].record()
-        marks, stats = _eg3d_step(phases, state, batches[i])
+        marks, stats = _eg3d_step(phases, state, batches[i], aug_p=p)
+        ps.append(p)
+        if ada is not None:
+            p = ada.report(stats["Loss/signs/real"])
         runs.append(marks)
         losses.append(stats)
     window[1].record()
@@ -1031,42 +1063,63 @@ def phase_eg3d(warmup: int = 2, steps: int = 16):
     launches = osg_decode.launches
     peak = torch.cuda.max_memory_allocated()
     window_ms = window[0].elapsed_time(window[1])
-    # Gmain's 2 passes with grad (again in the recompute under remat), the
-    # D phase's 2 regenerated without; Greg's one sample_mixed pass.
     want = {"main": 2 * (2 if cfg.remat_synthesis else 1) + 2, "greg": 1, "dreg": 0}
     by_phase = {}
     for i, marks in enumerate(runs):
         for name, (a, b, n) in marks.items():
             if n != want[name]:
-                raise SystemExit(f"chip_smoke: eg3d {name} launched osg_decode {n} times "
+                raise SystemExit(f"chip_smoke: {tag} {name} launched osg_decode {n} times "
                                  f"in step {i}, want {want[name]}")
             if i >= warmup:
                 by_phase.setdefault(name, []).append(a.elapsed_time(b))
     counts = {k: len(v) for k, v in by_phase.items()}
     if counts != {"main": steps, "greg": steps // 4, "dreg": 1}:
-        raise SystemExit(f"chip_smoke: the eg3d window ran {counts}")
+        raise SystemExit(f"chip_smoke: the {tag} window ran {counts}")
     amortised = window_ms / steps
     for name, ms in by_phase.items():
-        log(f"[eg3d] {name}: n={len(ms)} median_ms={statistics.median(ms):.3f} "
+        log(f"[{tag}] {name}: n={len(ms)} median_ms={statistics.median(ms):.3f} "
             f"min={min(ms):.3f} max={max(ms):.3f} (each: {', '.join(f'{x:.3f}' for x in ms)}) "
             f"osg_decode launches per call={want[name]}")
     total_launches = sum(n for marks in runs for _, _, n in marks.values())
-    log(f"[eg3d] full width fp32, batch {TRAIN_BATCH}, lazy (Greg / 4, Dreg / 16): build "
-        f"{build_s:.2f} s; {steps} scheduled steps in {window_ms:.3f} ms: amortised step_ms="
+    log(f"[{tag}] full width fp32, batch {TRAIN_BATCH}, lazy (Greg / 4, Dreg / 16), aug="
+        f"{cfg.aug}: {steps} scheduled steps in {window_ms:.3f} ms: amortised step_ms="
         f"{amortised:.3f} images_per_s={TRAIN_BATCH * 1e3 / amortised:.3f} "
         f"max_memory_allocated={peak} bytes; remat_synthesis={cfg.remat_synthesis}; "
         f"osg_decode launches={launches} (per phase summed: {total_launches})")
+    if launches != total_launches:
+        raise SystemExit(f"chip_smoke: {tag} launched osg_decode outside its phases")
     losses = [{k: float(v) for k, v in s.items()} for s in losses]
-    log("[eg3d] losses, last step: " + " ".join(f"{k}={v:.5f}" for k, v in losses[-1].items()))
+    log(f"[{tag}] losses, last step: " + " ".join(f"{k}={v:.5f}" for k, v in losses[-1].items()))
+    if not all(np.isfinite(v) for s in losses for v in s.values()):
+        raise SystemExit(f"chip_smoke: non-finite {tag} losses")
+    return launches, losses, ps
+
+
+def phase_eg3d(warmup: int = 2, steps: int = 16):
+    """The full-width EG3D objective on the card (see the module docstring).
+    Phase times are CUDA-event times with the batches already on the card."""
+    import torch
+
+    from gnerf_tpu_torch.training import make_eg3d_phase_steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, cfg = _full_width_eg3d(0)
+    phases = make_eg3d_phase_steps(cfg)
+    log(f"[eg3d] build {time.perf_counter() - t0:.2f} s")
+    batches = _eg3d_batches(warmup + steps + 1)
+    before = {k: v.clone() for k, v in _state_tensors(state).items()
+              if k.split(".")[0] in ("g", "g_ema", "disc")}
+    launches, _, _ = _eg3d_run("eg3d", phases, state, cfg, batches, warmup, steps)
     after = _state_tensors(state)
     moved = {name: any(not torch.equal(after[k], v) for k, v in before.items()
                        if k.startswith(name + "."))
              for name in ("g", "g_ema", "disc")}
     key = "g.backbone.mapping.w_avg"
     moved["w_avg"] = not torch.equal(after[key], before[key])
-    finite = all(np.isfinite(v) for s in losses for v in s.values())
-    log(f"[eg3d] finite={finite} moved: " + " ".join(f"{k}={v}" for k, v in moved.items()))
-    if not (finite and all(moved.values())) or launches != total_launches:
+    log("[eg3d] moved: " + " ".join(f"{k}={v}" for k, v in moved.items()))
+    if not all(moved.values()):
         raise SystemExit("chip_smoke: the eg3d steps did not update as they should")
     del before, after
 
@@ -1078,25 +1131,103 @@ def phase_eg3d(warmup: int = 2, steps: int = 16):
     return launches
 
 
-def _eg3d_dreg_profile(phases, state, batch):
+def _ada_share(pipe, p: float, n: int = 256, chunk: int = 32):
+    """The share of n random 6-channel 512^2 pairs the bgc pipe changes at
+    strength p (bitwise against the same draws at p = 0, where no gate
+    opens), and its expected value: a sample is left alone when every
+    augmentation's gate stays shut or draws the identity (x-flip and
+    luma flip 1/2, rotate90 1/4 of the time; each rotation fires with
+    p_rot = 1 - sqrt(1 - p))."""
+    import torch
+
+    changed = 0
+    for k in range(n // chunk):
+        x = torch.rand((chunk, 6, SIDE, SIDE), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(100 + k)) * 2 - 1
+        with torch.no_grad():
+            a = pipe(x, p=p, generator=torch.Generator(device="cuda").manual_seed(k))
+            b = pipe(x, p=0.0, generator=torch.Generator(device="cuda").manual_seed(k))
+        changed += int((a != b).flatten(1).any(dim=1).sum())
+        del x, a, b
+    p_rot = 1 - (1 - p) ** 0.5
+    keep = (1 - 0.5 * p) ** 2 * (1 - 0.75 * p) * (1 - p) ** 8 * (1 - p_rot) ** 2
+    return changed / n, 1 - keep
+
+
+def phase_eg3d_ada(warmup: int = 2, steps: int = 16, p0: float = 0.2):
+    """The eg3d run under --aug ada from p = p0 (see the module docstring)."""
+    import torch
+
+    from gnerf_tpu_torch.training import (AdaController, make_augment_pipe,
+                                          make_eg3d_phase_steps)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, cfg = _full_width_eg3d(0, aug="ada", aug_p=p0)
+    phases = make_eg3d_phase_steps(cfg)
+    batches = _eg3d_batches(warmup + steps)
+    ada = AdaController(cfg, TRAIN_BATCH, cfg.aug_p)
+    launches, losses, ps = _eg3d_run("eg3d_ada", phases, state, cfg, batches, warmup, steps,
+                                     ada=ada)
+    # The controller against its arithmetic: after each window of
+    # ada_interval steps, p + sign(mean sign(D(real)) - target) * B * interval
+    # / (ada_kimg * 1000), clipped to [0, 1].
+    interval, want, windows = cfg.ada_interval, p0, []
+    for w in range(len(ps) // interval):
+        rt = float(torch.tensor([s["Loss/signs/real"] for s in losses[w * interval:
+                                                                   (w + 1) * interval]]).mean())
+        step = TRAIN_BATCH * interval / (cfg.ada_kimg * 1000.0)
+        want = min(max(want + (step if rt > cfg.ada_target else -step
+                               if rt < cfg.ada_target else 0.0), 0.0), 1.0)
+        got = ps[(w + 1) * interval] if (w + 1) * interval < len(ps) else ada.p
+        windows.append((rt, got, want))
+    log("[eg3d_ada] controller p after each window (r_t, p, expected): "
+        + "; ".join(f"{rt:+.4f} {got!r} {want!r}" for rt, got, want in windows))
+    if len(windows) < 2 or any(got != want for _, got, want in windows):
+        raise SystemExit("chip_smoke: the ADA controller's p disagrees with its arithmetic")
+    _eg3d_dreg_profile(phases, state, batches[0], aug_p=ada.p, tag="eg3d_ada")
+
+    pipe = make_augment_pipe(cfg)
+    pair = torch.cat([batches[0]["real_image"], batches[1]["real_image"]], dim=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe_ms = cuda_ms(lambda: pipe(pair, p=p0, generator=gen), iters=10, warmup=2)
+    del state, batches
+    torch.cuda.empty_cache()
+    share, expect = _ada_share(pipe, p0)
+    sigma = (expect * (1 - expect) / 256) ** 0.5
+    log(f"[eg3d_ada] pipe forward on {list(pair.shape)} fp32 at p={p0}: {pipe_ms:.3f} ms; "
+        f"share of 256 samples changed at p={p0}: {share:.4f} (expected {expect:.4f}, "
+        f"3 sigma {3 * sigma:.4f})")
+    if abs(share - expect) > 3 * sigma:
+        raise SystemExit("chip_smoke: the ADA pipe changes the wrong share of samples")
+    return launches
+
+
+def _eg3d_dreg_profile(phases, state, batch, aug_p=None, tag="eg3d"):
     """One Dreg (R1 through both inputs of the 512^2 D, and its weight
-    gradient) under torch.profiler: no `aten::_convolution_double_backward`."""
+    gradient; with `aug_p`, through the ADA pipe too) under torch.profiler:
+    no `aten::_convolution_double_backward`; with the pipe, grid_sample's
+    backward in R1's graph."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gnerf_tpu_torch.training.train import step_generator
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        phases[2](state, batch, step_generator(0, state.cur_nimg, "cuda", 2))
+        phases[2](state, batch, step_generator(0, state.cur_nimg, "cuda", 2), 0.0, aug_p or 0.0)
         torch.cuda.synchronize()
     avg = prof.key_averages()
     keys = {e.key: e.count for e in avg}
     convs = keys.get("aten::convolution", 0)
-    log(f"[eg3d] Dreg profile: {convs} convolutions, _convolution_double_backward calls="
-        f"{keys.get('aten::_convolution_double_backward', 0)}; top device ops:\n"
+    grid = {k: keys.get(k, 0) for k in ("aten::grid_sampler_2d", "aten::grid_sampler_2d_backward")}
+    log(f"[{tag}] Dreg profile: {convs} convolutions, _convolution_double_backward calls="
+        f"{keys.get('aten::_convolution_double_backward', 0)}, grid_sample calls {grid}; "
+        "top device ops:\n"
         + "\n".join(avg.table(sort_by="cuda_time_total", row_limit=12).splitlines()[:16]))
     if "aten::_convolution_double_backward" in keys:
         raise SystemExit("chip_smoke: R1 through the dual D ran a convolution double backward")
+    if aug_p is not None and grid["aten::grid_sampler_2d_backward"] == 0:
+        raise SystemExit("chip_smoke: R1 did not differentiate through the pipe's warp")
 
 
 def _eg3d_save_load(phases, state, batch):
@@ -1157,6 +1288,170 @@ def _eg3d_freeze(batch):
         raise SystemExit(f"chip_smoke: Freeze-D moved or froze the wrong tensors: {wrong[:4]}")
 
 
+def _pti_batch(g, n: int = TRAIN_BATCH):
+    """n SyntheticDataset targets at 512^2 on the card, and pivot ws from
+    seeded z (the CLI's default pivot is the encoder's)."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.training import SyntheticDataset, collate
+
+    items = collate([SyntheticDataset(resolution=SIDE)[i] for i in range(n)])
+    c = torch.from_numpy(np.asarray(items["loss_c"], np.float32)).cuda()
+    z = torch.randn((n, g.z_dim), generator=torch.Generator().manual_seed(11)).cuda()
+    with torch.no_grad():
+        ws = g.mapping(z, c)
+    image = torch.from_numpy(np.asarray(items["loss_image"], np.float32)).cuda() / 127.5 - 1.0
+    return {"ws": ws, "loss_image": image, "loss_c": c}
+
+
+def phase_pti(warmup: int = 2, steps: int = 8, project_steps: int = 6):
+    """PTI at full width on the card (see the module docstring): step times
+    are CUDA-event times of whole steps with the batch on the card."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import (PTIConfig, VGG16LPIPS, init_pti_state, make_pti_step,
+                                          project_w)
+
+    g = _full_width_g(torch.Generator().manual_seed(0)).requires_grad_(False).eval()
+    vgg = VGG16LPIPS(device="cuda", generator=torch.Generator().manual_seed(7))
+    batch = _pti_batch(g)
+    osg_decode.launches = 0
+    for locality in (False, True):
+        cfg = PTIConfig(neural_rendering_resolution=g.neural_rendering_resolution,
+                        use_locality_reg=locality)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_pti_state(g, vgg, cfg)
+        step = make_pti_step(cfg)
+        rng = torch.Generator(device="cuda").manual_seed(0)
+        before = {n: p.detach().clone() for n, p in state.g.named_parameters()}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(warmup + steps + 1)]
+        launches, losses = [], []
+        for i in range(warmup + steps):
+            n0 = osg_decode.launches
+            ev[i].record()
+            losses.append(step(state, batch, rng)[1])
+            ev[i + 1].record()
+            launches.append(osg_decode.launches - n0)
+        torch.cuda.synchronize()
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(warmup, warmup + steps)]
+        peak = torch.cuda.max_memory_allocated()
+        want = 2 + (4 if locality else 0)  # 2 passes with grad; the original G's 2 without
+        trained = {id(p) for p in state.opt.state if state.opt.state[p]["exp_avg"].any()}
+        sr_bitwise = all(torch.equal(p, before[n]) for n, p in state.g.named_parameters()
+                         if n.startswith("superresolution."))
+        reached = [(n, p) for n, p in state.g.named_parameters() if id(p) in trained]
+        moved = all(not torch.equal(p, before[n]) for n, p in reached)
+        still = sum(1 for n, p in state.g.named_parameters()
+                    if id(p) not in trained and not n.startswith("superresolution.")
+                    and torch.equal(p, before[n]))
+        losses = [{k: float(v) for k, v in s.items()} for s in losses]
+        finite = all(np.isfinite(v) for s in losses for v in s.values())
+        med = statistics.median(step_ms)
+        tag = "locality" if locality else "plain"
+        log(f"[pti] {tag}: full width fp32, batch {TRAIN_BATCH}, LPIPS at {vgg.resize_to}^2: "
+            f"step_ms median={med:.3f} min={min(step_ms):.3f} max={max(step_ms):.3f} (each: "
+            f"{', '.join(f'{x:.3f}' for x in step_ms)}) images_per_s="
+            f"{TRAIN_BATCH * 1e3 / med:.3f} max_memory_allocated={peak} bytes; osg_decode "
+            f"launches per step {sorted(set(launches))} (want {want})")
+        log(f"[pti] {tag}: losses first / last step: "
+            + " ".join(f"{k}={losses[0][k]:.5f}/{v:.5f}" for k, v in losses[-1].items())
+            + f"; finite={finite} SR bitwise={sr_bitwise}; {len(reached)} weights the loss "
+            f"reaches, all moved={moved}; {still} others (zero gradient) unchanged")
+        if not (finite and sr_bitwise and moved and reached) or set(launches) != {want}:
+            raise SystemExit(f"chip_smoke: the {tag} PTI step did not update as it should")
+        del state, step, before
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    project_w(g, vgg, batch["loss_image"], batch["loss_c"], num_steps=2, start_ws=batch["ws"])
+    torch.cuda.synchronize()
+    n0 = osg_decode.launches
+    t0 = time.perf_counter()
+    ws, hist = project_w(g, vgg, batch["loss_image"], batch["loss_c"],
+                         num_steps=project_steps, start_ws=batch["ws"])
+    torch.cuda.synchronize()
+    proj_ms = (time.perf_counter() - t0) * 1e3 / project_steps
+    n_proj = osg_decode.launches - n0
+    log(f"[pti] project_w: {project_steps} steps at {proj_ms:.3f} ms per step (host clock, "
+        f"one loss read back per step, the 600 w_avg draws included); loss {hist[0]:.5f} -> "
+        f"{hist[-1]:.5f}; ws {tuple(ws.shape)}; osg_decode launches={n_proj} "
+        f"(want {2 * project_steps})")
+    if n_proj != 2 * project_steps or not np.isfinite(hist).all():
+        raise SystemExit("chip_smoke: project_w launched wrongly or gave non-finite losses")
+    return osg_decode.launches
+
+
+def phase_eval(max_items: int = 8, batch: int = 4):
+    """run_eval at full width through both routes, then the FID parts (see
+    the module docstring). FID values on random weights mean nothing; only
+    times and finiteness are read."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.models import ResNeXt50Encoder
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import (InceptionV3Features, feature_statistics,
+                                          frechet_distance, load_inception)
+    from gnerf_tpu_torch.training.eval import run_eval
+    from gnerf_tpu_torch.utils import checkpoint as ckpt
+
+    g = _full_width_g(torch.Generator().manual_seed(0))
+    enc = ResNeXt50Encoder(out_dim=g.z_dim, device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    config = {"generator": json.loads(json.dumps(_full_width_g_cfg()))}
+    osg_decode.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        full, gen_only = os.path.join(tmp, "full.npz"), os.path.join(tmp, "g.npz")
+        ckpt.save_checkpoint(full, {"G_ema": g, **ckpt.encoder_trees(enc)}, config=config)
+        ckpt.save_checkpoint(gen_only, {"G_ema": g}, config=config)
+        del g, enc
+        for name, path, keys in (("reconstruction", full, ("psnr", "ssim", "lpips")),
+                                 ("generative", gen_only, ("frechet_vgg",))):
+            torch.cuda.synchronize()
+            n0 = osg_decode.launches
+            t0 = time.perf_counter()
+            summary = run_eval(network=path, max_items=max_items, batch=batch, device="cuda")
+            wall = time.perf_counter() - t0
+            n = osg_decode.launches - n0
+            want = 2 * (max_items // batch)
+            log(f"[eval] {name}: {wall:.2f} s for {max_items} items in batches of {batch} "
+                f"(checkpoint load and first calls included); summary {summary}; osg_decode "
+                f"launches={n} (want {want})")
+            if n != want or summary["num_items"] != max_items or not all(
+                    np.isfinite(summary[k]) for k in keys):
+                raise SystemExit(f"chip_smoke: the {name} eval route failed")
+        launches = osg_decode.launches
+        inc_path = os.path.join(tmp, "inception.npz")
+        ckpt.save_checkpoint(inc_path, {"inception": ckpt.module_params(InceptionV3Features(
+            device="cpu", generator=torch.Generator().manual_seed(3)))})
+        net = load_inception(inc_path, device="cuda")
+    x = torch.rand((batch, 3, 299, 299), device="cuda") * 2 - 1
+    feats = net.features(x)
+    inc_ms = cuda_ms(lambda: net.features(x), iters=10, warmup=2)
+    rs = np.random.RandomState(0)
+    a, b = rs.randn(4096, 2048), rs.randn(4096, 2048) * 1.1 + 0.05
+    t0 = time.perf_counter()
+    (mu_a, sig_a), (mu_b, sig_b) = feature_statistics(a), feature_statistics(b)
+    stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fd = frechet_distance(mu_a, sig_a, mu_b, sig_b)
+    fd_s = time.perf_counter() - t0
+    log(f"[eval] InceptionV3Features at 299^2, batch {batch}, fp32 (weights written by this "
+        f"phase): {inc_ms:.3f} ms, features {tuple(feats.shape)} finite="
+        f"{bool(torch.isfinite(feats).all())}; host Frechet distance of 2048-d features "
+        f"(4096 per side): statistics {stats_s:.3f} s, sqrtm and traces {fd_s:.3f} s, "
+        f"finite={np.isfinite(fd)}")
+    if feats.shape != (batch, 2048) or not torch.isfinite(feats).all() or not np.isfinite(fd):
+        raise SystemExit("chip_smoke: the FID parts failed")
+    del net, x, feats
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -1179,6 +1474,9 @@ def main(argv=None) -> int:
     launches["shapes"] = phase_shapes()
     launches["train"] = phase_train()
     launches["eg3d"] = phase_eg3d()
+    launches["eg3d_ada"] = phase_eg3d_ada()
+    launches["pti"] = phase_pti()
+    launches["eval"] = phase_eval()
 
     main_row = kern["main_bf16"]
     timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32",

@@ -140,6 +140,18 @@ class TriPlaneGenerator(nn.Module):
         return self.backbone.mapping(z, c, truncation_psi=truncation_psi,
                                      truncation_cutoff=truncation_cutoff)
 
+    def output_resolution(self) -> int:
+        """The side of `synthesis`'s image: the SR module run once, without
+        a gradient, on a zero feature image at the neural rendering
+        resolution (reduced configurations emit less than img_resolution)."""
+        dev = next(self.parameters()).device
+        r = self.neural_rendering_resolution
+        x = torch.zeros((1, 32, r, r), device=dev)
+        with torch.no_grad():
+            image, _ = self.superresolution(x[:, :3], x, torch.zeros(
+                (1, self.num_ws, self.w_dim), device=dev), noise_mode="none")
+        return int(image.shape[-1])
+
     def backbone_planes(self, ws, noise_mode="const", rng=None,
                         dtype=torch.float32) -> torch.Tensor:
         """ws -> tri-plane features [N, 3, C, H, W] in `dtype`. The ToRGB skip

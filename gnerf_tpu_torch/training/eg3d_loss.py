@@ -1,10 +1,11 @@
 """The EG3D GAN objective: dual discrimination, R1, density regularization
 and pose-swapped conditioning, fused or with lazy regularization.
 
-Port of `gnerf_tpu/training/eg3d_loss.py` (without the ADA augmentation
-pipe and the chained relay cycles). It adversarially trains all of the
-tri-plane generator G against a dual discriminator D: the stage that
-produces the generator G-NeRF fine-tunes.
+Port of `gnerf_tpu/training/eg3d_loss.py` (without the chained relay
+cycles). It adversarially trains all of the tri-plane generator G against a
+dual discriminator D: the stage that produces the generator G-NeRF
+fine-tunes. Under `aug='ada'` or `'fixed'` every D call sees its input
+through the bgc ADA pipe (`training/augment.py`), R1 included.
 
   G loss  = softplus(-D(G(z, c'))).mean()            c' = c rolled by one
                                                       with prob. swapping_prob
@@ -25,7 +26,9 @@ trainable set; the D phase regenerates its fakes from the updated G under
 
 Every random draw of a step (the swap, style mixing, synthesis noise, the
 render's jitter and importance samples, the density points) comes from the
-step's `torch.Generator`; `rng=None` gives constant noise and deterministic
+step's `torch.Generator`; each D call's augmentation draws from a generator
+of its own, seeded from the step generator's seed and the call's stream
+(`_aug_generator`). `rng=None` gives constant noise and deterministic
 sampling, and the remaining draws then come from torch's default generator.
 """
 
@@ -46,16 +49,13 @@ from ..ops.upfirdn2d import filter2d
 from ..utils.misc import ema_update
 from .train_loop import checkpointed
 
-ADA_NOT_PORTED = ("--aug ada|fixed (the ADA augmentation pipe) is not ported to "
-                  "gnerf_tpu_torch yet (ROADMAP.md Queue 1 item 11b)")
-
-
 @dataclasses.dataclass(frozen=True)
 class EG3DLossConfig:
     """The JAX package's fields and defaults. `aug_cell_pack` is a TPU
-    memory layout with no meaning here, kept so stored configs load;
-    `aug`, `aug_p`, `ada_*` are recorded, and any `aug` but 'noaug'
-    raises until the ADA pipe is ported."""
+    memory layout with no meaning here, kept so stored configs load.
+    `aug`: 'noaug', 'ada' (the bgc pipe with the r_t-feedback controller
+    `ada_update_p`, driven by the training loop from `aug_p`) or 'fixed'
+    (the pipe at the constant p = `aug_p`)."""
 
     r1_gamma: float = 1.0
     blur_init_sigma: float = 0.0
@@ -105,6 +105,53 @@ class EG3DState:
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     cur_nimg: int = 0
+
+
+# The 'bgc' augmentation preset (blit + geometric + colour): the standard
+# StyleGAN2-ADA recipe EG3D-class face GANs train with.
+BGC_SPEC = dict(xflip=1.0, rotate90=1.0, xint=1.0, scale=1.0, rotate=1.0,
+                aniso=1.0, xfrac=1.0, brightness=1.0, contrast=1.0,
+                lumaflip=1.0, hue=1.0, saturation=1.0)
+
+
+def make_augment_pipe(cfg: EG3DLossConfig):
+    """The AugmentPipe of the configured mode (bgc, static margin 0.55 of
+    the image, as the JAX package pads), or None for 'noaug'."""
+    if cfg.aug == "noaug":
+        return None
+    from .augment import AugmentPipe
+
+    return AugmentPipe(**BGC_SPEC, pad_fraction=0.55, warp_cell_pack=cfg.aug_cell_pack)
+
+
+def ada_update_p(p: float, rt: float, batch_size: int, cfg: EG3DLossConfig) -> float:
+    """One step of the r_t-feedback controller: nudge p toward keeping
+    E[sign(D(real))] at ada_target, a full 0 -> 1 sweep taking ada_kimg
+    kimg. Called every ada_interval batches with the interval's mean of the
+    'Loss/signs/real' stat."""
+    adjust = np.sign(rt - cfg.ada_target) * (
+        batch_size * cfg.ada_interval / (cfg.ada_kimg * 1000.0))
+    return float(np.clip(p + adjust, 0.0, 1.0))
+
+
+class AdaController:
+    """The ADA strength p of a run: under aug='ada' every `ada_interval`
+    reported 'Loss/signs/real' values are averaged and p moves by
+    `ada_update_p`; under 'fixed' (and 'noaug') p stays where it started."""
+
+    def __init__(self, cfg: EG3DLossConfig, batch_size: int, p: float):
+        self.cfg, self.batch_size, self.p = cfg, batch_size, float(p)
+        self._window: list = []
+
+    def report(self, signs_real: torch.Tensor) -> float:
+        """Record one step's 'Loss/signs/real'; returns the p for the next."""
+        if self.cfg.aug == "ada":
+            self._window.append(signs_real)
+            if len(self._window) == self.cfg.ada_interval:
+                rt = float(torch.stack(self._window).mean())
+                self.p = ada_update_p(self.p, rt, self.batch_size, self.cfg)
+                self._window.clear()
+        return self.p
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +356,26 @@ def _finish_main(state: EG3DState, n: int) -> None:
     state.cur_nimg += n
 
 
+# The augmentation streams of a step's D calls: G's loss, D's loss on the
+# fakes and on the reals, R1 (JAX splits k_aug, k_aug_f, k_aug_r, k_aug_r1).
+AUG_G, AUG_FAKE, AUG_REAL, AUG_R1 = 1, 2, 3, 4
+
+
+def _aug_generator(rng: Optional[torch.Generator], stream: int) -> Optional[torch.Generator]:
+    """The augment pipe's generator for one D call of a step: seeded from
+    the step generator's seed and `stream`, so the draws do not depend on
+    how much G drew before them, and a step's calls draw independently.
+    None (torch's default generator) when the step has none."""
+    if rng is None:
+        return None
+    words = np.random.SeedSequence([rng.initial_seed(), stream]).generate_state(2, np.uint32)
+    return torch.Generator(device=rng.device).manual_seed(
+        (int(words[0]) << 31) ^ int(words[1]))
+
+
 def _make_runners(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None):
     """The G and D forwards the steps compose from."""
-    if cfg.aug != "noaug":
-        raise NotImplementedError(ADA_NOT_PORTED)
+    pipe = make_augment_pipe(cfg)
 
     def run_g(g: TriPlaneGenerator, z, c, rng, cur_nimg, res):
         c_cond = swapped_conditioning(rng, c, swapping_prob_schedule(cur_nimg, cfg))
@@ -333,45 +396,64 @@ def _make_runners(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = Non
         # D and the losses take fp32 whatever the synthesis dtype.
         return {"image": image.float(), "image_raw": image_raw.float()}, ws
 
-    def run_d(disc, img, c, blur_sigma=0.0, blur_size: int = 0):
+    def run_d(disc, img, c, blur_sigma=0.0, blur_size: int = 0, *,
+              rng: Optional[torch.Generator] = None, stream: int = 0, aug_p: float = 0.0):
+        """D's logits, after the blur and, with a pipe, the augmentation at
+        strength `aug_p` from the step generator `rng`'s stream `stream`:
+        the raw image upsampled to full size, both augmented by the same
+        per-sample transform as one 6-channel batch in cfg.dtype, the raw
+        half resized back to its own size."""
         if blur_size > 0:
             img = dict(img, image=blur_image(img["image"], blur_sigma, blur_size))
+        if pipe is not None:
+            full, res = img["image"].shape[-1], img["image_raw"].shape[-1]
+            raw_up = interpolate_bilinear(img["image_raw"], full, full, antialias=True)
+            pair = torch.cat([img["image"], raw_up], dim=1).to(cfg.dtype)
+            pair = pipe(pair, p=aug_p, generator=_aug_generator(rng, stream))
+            img = {"image": pair[:, :3],
+                   "image_raw": interpolate_bilinear(pair[:, 3:], res, res, antialias=True)}
         return disc.apply(img, c, dtype=cfg.dtype)
 
     return run_g, run_d
 
 
-def _r1(run_d, disc, real_img, real_raw, real_c, blur_sigma, blur_size, cur_nimg, cfg):
-    """Mean (gamma / 2) * R1 through both D inputs, taken at the pre-blur
-    image and the raw image, with a graph for D's weight gradient."""
+def _r1(run_d, disc, real_img, real_raw, real_c, blur_sigma, blur_size, cur_nimg, cfg, *,
+        rng: Optional[torch.Generator] = None, aug_p: float = 0.0):
+    """Mean (gamma / 2) * R1 through both D inputs, taken at the pre-blur,
+    pre-augmentation image and the raw image, with a graph for D's weight
+    gradient."""
     img = real_img.detach().requires_grad_(True)
     raw = real_raw.detach().requires_grad_(True)
-    logits = run_d(disc, {"image": img, "image_raw": raw}, real_c, blur_sigma, blur_size)
+    logits = run_d(disc, {"image": img, "image_raw": raw}, real_c, blur_sigma, blur_size,
+                   rng=rng, stream=AUG_R1, aug_p=aug_p)
     g_img, g_raw = torch.autograd.grad(logits.sum(), [img, raw], create_graph=True)
     r1 = g_img.square().sum(dim=(1, 2, 3)) + g_raw.square().sum(dim=(1, 2, 3))
     return (r1 * (r1_gamma_schedule(cur_nimg, cfg) / 2)).mean()
 
 
-def _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res):
+def _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res, aug_p=0.0):
     """D's logistic loss on fakes regenerated from the (updated) G without
     a graph, and on the reals: (loss, logits on the reals, stats)."""
     with torch.no_grad():
         gen_img, _ = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
-    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size)
+    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size,
+                       rng=rng, stream=AUG_FAKE, aug_p=aug_p)
     real_img = batch["real_image"]
     real_raw = interpolate_bilinear(real_img, res, res, antialias=True)
     real_logits = run_d(state.disc, {"image": real_img, "image_raw": real_raw},
-                        batch["real_c"], blur_sigma, blur_size)
+                        batch["real_c"], blur_sigma, blur_size, rng=rng, stream=AUG_REAL,
+                        aug_p=aug_p)
     loss = F.softplus(gen_logits).mean() + F.softplus(-real_logits).mean()
     stats = {"Loss/D/loss": loss.detach(), "Loss/scores/real": real_logits.mean().detach(),
              "Loss/signs/real": torch.sign(real_logits).mean().detach()}
     return loss, real_raw, stats
 
 
-def _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res):
+def _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res, aug_p=0.0):
     """G's non-saturating loss: (loss, ws, stats)."""
     gen_img, ws = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
-    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size)
+    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size,
+                       rng=rng, stream=AUG_G, aug_p=aug_p)
     loss = F.softplus(-gen_logits).mean()
     stats = {"Loss/G/gan_loss": loss.detach(), "Loss/scores/fake": gen_logits.mean().detach()}
     return loss, ws, stats
@@ -380,20 +462,23 @@ def _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res):
 def make_eg3d_train_step(cfg: EG3DLossConfig,
                          rendering_overrides: Optional[dict] = None) -> Callable:
     """The fused step (density reg and R1 in every step, no lazy scaling):
-    `train_step(state, batch, rng=None, blur_sigma=0.0, *, blur_size=0,
-    res=None) -> (state, stats)`.
+    `train_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *,
+    blur_size=0, res=None) -> (state, stats)`.
 
     `batch`: {'z': [N, z_dim], 'c': [N, 25], 'real_image': [N, 3, R, R] in
     [-1, 1], 'real_c': [N, 25]} on G's device. `blur_sigma` and `blur_size`
-    come from `blur_sigma_schedule` / `blur_kernel_size`, `res` from
+    come from `blur_sigma_schedule` / `blur_kernel_size`, `aug_p` is the
+    augmentation strength (unused under aug='noaug'), `res` comes from
     `neural_resolution_schedule` (None: the initial resolution). State from
     `init_eg3d_state(..., lazy=False)`."""
     run_g, run_d = _make_runners(cfg, rendering_overrides)
 
     def train_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
-                   blur_sigma: float = 0.0, *, blur_size: int = 0, res: Optional[int] = None):
+                   blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
+                   res: Optional[int] = None):
         res = res or cfg.neural_rendering_resolution
-        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res)
+        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
+                                    res, aug_p)
         if cfg.density_reg > 0:
             tv = density_regularization(state.g, ws, rng, cfg)
             loss_g = loss_g + tv
@@ -403,9 +488,9 @@ def make_eg3d_train_step(cfg: EG3DLossConfig,
         del ws
 
         loss_d, real_raw, d_stats = _d_main(run_g, run_d, state, batch, rng, blur_sigma,
-                                            blur_size, res)
+                                            blur_size, res, aug_p)
         loss_dr1 = _r1(run_d, state.disc, batch["real_image"], real_raw, batch["real_c"],
-                       blur_sigma, blur_size, state.cur_nimg, cfg)
+                       blur_sigma, blur_size, state.cur_nimg, cfg, rng=rng, aug_p=aug_p)
         d_stats["Loss/D/reg"] = loss_dr1.detach()
         loss_d = loss_d + loss_dr1
         _adam_step(state.opt_d, loss_d)
@@ -425,20 +510,23 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
     `init_eg3d_state(..., lazy=True)`; only main_step advances cur_nimg and
     the EMAs.
 
-      main_step(state, batch, rng=None, blur_sigma=0.0, *, blur_size=0, res=None)
+      main_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *, blur_size=0, res=None)
       greg_step(state, batch, rng=None)
-      dreg_step(state, batch, rng=None, blur_sigma=0.0, *, blur_size=0, res=None)
+      dreg_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *, blur_size=0, res=None)
     """
     run_g, run_d = _make_runners(cfg, rendering_overrides)
 
     def main_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
-                  blur_sigma: float = 0.0, *, blur_size: int = 0, res: Optional[int] = None):
+                  blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
+                  res: Optional[int] = None):
         res = res or cfg.neural_rendering_resolution
-        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res)
+        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
+                                    res, aug_p)
         _adam_step(state.opt_g, loss_g)
         _update_w_avg(state.g, ws[:, 0].detach())
         del ws
-        loss_d, _, d_stats = _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res)
+        loss_d, _, d_stats = _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
+                                     res, aug_p)
         _adam_step(state.opt_d, loss_d)
         _finish_main(state, int(batch["z"].shape[0]))
         stats.update(d_stats)
@@ -464,13 +552,14 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
         gain_d = float(max(cfg.d_reg_interval, 1))
 
         def dreg_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
-                      blur_sigma: float = 0.0, *, blur_size: int = 0,
+                      blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
                       res: Optional[int] = None):
-            """R1 through both dual-discrimination inputs, times the lazy gain."""
+            """R1 through both dual-discrimination inputs (and the pipe),
+            times the lazy gain."""
             res = res or cfg.neural_rendering_resolution
             real_raw = interpolate_bilinear(batch["real_image"], res, res, antialias=True)
             loss = _r1(run_d, state.disc, batch["real_image"], real_raw, batch["real_c"],
-                       blur_sigma, blur_size, state.cur_nimg, cfg)
+                       blur_sigma, blur_size, state.cur_nimg, cfg, rng=rng, aug_p=aug_p)
             _adam_step(state.opt_d, loss * gain_d)
             return state, {"Loss/D/reg": loss.detach()}
 

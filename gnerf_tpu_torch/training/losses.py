@@ -229,6 +229,24 @@ def lpips_params_or_warn(path: Optional[str] = None, device=None,
     return VGG16LPIPS(device=device, generator=generator), False
 
 
+def lpips_from_checkpoint(trees: dict, lpips_weights: str = "", device=None,
+                          warn: bool = False) -> VGG16LPIPS:
+    """The LPIPS net of the PTI and eval CLIs: converted weights when
+    `lpips_weights` is given, else the checkpoint's `VGG` tree, else random
+    weights from seed 1 (with a warning when `warn`)."""
+    from ..utils.checkpoint import load_jax_params
+
+    if lpips_weights:
+        return load_lpips(lpips_weights, device=device)[0]
+    vgg = VGG16LPIPS(device="cpu", generator=torch.Generator().manual_seed(1))
+    if "VGG" in trees:
+        load_jax_params(vgg, trees["VGG"])
+    elif warn:
+        print("WARNING: no pretrained LPIPS weights — PTI will optimize a random-VGG "
+              "perceptual objective (pass --lpips-weights)")
+    return vgg.to(resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # GAN losses
 

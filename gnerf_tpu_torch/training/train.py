@@ -9,16 +9,18 @@ snapshot loop. `--objective gnerf` writes `training_options.json`,
 `training-state-latest.npz`; `--resume` continues from the last bit for bit,
 or starts from a network snapshot of either package. `--objective eg3d`
 trains all of G against the dual discriminator with lazy regularization
-(Greg every `--density_reg_every`, Dreg every `--d_reg_interval` steps) and
-writes the same layout without the validation files (snapshots hold G_ema,
-G and D); `--resume` continues from its full state. SIGTERM and SIGINT
-finish the step, save the full state and exit.
+(Greg every `--density_reg_every`, Dreg every `--d_reg_interval` steps),
+with `--aug ada` (the bgc ADA pipe in front of D, its p driven by the
+r_t-feedback controller from `--aug_p`) or `--aug fixed` (p stays `--aug_p`),
+and writes the same layout without the validation files (snapshots hold
+G_ema, G and D); `--resume` continues from its full state with the live ADA
+p. SIGTERM and SIGINT finish the step, save the full state and exit.
 
     python -m gnerf_tpu_torch.training.train --outdir runs --dataset_name synthetic \\
         --preset ffhq --batch 4 --kimg 1 --tick 1 [--objective eg3d] [--device cpu]
 
 Runs on CUDA unless `--device` names another device. Not ported (they
-raise): `--aug ada|fixed`, `--chain` > 1 and `--ray_shards` > 1.
+raise): `--chain` > 1 and `--ray_shards` > 1.
 """
 
 from __future__ import annotations
@@ -302,13 +304,12 @@ def run_training(
     """The training run of `objective` (gnerf or eg3d); the JAX CLI's
     options plus `device`. Returns the run directory (None for a dry run)."""
     from ..utils.device import resolve_device
-    from .eg3d_loss import ADA_NOT_PORTED
     from .train_loop import TrainConfig, config_dict
 
     if objective not in ("gnerf", "eg3d"):
         raise ValueError(f"unknown --objective {objective!r} (expected gnerf or eg3d)")
-    if objective == "eg3d" and aug != "noaug":
-        raise NotImplementedError(ADA_NOT_PORTED)
+    if aug not in ("noaug", "ada", "fixed"):
+        raise ValueError(f"unknown --aug {aug!r} (expected noaug, ada or fixed)")
     if int(chain) != 1:
         raise ValueError("--chain > 1 is the JAX package's dispatch workaround and is not "
                          "ported: one step is one Python call here")
@@ -360,10 +361,11 @@ def run_training(
                         neural_rendering_resolution_final=neural_rendering_resolution_final,
                         neural_rendering_resolution_fade_kimg=(
                             neural_rendering_resolution_fade_kimg),
-                        density_reg_every=density_reg_every, d_reg_interval=d_reg_interval)
+                        density_reg_every=density_reg_every, d_reg_interval=d_reg_interval,
+                        aug=aug, aug_p=aug_p, ada_target=ada_target, ada_kimg=ada_kimg)
             return _train_eg3d(run_dir, options, cfg, rendering_kwargs, img_resolution,
-                               dataset_name, data, real_data, z_dim, w_dim, resume, aug_p,
-                               eg3d, device)
+                               dataset_name, data, real_data, z_dim, w_dim, resume, eg3d,
+                               device)
         return _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name,
                       data, real_data, z_dim, w_dim, lpips_weights, resume, device)
     finally:
@@ -495,7 +497,8 @@ def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: i
                      aug_p: float = 0.0, freezed: int = 0, style_mixing_prob: float = 0.0,
                      neural_rendering_resolution_final: int = 0,
                      neural_rendering_resolution_fade_kimg: float = 1000.0,
-                     density_reg_every: int = 4, d_reg_interval: int = 16):
+                     density_reg_every: int = 4, d_reg_interval: int = 16,
+                     aug: str = "noaug", ada_target: float = 0.6, ada_kimg: float = 500.0):
     """The EG3DLossConfig the CLI trains with, built as the JAX CLI builds
     it: the regularizer and blur knobs from the rendering kwargs, gamma,
     batch and dtype from the G-NeRF TrainConfig, the rest from the flags.
@@ -510,7 +513,8 @@ def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: i
         gpc_reg_fade_kimg=rk.get("gpc_reg_fade_kimg", 1000.0),
         blur_init_sigma=rk.get("blur_init_sigma", 0.0),
         blur_fade_kimg=rk.get("blur_fade_kimg", train_cfg.batch_size * 200 / 32),
-        aug_p=aug_p, freeze_d_layers=freezed,
+        aug=aug, aug_p=aug_p, ada_target=ada_target, ada_kimg=ada_kimg,
+        freeze_d_layers=freezed,
         neural_rendering_resolution_final=neural_rendering_resolution_final or None,
         neural_rendering_resolution_fade_kimg=neural_rendering_resolution_fade_kimg,
         style_mixing_prob=style_mixing_prob, dtype=train_cfg.dtype,
@@ -518,20 +522,23 @@ def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: i
 
 
 def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, dataset_name,
-                data, real_data, z_dim, w_dim, resume, aug_p, eg3d, device):
+                data, real_data, z_dim, w_dim, resume, eg3d, device):
     """EG3D adversarial pretraining (z, c) -> image at the JAX loop's
     cadence: Gmain + Dmain every step, Greg when sched_idx = cur_nimg //
     batch is a multiple of g_reg_interval, Dreg when it is one of
-    d_reg_interval, on the step's generator and its phases 1 and 2. Each
-    tick writes `network-snapshot-latest.npz` (G_ema, G, D), every `--snap`
-    ticks `network-snapshot-NNNNNN.npz`, and the full state with the live
-    ADA p (`aug_p_live`) in its config; `--resume` restores that state."""
+    d_reg_interval, on the step's generator and its phases 1 and 2. Under
+    `--aug ada` the controller averages 'Loss/signs/real' over each window
+    of ada_interval steps and moves p with `ada_update_p` (a resumed run
+    starts a fresh window, as the JAX loop does). Each tick writes
+    `network-snapshot-latest.npz` (G_ema, G, D), every `--snap` ticks
+    `network-snapshot-NNNNNN.npz`, and the full state with the live ADA p
+    (`aug_p_live`) in its config; `--resume` restores both."""
     from ..models import DualDiscriminator, TriPlaneGenerator
     from ..utils import checkpoint as ckpt_lib
     from ..utils.stats import Collector
     from .dataset import data_iterator
-    from .eg3d_loss import (blur_kernel_size, blur_sigma_schedule, init_eg3d_state,
-                            make_eg3d_phase_steps, make_eg3d_train_step,
+    from .eg3d_loss import (AdaController, blur_kernel_size, blur_sigma_schedule,
+                            init_eg3d_state, make_eg3d_phase_steps, make_eg3d_train_step,
                             neural_resolution_schedule)
     from .train_loop import load_train_state, save_train_state
 
@@ -543,8 +550,7 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
                           rendering_kwargs=rendering_kwargs, device=device, generator=gen)
     disc = DualDiscriminator(c_dim=25, img_resolution=img_resolution, img_channels=3,
                              device=device, generator=gen)
-    cfg = eg3d_loss_config(rendering_kwargs, train_cfg, g.neural_rendering_resolution,
-                           aug_p=aug_p, **eg3d)
+    cfg = eg3d_loss_config(rendering_kwargs, train_cfg, g.neural_rendering_resolution, **eg3d)
     # An interval <= 1 on both sides fuses the regularizers into every step.
     lazy = cfg.g_reg_interval > 1 or cfg.d_reg_interval > 1
     if lazy:
@@ -553,7 +559,7 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
         main_fn, greg_fn, dreg_fn = make_eg3d_train_step(cfg), None, None
     state = init_eg3d_state(g, disc, cfg, lazy=lazy)
     check_fade_sr_compat(g, cfg, img_resolution)
-    cur_aug_p = float(aug_p)
+    cur_aug_p = float(cfg.aug_p)
     if resume:
         _, ckpt_cfg, _ = load_train_state(resume, state)
         if ckpt_cfg and "aug_p_live" in ckpt_cfg:
@@ -578,8 +584,9 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     tick_idx = cur_nimg // tick_nimg
     tick_start = start = time.time()
     pending = next(batches)
+    ada = AdaController(cfg, batch, cur_aug_p)
     print(f"EG3D pretraining for {train_cfg.total_kimg} kimg in {run_dir} "
-          f"(aug=noaug, p0={cur_aug_p}) ...")
+          f"(aug={cfg.aug}, p0={cur_aug_p}) ...")
     try:
         with _stop_on_signals() as stop_requested:
             while cur_nimg < total_nimg and not stop_requested["flag"]:
@@ -594,18 +601,20 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
                 sigma = max(sigma, 1e-8)
                 res = neural_resolution_schedule(cur_nimg, cfg)
                 sched_idx = cur_nimg // batch
-                _, stats = main_fn(state, gan_batch, rng, sigma, blur_size=size, res=res)
+                _, stats = main_fn(state, gan_batch, rng, sigma, cur_aug_p, blur_size=size,
+                                   res=res)
                 if greg_fn is not None and sched_idx % max(cfg.g_reg_interval, 1) == 0:
                     stats.update(greg_fn(state, gan_batch,
                                          step_generator(seed, cur_nimg, device, phase=1))[1])
                 if dreg_fn is not None and sched_idx % max(cfg.d_reg_interval, 1) == 0:
                     stats.update(dreg_fn(state, gan_batch,
                                          step_generator(seed, cur_nimg, device, phase=2),
-                                         sigma, blur_size=size, res=res)[1])
+                                         sigma, cur_aug_p, blur_size=size, res=res)[1])
                 cur_nimg = state.cur_nimg
                 for name, value in stats.items():
                     collector.report(name, value)
                 collector.report("Progress/augment", cur_aug_p)
+                cur_aug_p = ada.report(stats["Loss/signs/real"])
                 if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
                     tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
                     now = time.time()
@@ -677,8 +686,8 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
 @click.option("--objective", type=click.Choice(["gnerf", "eg3d"]), default="gnerf",
               help="gnerf = encoder-inversion training; eg3d = EG3D GAN pretraining of G")
 @click.option("--aug", type=click.Choice(["noaug", "ada", "fixed"]), default="noaug",
-              help="EG3D-objective augmentation (unused by gnerf); ada and fixed are not "
-                   "ported yet (raise under eg3d)")
+              help="EG3D-objective D augmentation (unused by gnerf): ada = the bgc pipe "
+                   "with the adaptive p controller, fixed = the pipe at p = --aug_p")
 @click.option("--aug_p", type=float, default=0.0)
 @click.option("--freezed", type=int, default=0)
 @click.option("--ray_shards", type=int, default=1,

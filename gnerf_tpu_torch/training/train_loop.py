@@ -279,13 +279,10 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
 
 
 def _snapshot_trees(state: TrainState) -> dict:
-    e = ckpt_lib.module_params(state.enc)
-    bn = tuple(k for k in e if k.endswith(("/mean", "/var")))
     return {
         "G_ema": ckpt_lib.module_params(state.g_ema),
         "G": ckpt_lib.module_params(state.g),
-        "E": {k: v for k, v in e.items() if k not in bn},
-        "E_state": {k: e[k] for k in bn},
+        **ckpt_lib.encoder_trees(state.enc),
         "D": ckpt_lib.module_params(state.disc) if state.disc is not None else {},
     }
 

@@ -81,6 +81,14 @@ def module_params(module: nn.Module) -> dict[str, np.ndarray]:
             for k, v in module.state_dict().items()}
 
 
+def encoder_trees(enc: nn.Module) -> dict[str, dict[str, np.ndarray]]:
+    """An encoder's state as the JAX layout stores it: `E` (parameters) and
+    `E_state` (the BN running statistics)."""
+    e = module_params(enc)
+    bn = {k for k in e if k.endswith(("/mean", "/var"))}
+    return {"E": {k: v for k, v in e.items() if k not in bn}, "E_state": {k: e[k] for k in bn}}
+
+
 def load_jax_params(module: nn.Module, *trees: Any) -> nn.Module:
     """Copy JAX param trees (nested dicts or flat `/`-keyed dicts of arrays)
     into `module`'s parameters and buffers, in place.

@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax():
         "import gnerf_tpu_torch.utils.misc, gnerf_tpu_torch.utils.stats\n"
         "import gnerf_tpu_torch.utils.logger, gnerf_tpu_torch.utils.native_loader\n"
         "import gnerf_tpu_torch.models.dual_discriminator, gnerf_tpu_torch.training.eg3d_loss\n"
+        "import gnerf_tpu_torch.training.augment, gnerf_tpu_torch.training.inception\n"
+        "import gnerf_tpu_torch.training.metrics, gnerf_tpu_torch.training.pti\n"
+        "import gnerf_tpu_torch.training.eval\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -122,6 +125,24 @@ def _vgg():
     return VGG16LPIPS()
 
 
+def _inception():
+    from gnerf_tpu_torch.training import InceptionV3Features
+
+    return InceptionV3Features()
+
+
+def _run_pti_cli(tmp_path):
+    from gnerf_tpu_torch.training.pti import run_pti_cli
+
+    return run_pti_cli(str(tmp_path / "g.npz"), outdir=str(tmp_path / "pti"), pivot="project")
+
+
+def _run_eval(tmp_path):
+    from gnerf_tpu_torch.training.eval import run_eval
+
+    return run_eval(str(tmp_path / "g.npz"))
+
+
 def _run_training(tmp_path):
     from gnerf_tpu_torch.training.train import run_training
 
@@ -130,7 +151,7 @@ def _run_training(tmp_path):
 
 ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
            "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training",
-           "DualDiscriminator"]
+           "DualDiscriminator", "InceptionV3Features", "run_pti_cli", "run_eval"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -152,7 +173,9 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
              "extract_sigma_grid": lambda: _extract_sigma_grid(g),
              "Discriminator": _discriminator, "VGG16LPIPS": _vgg,
              "run_training": lambda: _run_training(tmp_path),
-             "DualDiscriminator": _dual_discriminator}
+             "DualDiscriminator": _dual_discriminator, "InceptionV3Features": _inception,
+             "run_pti_cli": lambda: _run_pti_cli(tmp_path),
+             "run_eval": lambda: _run_eval(tmp_path)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     if entry == "GNerfService":

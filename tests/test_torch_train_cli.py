@@ -1,6 +1,7 @@
 """The port's training CLI (gnerf_tpu_torch.training.train) vs the JAX one:
 the options a dry run records, one-step CPU runs of both objectives that
-write the JAX run-directory layout and resume from it, and the options that
+write the JAX run-directory layout and resume from it, an EG3D run under
+`--aug ada` that resumes with its live p bit for bit, and the options that
 are not ported raising instead of falling back."""
 
 import json
@@ -33,6 +34,13 @@ def test_dry_run_options_match_jax_eg3d(tmp_path, capsys):
                            density_reg_every=8, d_reg_interval=4, style_mixing_prob=0.5)
 
 
+@pytest.mark.parametrize("aug", ["ada", "fixed"])
+def test_dry_run_options_match_jax_eg3d_aug(tmp_path, capsys, aug):
+    """--objective eg3d --aug ada|fixed records the JAX CLI's options."""
+    _check_dry_run_options(tmp_path, capsys, objective="eg3d", aug=aug, aug_p=0.2,
+                           ada_target=0.7, ada_kimg=100.0)
+
+
 def _check_dry_run_options(tmp_path, capsys, **extra):
     from gnerf_tpu.training.train import run_training as jax_run
     from gnerf_tpu_torch.training.train import run_training
@@ -51,18 +59,15 @@ def _check_dry_run_options(tmp_path, capsys, **extra):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(objective="eg3d", aug="ada"), NotImplementedError, "Queue 1 item 11"),
     (dict(chain=2), ValueError, "--chain"),
     (dict(ray_shards=2), ValueError, "item 14"),
 ])
 def test_unported_options_raise(tmp_path, kw, exc, match):
-    """ADA (--aug ada|fixed under eg3d) names its own item, 11b."""
+    """--ray_shards names the roadmap item that would port it."""
     from gnerf_tpu_torch.training.train import run_training
 
-    with pytest.raises(exc, match=match) as info:
+    with pytest.raises(exc, match=match):
         run_training(outdir=str(tmp_path), dry_run=True, device="cpu", **kw)
-    if "aug" in kw:
-        assert "item 11b" in str(info.value)
 
 
 @pytest.fixture
@@ -168,3 +173,43 @@ def test_eg3d_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_netwo
     assert int(trees2["train_state_torch"]["cur_nimg"]) == 4
     with open(os.path.join(run2, "log.txt")) as fh:
         assert "Resumed EG3D training state" in fh.read()
+
+
+def test_eg3d_ada_run_resumes_its_live_p_bit_for_bit(tmp_path, tiny_networks, monkeypatch):
+    """--aug ada at tiny widths: one step, then --resume for a second, ends
+    bit for bit where two uninterrupted steps end (every module, both Adam
+    states, the live p). The controller runs every step here
+    (ada_interval 1) and the dataset has one item, so the resumed run's
+    reseeded data order and its fresh r_t window change nothing."""
+    import dataclasses
+
+    from gnerf_tpu_torch.training import dataset, train
+    from gnerf_tpu_torch.utils.checkpoint import flatten_tree, load_checkpoint
+
+    config = train.eg3d_loss_config
+    monkeypatch.setattr(train, "eg3d_loss_config", lambda *a, **k: dataclasses.replace(
+        config(*a, **k), ada_interval=1))
+    synthetic = dataset.SyntheticDataset
+    monkeypatch.setattr(dataset, "SyntheticDataset", lambda **k: synthetic(**k, size=1))
+    kw = dict(objective="eg3d", aug="ada", aug_p=0.2, ada_kimg=0.1, dataset_name="synthetic",
+              batch=2, tick=0.002, snap=10, z_dim=32, w_dim=32, device="cpu")
+
+    def final_state(run):
+        trees, cfg = load_checkpoint(os.path.join(run, "training-state-latest.npz"))
+        return flatten_tree(trees["train_state_torch"]), cfg["aug_p_live"]
+
+    once = train.run_training(outdir=str(tmp_path / "once"), kimg=0.004, **kw)
+    first = train.run_training(outdir=str(tmp_path / "a"), kimg=0.002, **kw)
+    _, p_first = final_state(first)
+    assert p_first != 0.2
+    with open(os.path.join(first, "stats.jsonl")) as fh:
+        assert json.loads(fh.readline())["Progress/augment"]["mean"] == pytest.approx(0.2)
+    resumed = train.run_training(outdir=str(tmp_path / "b"), kimg=0.004,
+                                 resume=os.path.join(first, "training-state-latest.npz"), **kw)
+    with open(os.path.join(resumed, "stats.jsonl")) as fh:
+        assert json.loads(fh.readline())["Progress/augment"]["mean"] == pytest.approx(p_first)
+    (want, p_want), (got, p_got) = final_state(once), final_state(resumed)
+    assert p_got == p_want != p_first
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        assert v.dtype == got[k].dtype and np.array_equal(v, got[k]), k

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The full-width train steps of `gnerf_tpu_torch`, measured on one CUDA card.
 
-    python3 tools/train_probe.py [--objective gnerf|eg3d] [--steps 5] [--profile FILE]
+    python3 tools/train_probe.py [--objective gnerf|eg3d|ada] [--steps 5] [--profile FILE]
 
 Builds the networks of the `ffhq` preset as `chip_smoke.py`'s train (or
 eg3d) phase does (seed-init weights, batch 4, SyntheticDataset batches) and
@@ -23,8 +23,13 @@ prints, after the card's name and power limit:
     split by CUDA events: G forward, D on the fakes, G backward with Adam
     and w_avg, D main (fakes regenerated without a graph, reals, backward,
     Adam), G_ema, Greg, Dreg;
+  - ada (the eg3d run's augment pipe, bgc at p = 0.2, on [4, 6, 512, 512]
+    fp32 pairs): the median ms of its geometric parts alone (reflect pad,
+    FIR upsample, warp, FIR downsample), of the whole pipe's forward and of
+    its forward with the input backward;
   - with `--profile FILE`, a torch.profiler table of one step (no remat,
-    fp32; for eg3d one Gmain + Dmain, Greg and Dreg), sorted by device time.
+    fp32; for eg3d one Gmain + Dmain, Greg and Dreg; for ada one ADA Gmain
+    + Dmain and Dreg), sorted by device time.
 """
 
 from __future__ import annotations
@@ -228,6 +233,69 @@ def _probe_eg3d(args) -> int:
     return 0
 
 
+def _probe_ada(args) -> int:
+    """The ADA pipe at the EG3D step's D input ([4, 6, 512, 512] fp32 pairs,
+    bgc at p = 0.2): its geometric parts alone (reflect pad, FIR upsample,
+    warp, FIR downsample) and the whole pipe forward, and forward + input
+    backward, by CUDA events (medians of `--steps` after 2 warm-ups);
+    `--profile` also writes the op table of one ADA Gmain + Dmain and Dreg."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from gnerf_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+    from gnerf_tpu_torch.training import augment as A
+    from gnerf_tpu_torch.training import make_augment_pipe, make_eg3d_phase_steps
+    from gnerf_tpu_torch.training.train import step_generator
+
+    state, cfg = chip_smoke._full_width_eg3d(0, aug="ada", aug_p=0.2)
+    pipe = make_augment_pipe(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((4, 6, 512, 512), device="cuda", generator=gen) * 2 - 1
+    hz = setup_filter(A.WAVELETS["sym6"], device="cuda")
+    m = int(np.ceil(pipe.pad_fraction * 512)) + hz.shape[0] // 2
+    padded = A.reflect_pad(x, m)
+    up = upsample2d(padded, hz, up=2)
+    out = (512 + hz.shape[0] // 2) * 2
+    grid = torch.rand((4, out, out, 2), device="cuda", generator=gen) * 1.6 - 0.8
+    warped = A.warp(up, grid)
+
+    def backward_of(fn):
+        def run():
+            xi = x.detach().requires_grad_(True)
+            torch.autograd.grad(fn(xi).square().sum(), xi)
+        return run
+
+    parts = {"reflect pad": lambda: A.reflect_pad(x, m),
+             "FIR upsample x2": lambda: upsample2d(padded, hz, up=2),
+             "warp (grid_sample)": lambda: A.warp(up, grid),
+             "FIR downsample x2": lambda: downsample2d(warped, hz, down=2,
+                                                       padding=-hz.shape[0] // 2,
+                                                       flip_filter=True),
+             "pipe forward": lambda: pipe(x, p=0.2, generator=gen),
+             "pipe forward + input backward": backward_of(lambda xi: pipe(xi, p=0.2,
+                                                                          generator=gen))}
+    for name, fn in parts.items():
+        ms = [chip_smoke.cuda_ms(fn, iters=1, warmup=2 if i == 0 else 0)
+              for i in range(args.steps)]
+        print(f"[ada] {name:30s} median_ms={statistics.median(ms):.3f} min={min(ms):.3f} "
+              f"max={max(ms):.3f}", flush=True)
+    del padded, up, warped, grid
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        main, _, dreg = make_eg3d_phase_steps(cfg)
+        b = chip_smoke._eg3d_batches(1)[0]
+        main(state, b, step_generator(0, 0, "cuda"), 0.0, 0.2)  # warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            main(state, b, step_generator(0, 4, "cuda"), 0.0, 0.2)
+            dreg(state, b, step_generator(0, 4, "cuda", 2), 0.0, 0.2)
+            torch.cuda.synchronize()
+        _write_profile(prof, args.profile, "one ADA Gmain + Dmain and Dreg (fp32, p = 0.2)")
+    return 0
+
+
 def _write_profile(prof, path, what):
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -238,7 +306,8 @@ def _write_profile(prof, path, what):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--objective", choices=("gnerf", "eg3d"), default="gnerf")
+    ap.add_argument("--objective", choices=("gnerf", "eg3d", "ada"), default="gnerf",
+                    help="ada: the EG3D step's augment pipe by part (and a profile)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile", metavar="FILE", default=None)
     args = ap.parse_args(argv)
@@ -258,6 +327,8 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     if args.objective == "eg3d":
         return _probe_eg3d(args)
+    if args.objective == "ada":
+        return _probe_ada(args)
     batches = data_iterator(SyntheticDataset(resolution=512, depth_resolution=64),
                             batch_size=chip_smoke.TRAIN_BATCH, seed=0)
     dev = [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in next(batches).items()}
