@@ -70,6 +70,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               the VGG Frechet distance without; InceptionV3Features at 299^2,
               batch 4, on weights the phase writes, and the host-side Frechet
               distance of 2048-d features (times and finiteness only).
+ 14. ddp:     the distributed training path (`gnerf_tpu_torch.parallel`) at
+              the full width of the `ffhq` preset, batch 4, fp32, seed-init
+              weights, SyntheticDataset batches, each run held to the plain
+              world-1 step on the same batch and seed (world 1 run twice
+              gives the card's run-to-run floor): (a) the G-NeRF step in a
+              world-1 NCCL group in this process; two gloo ranks spawned on
+              the one card (NCCL refuses two ranks on one device) running
+              (b) the G-NeRF step and EG3D Gmain + Dmain at data=2, each
+              deterministic and seeded, and EG3D Dreg at data=2, and (c) the
+              G-NeRF step at rays=2. Stats, gradients and the untrained tensors within the
+              DDP_* tolerances, replicas equal, osg_decode launches exact on
+              every rank; the ms per step and peak memory per rank, of two
+              processes sharing one card (correctness, not speed). Then three
+              planted faults on the same ranks (BatchNorm moments of the local
+              rows, minibatch std of the local rows, gradients not averaged),
+              each of which the same bounds must catch.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -125,15 +141,19 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_line())
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -1452,6 +1472,422 @@ def phase_eval(max_items: int = 8, batch: int = 4):
     return launches
 
 
+DDP_TIMED_STEPS = 2   # timed calls of each distributed part after the compared one
+# A distributed step is held to the plain world-1 step from the same state on the
+# same global batch, tensor by tensor: its stats within max(1e-3 of their size,
+# 3x the floor's), the gradients of each of E, G and D (Adam's first moments) in
+# L2 relative to world 1's within max(DDP_GRAD_TOL, 3x the floor's), every tensor
+# that is not trained (buffers, frozen weights) within 1e-5 + 1e-4 of its size.
+# A trained weight is held through its gradient: after Adam's first step it has
+# moved by about lr * sign(gradient) in either run, so its own gap says little.
+# The floor is world 1 against itself: seeded, run twice (grid_sample's
+# backward uses atomics); with rng=None, the larger gap of a run on the batch's
+# rows shifted by one (exact arithmetic gives the same step) and of one on every
+# float input nudged by one ulp. A seeded data=2 run is held to the larger of
+# that floor and the seeded run's own: run twice and with inputs nudged (the
+# draws stay those of the seed). A data shard runs its layers at other batch
+# sizes, so its sums round otherwise; the encoder's E[x^2] - E[x]^2 BatchNorm
+# moments and the render's sampling amplify such rounding.
+DDP_STATS_TOL, DDP_GRAD_TOL = 1e-3, 1e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_snapshot(state, stats) -> dict:
+    """On the host: the stats, every tensor of G, E and D, and for each
+    trained parameter its Adam first moment."""
+    out = {"stats": {k: float(v) for k, v in stats.items()}, "tensors": {}, "moments": {}}
+    for name in ("g", "enc", "disc"):
+        module = getattr(state, name, None)
+        if module is None:
+            continue
+        for k, v in module.state_dict().items():
+            out["tensors"][f"{name}.{k}"] = v.detach().cpu().clone()
+        for opt in (state.opt_g, state.opt_d):
+            for pn, p in module.named_parameters():
+                if opt is not None and p in opt.state:
+                    out["moments"][f"{name}.{pn}"] = opt.state[p]["exp_avg"].detach().cpu().clone()
+    return out
+
+
+def _ddp_gaps(got: dict, want: dict) -> dict:
+    """How far a snapshot is from world 1's: stats_err (relative), grad_l2
+    (each module's L2 gradient error relative to its norm), grad_gap (the
+    worst tensor's max gradient error relative to its largest), param_err
+    (max abs), bitwise, and the untrained tensors past their bound."""
+    import torch
+
+    stats_err = max(abs(got["stats"][k] - v) / max(abs(v), 1e-3) for k, v in want["stats"].items())
+    sq = {}
+    grad_gap = 0.0
+    for k, m in want["moments"].items():
+        d = (got["moments"][k].double() - m.double())
+        module = k.split(".")[0]
+        num, den = sq.get(module, (0.0, 0.0))
+        sq[module] = (num + float(d.square().sum()), den + float(m.double().square().sum()))
+        grad_gap = max(grad_gap, float(d.abs().max() / max(float(m.abs().max()), 1e-8)))
+    grad_l2 = {mod: (num / max(den, 1e-30)) ** 0.5 for mod, (num, den) in sq.items()}
+    param_err, bad, bitwise = 0.0, [], True
+    for k, v in want["tensors"].items():
+        d = (got["tensors"][k].double() - v.double()).abs()
+        bitwise &= torch.equal(got["tensors"][k], v)
+        param_err = max(param_err, float(d.max()) if d.numel() else 0.0)
+        if k not in want["moments"] and bool((d > 1e-5 + 1e-4 * v.double().abs()).any()):
+            bad.append(f"{k} {float(d.max()):.3e}")
+    return dict(stats_err=stats_err, grad_l2=grad_l2, grad_gap=grad_gap, param_err=param_err,
+                bitwise=bitwise, bad=bad[:5])
+
+
+def _ddp_floor(*gaps) -> dict:
+    """The larger gap of each kind (stats, each module's gradients)."""
+    out = {"stats_err": max(g["stats_err"] for g in gaps), "grad_l2": {}}
+    for g in gaps:
+        for k, v in g["grad_l2"].items():
+            out["grad_l2"][k] = max(out["grad_l2"].get(k, 0.0), v)
+    return out
+
+
+def _ddp_verdict(gap: dict, floor: dict) -> bool:
+    """The bounds of DDP_* against `floor`."""
+    grads_ok = all(v <= max(DDP_GRAD_TOL, 3 * floor["grad_l2"].get(k, 0.0))
+                   for k, v in gap["grad_l2"].items())
+    stats_ok = gap["stats_err"] <= max(DDP_STATS_TOL, 3 * floor["stats_err"])
+    return stats_ok and grads_ok and not gap["bad"]
+
+
+def _ddp_text(gap: dict) -> str:
+    l2 = " ".join(f"{k}={v:.3e}" for k, v in gap["grad_l2"].items())
+    return (f"bitwise={gap['bitwise']} stats_err={gap['stats_err']:.3e} grad_l2[{l2}] "
+            f"grad_gap={gap['grad_gap']:.3e} max_abs_err={gap['param_err']:.3e}"
+            + (f" OFF {gap['bad']}" if gap["bad"] else ""))
+
+
+def _shifted(batch: dict) -> dict:
+    """The batch with its rows cyclically shifted by one (the pose swap's roll
+    and the minibatch-std group of the whole batch are unchanged by it)."""
+    import torch
+
+    return {k: torch.roll(v, 1, dims=0) for k, v in batch.items()}
+
+
+def _nudged(batch: dict) -> dict:
+    """The batch with every float input moved by one ulp."""
+    import torch
+
+    return {k: torch.nextafter(v, torch.full_like(v, float("inf")))
+            if v.is_floating_point() else v for k, v in batch.items()}
+
+
+def _timed(fn, n: int) -> list:
+    """CUDA-event ms of n calls fn(i)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    for i in range(n):
+        ev[i].record()
+        fn(i)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+
+def _ddp_gnerf(mesh, batch, seeded: bool, timed: int) -> dict:
+    """The full-width G-NeRF step under `mesh` (None: the plain step) from
+    the seed-0 state on `batch` (this rank's rows), step generators of seed
+    0 when `seeded`, then `timed` timed steps: snapshot after the first,
+    launches, ms, peak memory."""
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import make_train_step
+    from gnerf_tpu_torch.training.train import step_generator
+
+    torch.cuda.reset_peak_memory_stats()
+    state, cfg = _full_width_trainer(0)
+    step = make_train_step(cfg, mesh=mesh)
+
+    def rng():
+        return step_generator(0, state.cur_nimg, "cuda") if seeded else None
+
+    osg_decode.launches = 0
+    _, stats = step(state, batch, rng())
+    torch.cuda.synchronize()
+    out = dict(snapshot=_ddp_snapshot(state, stats), launches=osg_decode.launches)
+    if timed:
+        out["ms"] = _timed(lambda i: step(state, batch, rng()), timed)
+    out.update(timed_launches=osg_decode.launches - out["launches"],
+               peak=torch.cuda.max_memory_allocated(), state=state)
+    return out
+
+
+def _ddp_eg3d(mesh, batch, phase: str, timed: int = 0, seeded: bool = False) -> dict:
+    """One EG3D phase ('main': Gmain + Dmain, 'dreg') at full width under
+    `mesh` (None: plain) from the seed-0 state, the CLI's step generator of
+    seed 0 when `seeded` (else rng=None), then `timed` timed calls of it."""
+    import torch
+
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training import make_eg3d_phase_steps
+    from gnerf_tpu_torch.training.train import step_generator
+
+    torch.cuda.reset_peak_memory_stats()
+    state, cfg = _full_width_eg3d(0)
+    main_fn, _, dreg_fn = make_eg3d_phase_steps(cfg, mesh=mesh)
+    fn = main_fn if phase == "main" else dreg_fn
+
+    def rng():
+        return (step_generator(0, state.cur_nimg, "cuda", phase=0 if phase == "main" else 2)
+                if seeded else None)
+
+    osg_decode.launches = 0
+    stats = fn(state, batch, rng(), 0.0, 0.0)[1]
+    torch.cuda.synchronize()
+    out = dict(snapshot=_ddp_snapshot(state, stats), launches=osg_decode.launches)
+    if timed:
+        out["ms"] = _timed(lambda i: fn(state, batch, rng(), 0.0, 0.0), timed)
+    out.update(timed_launches=osg_decode.launches - out["launches"],
+               peak=torch.cuda.max_memory_allocated(), state=state)
+    return out
+
+
+# Planted faults, each a global-batch behaviour dropped on purpose at data=2:
+# (name, the run it breaks, module, attribute, what stands in for it).
+def _planted_faults():
+    from gnerf_tpu_torch.models import encoder, stylegan2
+    from gnerf_tpu_torch.parallel import use_mesh
+    from gnerf_tpu_torch.training import train_loop
+
+    mbstd, pmean = stylegan2.minibatch_std, train_loop.pmean_grads
+
+    def mbstd_local(*args, **kwargs):
+        with use_mesh(None):
+            return mbstd(*args, **kwargs)
+
+    return (("BatchNorm moments of the local rows", "gnerf", encoder, "data_mean",
+             lambda x: x),
+            ("gradients not averaged over the ranks", "gnerf", train_loop, "pmean_grads",
+             lambda grads, group: pmean(grads, None)),
+            ("minibatch std of the local rows", "main", stylegan2, "minibatch_std",
+             mbstd_local))
+
+
+def _ddp_rank(rank: int, world: int, port: int, tmp: str, batch_host: dict, gan_host: dict,
+              timed: int) -> None:
+    """One of the gloo ranks sharing cuda:0: the G-NeRF step at data=2
+    (rng=None, then seeded) and at rays=2 (seeded), EG3D Gmain + Dmain
+    (rng=None, then seeded) and Dreg (rng=None) at data=2, each from the
+    seed-0 state on its rows of the global batch, then timed; then each
+    planted fault once; writes its results to tmp/rank{rank}.pt (rank 0's
+    snapshots)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gnerf_tpu_torch.parallel import check_replica_consistency, local_rows, make_mesh
+    from gnerf_tpu_torch.utils.device import resolve_device
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    resolve_device("cuda")  # TF32 off, as in the parent
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+
+    def finish(res, mesh, n_timed):
+        state = res.pop("state")
+        try:
+            res["consistent"] = check_replica_consistency(
+                [(f"{n}.{k}", v) for n in ("g", "g_ema", "enc", "disc")
+                 if getattr(state, n, None) is not None
+                 for k, v in getattr(state, n).state_dict().items()], mesh.group)
+        except AssertionError as e:  # raised on every rank alike
+            res["consistent"] = False
+            res["diverged"] = str(e)
+        res["timed"] = n_timed
+        if rank != 0:
+            res.pop("snapshot")
+        del state
+        torch.cuda.empty_cache()
+        return res
+
+    meshes, local = {}, {}
+    for data, rays in ((2, 1), (1, 2)):
+        meshes[data, rays] = mesh = make_mesh(data=data, rays=rays)
+        local[data, rays] = {k: local_rows(torch.from_numpy(np.asarray(v)).cuda(), mesh)
+                             for k, v in batch_host.items()}
+    dp = meshes[2, 1]
+    gan = {k: local_rows(v.cuda(), dp) for k, v in gan_host.items()}
+
+    def gnerf(key, seeded, n_timed):
+        return finish(_ddp_gnerf(meshes[key], local[key], seeded, n_timed), meshes[key], n_timed)
+
+    def eg3d(phase, n_timed, seeded=False):
+        return finish(_ddp_eg3d(dp, gan, phase, n_timed, seeded), dp, n_timed)
+
+    out = {"dp": gnerf((2, 1), False, timed), "dp_seed": gnerf((2, 1), True, 0),
+           "sp": gnerf((1, 2), True, timed), "main": eg3d("main", timed),
+           "main_seed": eg3d("main", 0, True), "dreg": eg3d("dreg", timed), "faults": []}
+    for _, run, module, attr, stand_in in _planted_faults():
+        with mock.patch.object(module, attr, stand_in):
+            out["faults"].append(gnerf((2, 1), False, 0) if run == "gnerf" else eg3d(run, 0))
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    # Skip the interpreter's teardown: gloo's threads abort it (std::terminate)
+    # while the other rank still holds connections to this one.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def phase_ddp(timed: int = DDP_TIMED_STEPS):
+    """The distributed training path (gnerf_tpu_torch.parallel) at full
+    width on the one card; see the module docstring. Returns the osg_decode
+    launches of its distributed runs, all ranks summed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gnerf_tpu_torch.parallel import make_mesh
+    from gnerf_tpu_torch.training import SyntheticDataset, data_iterator
+
+    batch_host = next(data_iterator(SyntheticDataset(resolution=SIDE, depth_resolution=64),
+                                    batch_size=TRAIN_BATCH, seed=0))
+    batch_host = {k: np.asarray(v) for k, v in batch_host.items()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_host.items()}
+
+    def plain(run, *args):
+        res = run(None, *args)
+        del res["state"]
+        torch.cuda.empty_cache()
+        return res
+
+    def ms(xs):
+        return ", ".join(f"{x:.3f}" for x in xs)
+
+    ref_seed = plain(_ddp_gnerf, batch, True, timed)
+    floor_seed = _ddp_gaps(plain(_ddp_gnerf, batch, True, 0)["snapshot"], ref_seed["snapshot"])
+    ref = plain(_ddp_gnerf, batch, False, 0)
+    floor = _ddp_floor(*(_ddp_gaps(plain(_ddp_gnerf, b, False, 0)["snapshot"], ref["snapshot"])
+                         for b in (_shifted(batch), _nudged(batch))))
+    nudged_seed = _ddp_gaps(plain(_ddp_gnerf, _nudged(batch), True, 0)["snapshot"],
+                            ref_seed["snapshot"])
+    log(f"[ddp] world 1 (the plain G-NeRF step, full width fp32, batch {TRAIN_BATCH}, from the "
+        f"seed-0 state): seeded, run twice: {_ddp_text(floor_seed)}; rng=None, the larger gap "
+        f"of rows shifted and inputs nudged: stats_err={floor['stats_err']:.3e} grad_l2["
+        + " ".join(f"{k}={v:.3e}" for k, v in floor["grad_l2"].items()) +
+        f"]; seeded, inputs nudged: {_ddp_text(nudged_seed)}; plain step_ms "
+        f"{ms(ref_seed['ms'])}")
+
+    # (a) the distributed path in a world-1 NCCL group, in this process.
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        res_a = _ddp_gnerf(make_mesh(data=1, rays=1), batch, True, timed)
+        del res_a["state"]
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    gap_a = _ddp_gaps(res_a["snapshot"], ref_seed["snapshot"])
+    launches_a = res_a["launches"] + res_a["timed_launches"]
+    good = _ddp_verdict(gap_a, floor_seed) and launches_a == 2 * (1 + timed)
+    ok = good
+    log(f"[ddp] (a) G-NeRF step through the distributed path in a world-1 NCCL group vs the "
+        f"plain step, seeded: {_ddp_text(gap_a)}; step_ms {ms(res_a['ms'])} (plain in this call: "
+        f"{ms(ref_seed['ms'])}); max_memory_allocated={res_a['peak']} bytes; osg_decode "
+        f"launches {launches_a} (want {2 * (1 + timed)})" + ("" if good else " FAILED"))
+
+    gan = _eg3d_batches(1)[0]
+    eg_ref, eg_floor = {}, {}
+    for phase in ("main", "dreg"):
+        eg_ref[phase] = plain(_ddp_eg3d, gan, phase)
+        eg_floor[phase] = _ddp_floor(*(
+            _ddp_gaps(plain(_ddp_eg3d, b, phase)["snapshot"], eg_ref[phase]["snapshot"])
+            for b in (_shifted(gan), _nudged(gan))))
+        if phase == "main":
+            eg_ref["main_seed"] = plain(_ddp_eg3d, gan, "main", 0, True)
+            twice, nudged = (_ddp_gaps(plain(_ddp_eg3d, b, "main", 0, True)["snapshot"],
+                                       eg_ref["main_seed"]["snapshot"])
+                             for b in (gan, _nudged(gan)))
+            eg_floor["main_seed"] = _ddp_floor(eg_floor["main"], twice, nudged)
+            log(f"[ddp] world 1 EG3D main seeded: run twice: {_ddp_text(twice)}; inputs "
+                f"nudged: {_ddp_text(nudged)}")
+        log(f"[ddp] world 1 EG3D {phase} (plain, rng=None, from the seed-0 state), the larger "
+            f"gap of rows shifted and inputs nudged: stats_err="
+            f"{eg_floor[phase]['stats_err']:.3e} grad_l2["
+            + " ".join(f"{k}={v:.3e}" for k, v in eg_floor[phase]["grad_l2"].items()) + "]")
+    gan_host = {k: v.cpu() for k, v in gan.items()}
+    del gan, batch
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two gloo ranks sharing the one card (NCCL refuses two ranks
+    # on one device), 2 rows each at data=2, or all 4 rows each at rays=2.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_ddp_rank, args=(2, _free_port(), tmp, batch_host, gan_host, timed),
+                 nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    total = launches_a
+    floor_dp_seed = _ddp_floor(floor, floor_seed, nudged_seed)
+    parts = (("dp", "(b) G-NeRF step, data=2, rng=None", ref, floor, 2),
+             ("dp_seed", "(b) G-NeRF step, data=2, seeded (rng=None and seeded floors)",
+              ref_seed,
+              floor_dp_seed, 2),
+             ("sp", "(c) G-NeRF step, rays=2, seeded", ref_seed, floor_seed, 2),
+             ("main", "(b) EG3D Gmain + Dmain, data=2, rng=None", eg_ref["main"],
+              eg_floor["main"], 4),
+             ("main_seed", "(b) EG3D Gmain + Dmain, data=2, seeded (rng=None and seeded floors)",
+              eg_ref["main_seed"], eg_floor["main_seed"], 4),
+             ("dreg", "(b) EG3D Dreg, data=2, rng=None", eg_ref["dreg"], eg_floor["dreg"], 0))
+    for part, title, want, fl, per_call in parts:
+        gap = _ddp_gaps(ranks[0][part]["snapshot"], want["snapshot"])
+        launches = [(r[part]["launches"], r[part]["timed_launches"]) for r in ranks]
+        want_launches = [(per_call, per_call * r[part]["timed"]) for r in ranks]
+        total += sum(sum(x) for x in launches)
+        good = (_ddp_verdict(gap, fl) and launches == want_launches
+                and all(r[part]["consistent"] for r in ranks))
+        ok &= good
+        times = ("; ms per call and rank (two processes sharing one card) " + "; ".join(
+            f"rank {i}: {ms(r[part]['ms'])}" for i, r in enumerate(ranks))
+                 if "ms" in ranks[0][part] else "")
+        log(f"[ddp] {title}, two gloo ranks sharing one card vs world 1: {_ddp_text(gap)}; "
+            f"replicas equal={all(r[part]['consistent'] for r in ranks)}{times}; "
+            f"max_memory_allocated per rank {[r[part]['peak'] for r in ranks]} bytes; "
+            f"osg_decode launches per rank (first, timed) {launches} (want {want_launches})"
+            + ("" if good else " FAILED"))
+    # The controls: the same bounds must refuse each planted fault.
+    refs = {"gnerf": (ref, floor), "main": (eg_ref["main"], eg_floor["main"])}
+    for i, (name, run, *_) in enumerate(_planted_faults()):
+        want, fl = refs[run]
+        res = [r["faults"][i] for r in ranks]
+        gap = _ddp_gaps(res[0]["snapshot"], want["snapshot"])
+        within, equal = _ddp_verdict(gap, fl), all(r["consistent"] for r in res)
+        caught = not (within and equal)
+        ok &= caught
+        log(f"[ddp] planted fault ({name}; "
+            f"{'G-NeRF step' if run == 'gnerf' else 'EG3D Gmain + Dmain'}, data=2, rng=None) "
+            f"vs world 1: {_ddp_text(gap)}; within the bounds={within}; replicas equal={equal}"
+            + (f" ({res[0]['diverged']})" if not equal else "")
+            + ("; caught" if caught else "; NOT CAUGHT: the bounds are too loose"))
+    log(f"[ddp] bounds: stats max({DDP_STATS_TOL} of their size, 3x the floor); each module's "
+        f"gradients max({DDP_GRAD_TOL} in L2, 3x the floor); untrained tensors 1e-5 + 1e-4 of "
+        "their size; launches of the planted faults are not counted. The two ranks share one "
+        "card over gloo because NCCL refuses two ranks on one device: their times are of two "
+        "processes sharing one card (correctness, not speed), not a multi-card number; spawn "
+        f"to join {spawn_s:.1f} s")
+    if not ok:
+        raise SystemExit("chip_smoke: the distributed path does not hold to world 1")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -1477,7 +1913,9 @@ def main(argv=None) -> int:
     launches["eg3d_ada"] = phase_eg3d_ada()
     launches["pti"] = phase_pti()
     launches["eval"] = phase_eval()
+    launches["ddp"] = phase_ddp()
 
+    log(card_line())  # again beside the results: the run's output is long
     main_row = kern["main_bf16"]
     timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32",
              "train_bf16", "greg_f32")

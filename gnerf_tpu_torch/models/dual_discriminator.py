@@ -18,6 +18,7 @@ import torch
 
 from ..ops.interpolate import interpolate_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..parallel.sharding import draw, global_rows
 from .stylegan2 import Discriminator
 
 
@@ -79,8 +80,8 @@ class DualDiscriminator(Discriminator):
         if self.c_dim > 0 and self.disc_c_noise > 0:
             if rng is None:
                 raise ValueError("disc_c_noise needs an explicit torch.Generator (rng)")
-            noise = torch.randn(c.shape, generator=rng, device=c.device, dtype=c.dtype)
-            c = c + noise * c.std(dim=0, correction=0) * self.disc_c_noise
+            noise = draw(torch.randn, c.shape, rng, device=c.device, dtype=c.dtype)
+            c = c + noise * global_rows(c).std(dim=0, correction=0) * self.disc_c_noise
         return super().forward(x, c, dtype=dtype)
 
     def apply(self, img, c=None, rng=None, dtype=torch.float32) -> torch.Tensor:

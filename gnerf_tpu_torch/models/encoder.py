@@ -5,7 +5,9 @@ Port of `gnerf_tpu/models/encoder.py`: torchvision-style ResNeXt50
 average pool and a dense projection 8192 -> z_dim. Input is a [-1, 1] RGB
 image. BatchNorm keeps `mean` / `var` buffers beside the `scale` / `bias`
 parameters (the JAX package's names): eval mode normalizes with them, train
-mode with the batch moments, and updates them in place.
+mode with the batch moments, and updates them in place. Under a mesh
+(`parallel.use_mesh`) the batch is the global one: SyncBatchNorm, as the
+JAX package's global-batch step computes it.
 The grouped 3x3 is a native `groups=32` convolution; the JAX package's
 `groups_as_dense` TPU layout is not ported.
 """
@@ -19,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active_mesh
+from ..parallel.sharding import data_mean
 from ..utils.device import resolve_device
 
 
@@ -40,12 +44,18 @@ class _BatchNorm(nn.Module):
                 momentum: float = 0.1) -> torch.Tensor:
         # Statistics in fp32; the normalization itself in x's dtype. Train
         # mode takes the batch moments as E[x^2] - E[x]^2 and moves the
-        # running mean and unbiased variance toward them.
+        # running mean and unbiased variance toward them. Under a mesh the
+        # moments are those of the global batch (the data shards' means,
+        # averaged with gradient), and every rank moves its buffers by them.
         if train:
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
-            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            n = x.shape[0] * x.shape[2] * x.shape[3]
+            mean_sq = xf.square().mean(dim=(0, 2, 3))
+            mesh = active_mesh()
+            if mesh is not None:
+                mean, mean_sq = data_mean(torch.stack([mean, mean_sq])).unbind(0)
+            var = mean_sq - mean.square()
+            n = x.shape[0] * x.shape[2] * x.shape[3] * (mesh.data if mesh is not None else 1)
             with torch.no_grad():
                 self.mean.copy_((1 - momentum) * self.mean + momentum * mean)
                 self.var.copy_((1 - momentum) * self.var + momentum * (var * n / max(n - 1, 1)))

@@ -22,6 +22,9 @@ from torch import nn
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import active_mesh
+from ..parallel.sharding import draw, local_rows
 from ..utils.device import resolve_device
 
 
@@ -192,8 +195,8 @@ class SynthesisLayer(nn.Module):
         if self.use_noise and noise_mode == "random":
             if rng is None:
                 raise ValueError("noise_mode='random' needs an explicit torch.Generator (rng)")
-            noise = torch.randn((x.shape[0], 1, self.resolution, self.resolution),
-                                generator=rng, device=x.device) * self.noise_strength
+            noise = draw(torch.randn, (x.shape[0], 1, self.resolution, self.resolution),
+                         rng, device=x.device) * self.noise_strength
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
@@ -401,16 +404,24 @@ class DiscriminatorBlock(nn.Module):
 def minibatch_std(x: torch.Tensor, group_size: Optional[int],
                   num_channels: int = 1) -> torch.Tensor:
     """Append cross-sample standard-deviation channels, over groups of
-    `min(group_size, N)` samples."""
-    n, c, h, w = x.shape
+    `min(group_size, N)` samples: group j holds rows j, j + N/G, j + 2N/G, ...
+
+    N is the global batch: under a mesh x is gathered over the data shards
+    (with gradient), so a group may span ranks, and each rank keeps its own
+    rows of the channels."""
+    mesh = active_mesh()
+    xg = x if mesh is None else all_gather(x, mesh.data_group)
+    n, c, h, w = xg.shape
     g = min(group_size, n) if group_size is not None else n
     f = num_channels
-    y = x.reshape(g, -1, f, c // f, h, w)
+    y = xg.reshape(g, -1, f, c // f, h, w)
     y = y - y.mean(dim=0)
     y = y.square().mean(dim=0)
     y = (y + 1e-8).sqrt()
     y = y.mean(dim=(2, 3, 4))
     y = y.reshape(-1, f, 1, 1).repeat(g, 1, h, w)
+    if mesh is not None:
+        y = local_rows(y, mesh)
     return torch.cat([x, y], dim=1)
 
 

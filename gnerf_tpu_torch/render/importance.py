@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.sharding import draw
 from .math_utils import linspace_batched
 
 
@@ -22,15 +23,18 @@ def sample_stratified(
     ray_end,
     depth_resolution: int,
     disparity_space_sampling: bool = False,
+    ray_mesh=None,
 ) -> torch.Tensor:
     """[N, R, depth_resolution, 1] depths; ray_start/ray_end are scalars or
-    [N, R, 1] tensors (the 'auto' ray-box path). rng=None: no jitter."""
+    [N, R, 1] tensors (the 'auto' ray-box path). rng=None: no jitter.
+    `ray_mesh`: the rays are this rank's shard of that mesh's ray axis (the
+    jitter is then its part of the draw for all rays)."""
     n, r, _ = ray_origins.shape
     s = depth_resolution
     dev = ray_origins.device
 
     def jitter(shape):
-        return torch.rand(shape, generator=rng, device=dev)
+        return draw(torch.rand, shape, rng, ray_mesh=ray_mesh, ray_dim=1, device=dev)
 
     if disparity_space_sampling:
         depths = torch.linspace(0.0, 1.0, s, device=dev).reshape(1, 1, s, 1).expand(n, r, s, 1)
@@ -66,9 +70,11 @@ def sample_pdf(
     n_importance: int,
     det: bool = False,
     eps: float = 1e-5,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`n_importance` depths per ray from the piecewise-constant PDF given by
-    `weights` [Nr, n_w] over `bins` [Nr, >= n_w + 1]. Returns [Nr, n_importance]."""
+    `weights` [Nr, n_w] over `bins` [Nr, >= n_w + 1]. Returns [Nr, n_importance].
+    `u` [Nr, n_importance]: the uniform draws, when the caller made them."""
     n_rays, n_w = weights.shape
     weights = weights + eps
     pdf = weights / weights.sum(dim=-1, keepdim=True)
@@ -78,7 +84,7 @@ def sample_pdf(
     if det or rng is None:
         u = torch.linspace(0.0, 1.0, n_importance, device=weights.device)
         u = u.expand(n_rays, n_importance).contiguous()
-    else:
+    elif u is None:
         u = torch.rand((n_rays, n_importance), generator=rng, device=weights.device)
 
     inds = torch.searchsorted(cdf, u, right=True)
@@ -101,13 +107,18 @@ def sample_importance(
     weights: torch.Tensor,
     n_importance: int,
     det: bool = False,
+    ray_mesh=None,
 ) -> torch.Tensor:
     """Importance depths [N, R, n_importance, 1] from coarse depths
     [N, R, S, 1] and marcher weights [N, R, S-1, 1]; no gradient, as in the
-    reference."""
+    reference. `ray_mesh` as for `sample_stratified`."""
     n, r, s, _ = z_vals.shape
     z_flat = z_vals.reshape(n * r, s)
     w = smooth_weights(weights.reshape(n * r, -1)) + 0.01
     z_mid = (z_flat[:, :-1] + z_flat[:, 1:]) / 2.0
-    out = sample_pdf(rng, z_mid, w[:, 1:-1], n_importance, det=det)
+    u = None
+    if rng is not None and not det:
+        u = draw(torch.rand, (n, r, n_importance), rng, ray_mesh=ray_mesh, ray_dim=1,
+                 device=z_vals.device).reshape(n * r, n_importance)
+    out = sample_pdf(rng, z_mid, w[:, 1:-1], n_importance, det=det, u=u)
     return out.reshape(n, r, n_importance, 1)

@@ -6,10 +6,16 @@ point (x, y, z) projects to plane UVs (x, y), (x, z), (z, x) (the
 EG3D-corrected basis).
 
 The TPU-only layouts and merges of the JAX package (`PackedPlanes`,
-`sample_packed_*`, `march_merged`, the decoder rows path, ray sharding) are
-not ported: their option keys (`packed_combine`, `sample_merge`,
-`decoder_rows_path`, `ray_sharding`) are accepted and ignored, and the
-merge is always one stable sort.
+`sample_packed_*`, `march_merged`, the decoder rows path) are not ported:
+their option keys (`packed_combine`, `sample_merge`, `decoder_rows_path`)
+are accepted and ignored, and the merge is always one stable sort.
+
+Sequence parallelism: `options['ray_sharding']` may hold a
+`parallel.Mesh` whose ray axis splits the rays (the JAX package's
+NamedSharding under the same key; pass it per call, never in a stored
+config). The ranks of a ray group hold the same samples; each renders its
+R/k rays, both passes and the importance sampling, and the features, depth
+and weights are gathered over the group with gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_gather, reduce_max
+from ..parallel.mesh import active_mesh
+from ..parallel.sharding import draw
 from . import math_utils
 from .importance import sample_importance, sample_stratified
 from .ray_marcher import march_rays
@@ -75,8 +84,9 @@ def run_model(plane_features: torch.Tensor, decoder: Decoder,
     noise = options.get("density_noise", 0)
     if noise > 0 and rng is not None:
         sigma = out["sigma"]
-        out["sigma"] = sigma + torch.randn(sigma.shape, generator=rng,
-                                           device=sigma.device) * noise
+        out["sigma"] = sigma + draw(torch.randn, sigma.shape, rng,
+                                    ray_mesh=options.get("ray_sharding"), ray_dim=1,
+                                    device=sigma.device) * noise
     return out
 
 
@@ -108,18 +118,48 @@ def render_rays(plane_features: torch.Tensor, decoder: Decoder,
         is_valid = ray_end > ray_start
         # Invalid rays get start = min(valid starts) and end = max(valid
         # STARTS), as the reference does; with no valid ray, limits stay.
+        # Both extremes are over the global batch.
         inf = torch.full_like(ray_start, float("inf"))
-        vmin = torch.where(is_valid, ray_start, inf).min()
-        vmax = torch.where(is_valid, ray_start, -inf).max()
-        keep = is_valid | ~is_valid.any()
+        ext = torch.stack([-torch.where(is_valid, ray_start, inf).min(),
+                           torch.where(is_valid, ray_start, -inf).max(),
+                           is_valid.any().to(ray_start.dtype)])
+        mesh = active_mesh()
+        if mesh is not None:
+            ext = reduce_max(ext, mesh.data_group)
+        vmin, vmax = -ext[0], ext[1]
+        keep = is_valid | (ext[2] == 0)
         ray_start = torch.where(keep, ray_start, vmin)
         ray_end = torch.where(keep, ray_end, vmax)
     else:
         ray_start, ray_end = options["ray_start"], options["ray_end"]
 
+    ray_mesh = options.get("ray_sharding")
+    if ray_mesh is not None and ray_mesh.rays > 1:
+        k, r_all = ray_mesh.rays, ray_origins.shape[1]
+        if r_all % k:
+            raise ValueError(f"{r_all} rays do not split over {k} ray shards")
+        part = r_all // k
+
+        def mine(x):
+            if not isinstance(x, torch.Tensor) or x.dim() == 0:
+                return x
+            return x.narrow(1, ray_mesh.ray_rank * part, part)
+
+        out = _render_shard(plane_features, decoder, mine(ray_origins), mine(ray_directions),
+                            mine(ray_start), mine(ray_end), options, rng, ray_mesh)
+        sizes = [t.shape[-1] for t in out]
+        full = all_gather(torch.cat(out, dim=-1), ray_mesh.ray_group, dim=1)
+        return tuple(full.split(sizes, dim=-1))
+    return _render_shard(plane_features, decoder, ray_origins, ray_directions, ray_start,
+                         ray_end, options, rng, None)
+
+
+def _render_shard(plane_features, decoder, ray_origins, ray_directions, ray_start, ray_end,
+                  options, rng, ray_mesh):
+    """`render_rays` past the ray limits, on this rank's rays."""
     depths_coarse = sample_stratified(
         rng, ray_origins, ray_start, ray_end, options["depth_resolution"],
-        options.get("disparity_space_sampling", False))
+        options.get("disparity_space_sampling", False), ray_mesh=ray_mesh)
     n, r, _, _ = depths_coarse.shape
 
     def eval_points(depths):
@@ -134,7 +174,7 @@ def render_rays(plane_features: torch.Tensor, decoder: Decoder,
     n_imp = options["depth_resolution_importance"]
     if n_imp > 0:
         _, _, weights = march_rays(colors_coarse, densities_coarse, depths_coarse, options)
-        depths_fine = sample_importance(rng, depths_coarse, weights, n_imp)
+        depths_fine = sample_importance(rng, depths_coarse, weights, n_imp, ray_mesh=ray_mesh)
         colors_fine, densities_fine = eval_points(depths_fine)
         all_depths, all_colors, all_densities = unify_samples(
             depths_coarse, colors_coarse, densities_coarse,

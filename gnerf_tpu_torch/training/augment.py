@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import conv2d, downsample2d, setup_filter, upsample2d
+from ..parallel.sharding import draw
 
 # Wavelet low-pass filters (public coefficients; only the ones used).
 WAVELETS = {
@@ -228,16 +229,17 @@ class AugmentPipe:
     def __call__(self, images: torch.Tensor, p: float = 1.0,
                  generator: Optional[torch.Generator] = None,
                  debug_percentile: Optional[float] = None) -> torch.Tensor:
-        """Augment a batch [N, C, H, W]; `p` is the ADA strength."""
+        """Augment a batch [N, C, H, W]; `p` is the ADA strength. Under a
+        mesh each draw is this rank's rows of the global batch's draw."""
         N, C, H, W = images.shape
         dev = images.device
         f32 = dict(dtype=torch.float32, device=dev)
 
         def uniform(*shape):
-            return torch.rand((N,) + shape, generator=generator, **f32)
+            return draw(torch.rand, (N,) + shape, generator, **f32)
 
         def normal(*shape):
-            return torch.randn((N,) + shape, generator=generator, **f32)
+            return draw(torch.randn, (N,) + shape, generator, **f32)
 
         def gate(value, fallback, prob):
             u = uniform(*(1,) * (value.dim() - 1))
@@ -351,7 +353,7 @@ class AugmentPipe:
             sigma = gate(sigma, torch.zeros_like(sigma), self.noise)
             if dp is not None:
                 sigma = full(sigma, _erfinv(dp) * self.noise_std)
-            noise = torch.randn(images.shape, generator=generator, **f32)
+            noise = draw(torch.randn, images.shape, generator, **f32)
             images = images + (noise * sigma).to(images.dtype)
         if self.cutout > 0:
             size = torch.full((N, 2, 1, 1, 1), self.cutout_size, **f32)

@@ -30,6 +30,13 @@ step's `torch.Generator`; each D call's augmentation draws from a generator
 of its own, seeded from the step generator's seed and the call's stream
 (`_aug_generator`). `rng=None` gives constant noise and deterministic
 sampling, and the remaining draws then come from torch's default generator.
+
+Given a `parallel.Mesh`, each step is the JAX package's global-batch step:
+each rank holds its rows of the batch, every draw is its part of the
+world-1 draw for the global batch (`parallel.draw`), the pose swap rolls
+the global batch, D's minibatch-std groups and the w_avg update see the
+global batch, the gradients are averaged over every rank before Adam, the
+stats are global means and cur_nimg counts the global batch.
 """
 
 from __future__ import annotations
@@ -46,8 +53,11 @@ from ..models.dual_discriminator import DualDiscriminator
 from ..models.triplane import TriPlaneGenerator
 from ..ops.interpolate import interpolate_bilinear
 from ..ops.upfirdn2d import filter2d
+from ..parallel.collectives import pmean_grads
+from ..parallel.mesh import Mesh, active_mesh, use_mesh
+from ..parallel.sharding import data_mean, draw, global_rows, local_rows, mean_stats
 from ..utils.misc import ema_update
-from .train_loop import checkpointed
+from .train_loop import checkpointed, ray_overrides
 
 @dataclasses.dataclass(frozen=True)
 class EG3DLossConfig:
@@ -144,7 +154,8 @@ class AdaController:
         self._window: list = []
 
     def report(self, signs_real: torch.Tensor) -> float:
-        """Record one step's 'Loss/signs/real'; returns the p for the next."""
+        """Record one step's 'Loss/signs/real' (a step under a mesh returns
+        it as the mean over the global batch); returns the p for the next."""
         if self.cfg.aug == "ada":
             self._window.append(signs_real)
             if len(self._window) == self.cfg.ada_interval:
@@ -212,11 +223,12 @@ def swapping_prob_schedule(cur_nimg: float, cfg: EG3DLossConfig) -> Optional[flo
 def swapped_conditioning(rng: Optional[torch.Generator], c: torch.Tensor,
                          swapping_prob: Optional[float]) -> torch.Tensor:
     """G's conditioning: each label replaced by its batch neighbour's
-    (a roll by one) with probability `swapping_prob`; None -> zeros."""
+    (a roll by one over the global batch) with probability `swapping_prob`;
+    None -> zeros."""
     if swapping_prob is None:
         return torch.zeros_like(c)
-    pick = torch.rand((c.shape[0], 1), generator=rng, device=c.device) < swapping_prob
-    return torch.where(pick, torch.roll(c, 1, dims=0), c)
+    pick = draw(torch.rand, (c.shape[0], 1), rng, device=c.device) < swapping_prob
+    return torch.where(pick, local_rows(torch.roll(global_rows(c), 1, dims=0)), c)
 
 
 def apply_style_mixing(mapping: Callable, ws: torch.Tensor, z_dim: int, c_cond: torch.Tensor,
@@ -229,7 +241,7 @@ def apply_style_mixing(mapping: Callable, ws: torch.Tensor, z_dim: int, c_cond: 
     num_ws, dev = ws.shape[1], ws.device
     cutoff = torch.randint(1, num_ws, (), generator=rng, device=dev)
     cutoff = torch.where(torch.rand((), generator=rng, device=dev) < prob, cutoff, num_ws)
-    z2 = torch.randn((ws.shape[0], z_dim), generator=rng, device=dev, dtype=ws.dtype)
+    z2 = draw(torch.randn, (ws.shape[0], z_dim), rng, device=dev, dtype=ws.dtype)
     keep = torch.arange(num_ws, device=dev)[None, :, None] < cutoff
     return torch.where(keep, ws, mapping(z2, c_cond))
 
@@ -249,11 +261,11 @@ def density_reg_points(n: int, cfg: EG3DLossConfig, rng: Optional[torch.Generato
     P uniform points in [-1, 1]^3, then the same points nudged by
     N(0, density_reg_p_dist); directions are standard normal."""
     p = cfg.density_reg_points
-    initial = torch.rand((n, p, 3), generator=rng, device=device) * 2 - 1
-    perturbed = initial + torch.randn(initial.shape, generator=rng,
-                                      device=device) * cfg.density_reg_p_dist
+    initial = draw(torch.rand, (n, p, 3), rng, device=device) * 2 - 1
+    perturbed = initial + draw(torch.randn, initial.shape, rng,
+                               device=device) * cfg.density_reg_p_dist
     coords = torch.cat([initial, perturbed], dim=1)
-    return coords, torch.randn(coords.shape, generator=rng, device=device)
+    return coords, draw(torch.randn, coords.shape, rng, device=device)
 
 
 def density_tv(g: TriPlaneGenerator, ws: torch.Tensor, coords: torch.Tensor,
@@ -330,11 +342,14 @@ def _opt_params(opt: torch.optim.Adam) -> list:
 
 
 def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor) -> None:
-    """One Adam step on d(loss)/d(the optimizer's parameters). A parameter
-    the loss does not reach gets a zero gradient, as in optax: its second
-    moment decays and its step count advances with the others'."""
+    """One Adam step on d(loss)/d(the optimizer's parameters), averaged over
+    the ranks of the active mesh. A parameter the loss does not reach gets
+    a zero gradient, as in optax: its second moment decays and its step
+    count advances with the others'."""
     params = _opt_params(opt)
     grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    mesh = active_mesh()
+    grads = pmean_grads(grads, mesh.group if mesh is not None else None)
     for p, gr in zip(params, grads):
         p.grad = gr
     opt.step()
@@ -343,15 +358,18 @@ def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor) -> None:
 
 @torch.no_grad()
 def _update_w_avg(g: TriPlaneGenerator, w_batch: torch.Tensor) -> None:
-    """The mapping's w_avg EMA (beta 0.998) over the batch's ws[:, 0]."""
+    """The mapping's w_avg EMA (beta 0.998) over the global batch's ws[:, 0]."""
     w_avg = getattr(g.backbone.mapping, "w_avg", None)
     if w_avg is not None:
-        batch_mean = w_batch.mean(dim=0)
+        batch_mean = data_mean(w_batch.mean(dim=0))
         w_avg.copy_(batch_mean + (w_avg - batch_mean) * 0.998)
 
 
 def _finish_main(state: EG3DState, n: int) -> None:
-    """G_ema tracks G with beta 0.5^(batch / 10k); the clock advances."""
+    """G_ema tracks G with beta 0.5^(batch / 10k); the clock advances. `n`
+    is this rank's rows; the batch is the global one."""
+    mesh = active_mesh()
+    n *= mesh.data if mesh is not None else 1
     ema_update(state.g_ema.state_dict(), state.g.state_dict(), 0.5 ** (n / (10 * 1000.0)))
     state.cur_nimg += n
 
@@ -459,8 +477,21 @@ def _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res, aug_p=0
     return loss, ws, stats
 
 
-def make_eg3d_train_step(cfg: EG3DLossConfig,
-                         rendering_overrides: Optional[dict] = None) -> Callable:
+def _on_mesh(step: Callable, mesh: Optional[Mesh]) -> Callable:
+    """`step` run under `mesh`, its stats averaged over the mesh's ranks."""
+    if step is None:
+        return None
+
+    def run(*args, **kwargs):
+        with use_mesh(mesh):
+            state, stats = step(*args, **kwargs)
+            return state, mean_stats(stats, mesh)
+
+    return run
+
+
+def make_eg3d_train_step(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """The fused step (density reg and R1 in every step, no lazy scaling):
     `train_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *,
     blur_size=0, res=None) -> (state, stats)`.
@@ -470,8 +501,10 @@ def make_eg3d_train_step(cfg: EG3DLossConfig,
     come from `blur_sigma_schedule` / `blur_kernel_size`, `aug_p` is the
     augmentation strength (unused under aug='noaug'), `res` comes from
     `neural_resolution_schedule` (None: the initial resolution). State from
-    `init_eg3d_state(..., lazy=False)`."""
-    run_g, run_d = _make_runners(cfg, rendering_overrides)
+    `init_eg3d_state(..., lazy=False)`. Under `mesh` the batch holds this
+    rank's rows of the global batch and every rank passes a generator in
+    the same state."""
+    run_g, run_d = _make_runners(cfg, ray_overrides(rendering_overrides, mesh))
 
     def train_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
                    blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
@@ -500,10 +533,11 @@ def make_eg3d_train_step(cfg: EG3DLossConfig,
         stats["Loss/D/total"] = loss_d.detach()
         return state, stats
 
-    return train_step
+    return _on_mesh(train_step, mesh)
 
 
-def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None
+def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None,
+                          mesh: Optional[Mesh] = None
                           ) -> tuple[Callable, Optional[Callable], Optional[Callable]]:
     """Lazy regularization: (main_step, greg_step, dreg_step), the last two
     None when density_reg or r1_gamma is 0. State from
@@ -513,8 +547,10 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
       main_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *, blur_size=0, res=None)
       greg_step(state, batch, rng=None)
       dreg_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *, blur_size=0, res=None)
+
+    `mesh` as for `make_eg3d_train_step`.
     """
-    run_g, run_d = _make_runners(cfg, rendering_overrides)
+    run_g, run_d = _make_runners(cfg, ray_overrides(rendering_overrides, mesh))
 
     def main_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
                   blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
@@ -563,4 +599,4 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
             _adam_step(state.opt_d, loss * gain_d)
             return state, {"Loss/D/reg": loss.detach()}
 
-    return main_step, greg_step, dreg_step
+    return _on_mesh(main_step, mesh), _on_mesh(greg_step, mesh), _on_mesh(dreg_step, mesh)

@@ -269,7 +269,11 @@ def r1_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     return grads.square().sum(dim=(1, 2, 3))
 
 
-def masked_mean(values: torch.Tensor, factor: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def masked_mean(values: torch.Tensor, factor: torch.Tensor, eps: float = 1e-6,
+                factor_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sum(values * factor) / (sum(factor) + eps): the `factor`-weighted
-    reconstruction normalization."""
-    return (values * factor).sum() / (factor.sum() + eps)
+    reconstruction normalization. `factor_sum` stands in for sum(factor)
+    (a data shard passes the global batch's)."""
+    if factor_sum is None:
+        factor_sum = factor.sum()
+    return (values * factor).sum() / (factor_sum + eps)

@@ -1,5 +1,5 @@
 """Training CLI: G-NeRF encoder-inversion training, or EG3D adversarial
-pretraining, on one CUDA card.
+pretraining, on one CUDA card or on several under torchrun.
 
 Port of `gnerf_tpu/training/train.py`: builds the rendering recipe (dataset
 preset, SR module, knobs), writes the run directory and drives the tick and
@@ -19,8 +19,14 @@ p. SIGTERM and SIGINT finish the step, save the full state and exit.
     python -m gnerf_tpu_torch.training.train --outdir runs --dataset_name synthetic \\
         --preset ffhq --batch 4 --kimg 1 --tick 1 [--objective eg3d] [--device cpu]
 
-Runs on CUDA unless `--device` names another device. Not ported (they
-raise): `--chain` > 1 and `--ray_shards` > 1.
+Runs on CUDA unless `--device` names another device. Under `torchrun
+--nproc_per_node=K` each rank trains on its card (NCCL; gloo with `--device
+cpu`) and the ranks compute the JAX package's global-batch step on a
+K-device mesh: `--batch` is the global batch, each of the K / ray_shards
+data shards feeds batch / (K / ray_shards) rows, and `--ray_shards k` splits
+every render's rays over k ranks that hold the same rows. Rank 0 alone
+writes the run directory; every rank reads `--resume`. Not ported (it
+raises): `--chain` > 1.
 """
 
 from __future__ import annotations
@@ -302,7 +308,9 @@ def run_training(
     device=None,
 ):
     """The training run of `objective` (gnerf or eg3d); the JAX CLI's
-    options plus `device`. Returns the run directory (None for a dry run)."""
+    options plus `device`. Returns the run directory (None for a dry run
+    and on ranks other than 0)."""
+    from ..parallel import init_distributed, make_mesh, process_info
     from ..utils.device import resolve_device
     from .train_loop import TrainConfig, config_dict
 
@@ -313,10 +321,14 @@ def run_training(
     if int(chain) != 1:
         raise ValueError("--chain > 1 is the JAX package's dispatch workaround and is not "
                          "ported: one step is one Python call here")
-    if int(ray_shards) != 1:
-        raise ValueError("--ray_shards > 1 (sharding the render over cards) is not ported "
-                         "(ROADMAP.md Queue 1 item 14)")
     device = resolve_device(device)
+    init_distributed(device)
+    rank, world = process_info()
+    ray_shards = int(ray_shards)
+    if ray_shards < 1 or world % ray_shards:
+        raise ValueError(f"--ray_shards {ray_shards} must divide device count {world}")
+    if batch % (world // ray_shards):
+        raise ValueError(f"batch {batch} not divisible by {world // ray_shards} data shards")
 
     preset_cfg = RENDERING_PRESETS[preset or dataset_name]
     rendering_kwargs = _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode,
@@ -334,7 +346,7 @@ def run_training(
         "generator": {"z_dim": z_dim, "w_dim": w_dim, "img_resolution": img_resolution,
                       "rendering_kwargs": rk_json},
         "rendering_kwargs": rk_json,
-        "num_devices": torch.cuda.device_count() if device.type == "cuda" else 1,
+        "num_devices": world,
         "ray_shards": ray_shards,
         "lpips_pretrained": bool(lpips_weights),
         "aug": {"mode": aug, "p0": aug_p, "ada_target": ada_target, "ada_kimg": ada_kimg},
@@ -342,19 +354,25 @@ def run_training(
         "neural_rendering_resolution_fade_kimg": neural_rendering_resolution_fade_kimg,
         "style_mixing_prob": style_mixing_prob,
         "held_out_scheme": "md5-basename-v1",
-        "num_processes": 1,
+        "num_processes": world,
     }
-    print(json.dumps(options, indent=2))
+    if rank == 0:
+        print(json.dumps(options, indent=2))
     if dry_run:
-        print("Dry run -- exiting.")
+        if rank == 0:
+            print("Dry run -- exiting.")
         return None
 
-    run_dir = pick_run_dir(outdir, dataset_name)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump(options, f, indent=2)
-    from ..utils.logger import Logger
+    mesh = make_mesh(data=world // ray_shards, rays=ray_shards)
+    # Rank-gated I/O (the reference gates on rank 0, `training_loop.py:152,161`).
+    run_dir, logger = None, None
+    if rank == 0:
+        from ..utils.logger import Logger
 
-    logger = Logger(os.path.join(run_dir, "log.txt"))  # tee stdout / stderr
+        run_dir = pick_run_dir(outdir, dataset_name)
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            json.dump(options, f, indent=2)
+        logger = Logger(os.path.join(run_dir, "log.txt"))  # tee stdout / stderr
     try:
         if objective == "eg3d":
             eg3d = dict(freezed=freezed, style_mixing_prob=style_mixing_prob,
@@ -363,20 +381,50 @@ def run_training(
                             neural_rendering_resolution_fade_kimg),
                         density_reg_every=density_reg_every, d_reg_interval=d_reg_interval,
                         aug=aug, aug_p=aug_p, ada_target=ada_target, ada_kimg=ada_kimg)
-            return _train_eg3d(run_dir, options, cfg, rendering_kwargs, img_resolution,
-                               dataset_name, data, real_data, z_dim, w_dim, resume, eg3d,
-                               device)
-        return _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name,
-                      data, real_data, z_dim, w_dim, lpips_weights, resume, device)
+            run_dir = _train_eg3d(run_dir, options, cfg, rendering_kwargs, img_resolution,
+                                  dataset_name, data, real_data, z_dim, w_dim, resume, eg3d,
+                                  device, mesh)
+        else:
+            run_dir = _train(run_dir, options, cfg, rendering_kwargs, img_resolution,
+                             dataset_name, data, real_data, z_dim, w_dim, lpips_weights,
+                             resume, device, mesh)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    _any_rank(False, mesh, device)  # the ranks leave once rank 0 has written
+    return run_dir
+
+
+def _shard_batches(dataset, batch: int, seed: int, mesh):
+    """This rank's batches: its data shard's rows of each global batch
+    (reference `batch_gpu = batch // gpus`, train.py:273); the ranks of a
+    ray group read the same rows."""
+    from .dataset import data_iterator
+
+    data, data_rank = (mesh.data, mesh.data_rank) if mesh is not None else (1, 0)
+    return data_iterator(dataset, batch_size=batch // data, rank=data_rank,
+                         num_replicas=data, seed=seed)
+
+
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """Whether `flag` is set on any rank of the mesh: a collective, so every
+    rank waits here for the others (a stop asked for on one rank stops all
+    after the same step)."""
+    if mesh is None:
+        return flag
+    import torch.distributed as dist
+
+    flags = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(flags, group=mesh.group)
+    return bool(flags.item() > 0)
 
 
 def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name, data,
-           real_data, z_dim, w_dim, lpips_weights, resume, device):
+           real_data, z_dim, w_dim, lpips_weights, resume, device, mesh):
     from ..models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
+    from ..parallel import put_replicated
     from ..utils.stats import Collector
-    from .dataset import collate, data_iterator
+    from .dataset import collate
     from .losses import lpips_params_or_warn
     from .train_loop import init_train_state, make_train_step, save_snapshot, save_train_state
 
@@ -396,40 +444,45 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
         lpips_weights or None, device=device, generator=torch.Generator().manual_seed(seed + 7))
     state = init_train_state(g, enc, disc, vgg, cfg)
     best_ssim = -100.0
+    lead = run_dir is not None
     if resume:
         resumed = _resume(state, resume, disc)
         if resumed is not None:
             best_ssim = resumed
-        print(f"Resumed from {resume} at kimg {state.cur_nimg / 1000:.1f}")
-    train_step = make_train_step(cfg)
+        if lead:
+            print(f"Resumed from {resume} at kimg {state.cur_nimg / 1000:.1f}")
+    put_replicated((state.g, state.g_ema, state.enc, state.disc, state.vgg), mesh)
+    train_step = make_train_step(cfg, mesh=mesh)
 
     dataset = _dataset(dataset_name, data, real_data, img_resolution,
                        depth_resolution=cfg.neural_rendering_resolution)
     # Seeded from the resume position: a resumed run walks a fresh order.
-    batches = data_iterator(dataset, batch_size=batch, seed=seed + state.cur_nimg)
+    batches = _shard_batches(dataset, batch, seed + state.cur_nimg, mesh)
 
     def to_device(host):
         return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
                 for k, v in host.items()}
 
-    validate_batch = make_validator(state.g_ema, state.enc, vgg=vgg,
-                                    lpips_pretrained=lpips_pretrained)
-    val_items = [dataset[i] for i in range(min(4, len(dataset)))]
-    val_batch = to_device({k: v for k, v in collate(val_items).items()
-                           if k in ("condition_image", "loss_image", "loss_c")})
-    save_image_grid(val_batch["condition_image"].float().cpu().numpy(),
-                    os.path.join(run_dir, "id_images.png"), drange=(0, 255))
-
-    tb_writer = _tb_writer(run_dir)
+    tb_writer = None
+    if lead:  # validation, logs and snapshots: rank 0's alone
+        validate_batch = make_validator(state.g_ema, state.enc, vgg=vgg,
+                                        lpips_pretrained=lpips_pretrained)
+        val_items = [dataset[i] for i in range(min(4, len(dataset)))]
+        val_batch = to_device({k: v for k, v in collate(val_items).items()
+                               if k in ("condition_image", "loss_image", "loss_c")})
+        save_image_grid(val_batch["condition_image"].float().cpu().numpy(),
+                        os.path.join(run_dir, "id_images.png"), drange=(0, 255))
+        tb_writer = _tb_writer(run_dir)
     collector = Collector()
     cur_nimg = state.cur_nimg
     tick_idx = cur_nimg // tick_nimg
     tick_start = start = time.time()
     pending = next(batches)
-    print(f"Training for {cfg.total_kimg} kimg in {run_dir} ...")
+    if lead:
+        print(f"Training for {cfg.total_kimg} kimg in {run_dir} ...")
     try:
         with _stop_on_signals() as stop_requested:
-            while cur_nimg < total_nimg and not stop_requested["flag"]:
+            while cur_nimg < total_nimg and not _any_rank(stop_requested["flag"], mesh, device):
                 rng = step_generator(seed, cur_nimg, device)
                 _, stats = train_step(state, to_device(pending), rng)
                 pending = next(batches)
@@ -438,6 +491,8 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
                     collector.report(name, value)
                 if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
                     tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
+                    if not lead:
+                        continue
                     now = time.time()
                     fields = collector.update()
                     msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}" for k, v in fields.items())
@@ -479,6 +534,8 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
     finally:
         if tb_writer is not None:
             tb_writer.close()
+    if not lead:
+        return None
     try:
         save_snapshot(os.path.join(run_dir, "network-snapshot-final.npz"), state,
                       config=options)
@@ -486,7 +543,7 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
                          config=options, best_ssim=best_ssim)
     except OSError as err:
         print(f"WARNING: final snapshot failed: {err}")
-    if stop_requested["flag"]:
+    if cur_nimg < total_nimg:
         print(f"preempted at {cur_nimg / 1000:.1f} kimg — full state saved; resume with "
               f"--resume {os.path.join(run_dir, 'training-state-latest.npz')}")
     print(f"done in {time.time() - start:.1f}s")
@@ -522,7 +579,7 @@ def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: i
 
 
 def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, dataset_name,
-                data, real_data, z_dim, w_dim, resume, eg3d, device):
+                data, real_data, z_dim, w_dim, resume, eg3d, device, mesh):
     """EG3D adversarial pretraining (z, c) -> image at the JAX loop's
     cadence: Gmain + Dmain every step, Greg when sched_idx = cur_nimg //
     batch is a multiple of g_reg_interval, Dreg when it is one of
@@ -534,9 +591,9 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     `network-snapshot-NNNNNN.npz`, and the full state with the live ADA p
     (`aug_p_live`) in its config; `--resume` restores both."""
     from ..models import DualDiscriminator, TriPlaneGenerator
+    from ..parallel import local_rows, put_replicated
     from ..utils import checkpoint as ckpt_lib
     from ..utils.stats import Collector
-    from .dataset import data_iterator
     from .eg3d_loss import (AdaController, blur_kernel_size, blur_sigma_schedule,
                             init_eg3d_state, make_eg3d_phase_steps, make_eg3d_train_step,
                             neural_resolution_schedule)
@@ -554,20 +611,24 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     # An interval <= 1 on both sides fuses the regularizers into every step.
     lazy = cfg.g_reg_interval > 1 or cfg.d_reg_interval > 1
     if lazy:
-        main_fn, greg_fn, dreg_fn = make_eg3d_phase_steps(cfg)
+        main_fn, greg_fn, dreg_fn = make_eg3d_phase_steps(cfg, mesh=mesh)
     else:
-        main_fn, greg_fn, dreg_fn = make_eg3d_train_step(cfg), None, None
+        main_fn, greg_fn, dreg_fn = make_eg3d_train_step(cfg, mesh=mesh), None, None
     state = init_eg3d_state(g, disc, cfg, lazy=lazy)
     check_fade_sr_compat(g, cfg, img_resolution)
     cur_aug_p = float(cfg.aug_p)
+    lead = run_dir is not None
     if resume:
         _, ckpt_cfg, _ = load_train_state(resume, state)
         if ckpt_cfg and "aug_p_live" in ckpt_cfg:
             cur_aug_p = float(ckpt_cfg["aug_p_live"])
-        print(f"Resumed EG3D training state from {resume} at kimg {state.cur_nimg / 1000:.1f}")
+        if lead:
+            print(f"Resumed EG3D training state from {resume} at kimg "
+                  f"{state.cur_nimg / 1000:.1f}")
+    put_replicated((state.g, state.g_ema, state.disc), mesh)
 
     dataset = _dataset(dataset_name, data, real_data, img_resolution)
-    batches = data_iterator(dataset, batch_size=batch, seed=seed + state.cur_nimg)
+    batches = _shard_batches(dataset, batch, seed + state.cur_nimg, mesh)
 
     def snapshot(name):
         ckpt_lib.save_checkpoint(os.path.join(run_dir, name),
@@ -578,23 +639,26 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
         save_train_state(os.path.join(run_dir, "training-state-latest.npz"), state,
                          config={**options, "aug_p_live": cur_aug_p})
 
-    tb_writer = _tb_writer(run_dir)
+    tb_writer = _tb_writer(run_dir) if lead else None
     collector = Collector()
     cur_nimg = state.cur_nimg
     tick_idx = cur_nimg // tick_nimg
     tick_start = start = time.time()
     pending = next(batches)
     ada = AdaController(cfg, batch, cur_aug_p)
-    print(f"EG3D pretraining for {train_cfg.total_kimg} kimg in {run_dir} "
-          f"(aug={cfg.aug}, p0={cur_aug_p}) ...")
+    if lead:
+        print(f"EG3D pretraining for {train_cfg.total_kimg} kimg in {run_dir} "
+              f"(aug={cfg.aug}, p0={cur_aug_p}) ...")
     try:
         with _stop_on_signals() as stop_requested:
-            while cur_nimg < total_nimg and not stop_requested["flag"]:
+            while cur_nimg < total_nimg and not _any_rank(stop_requested["flag"], mesh, device):
                 rng = step_generator(seed, cur_nimg, device)
                 c = torch.from_numpy(np.asarray(pending["loss_c"], np.float32)).to(device)
                 real = torch.from_numpy(np.asarray(pending["loss_image"])).to(device)
-                gan_batch = {"z": torch.randn((batch, g.z_dim), generator=rng, device=device),
-                             "c": c, "real_image": real.float() / 127.5 - 1.0, "real_c": c}
+                # z for the global batch, as world 1 draws it; this rank's rows.
+                z = local_rows(torch.randn((batch, g.z_dim), generator=rng, device=device), mesh)
+                gan_batch = {"z": z, "c": c, "real_image": real.float() / 127.5 - 1.0,
+                             "real_c": c}
                 pending = next(batches)
                 sigma = blur_sigma_schedule(cur_nimg, cfg)
                 size = blur_kernel_size(sigma)
@@ -617,6 +681,8 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
                 cur_aug_p = ada.report(stats["Loss/signs/real"])
                 if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
                     tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
+                    if not lead:
+                        continue
                     now = time.time()
                     fields = collector.update()
                     msg = " ".join(f"{k.split('/')[-1]} {v['mean']:.4f}"
@@ -641,12 +707,14 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     finally:
         if tb_writer is not None:
             tb_writer.close()
+    if not lead:
+        return None
     try:
         snapshot("network-snapshot-final.npz")
         save_state()
     except OSError as err:
         print(f"WARNING: final snapshot failed: {err}")
-    if stop_requested["flag"]:
+    if cur_nimg < total_nimg:
         print(f"preempted at {cur_nimg / 1000:.1f} kimg — full state saved; resume with "
               f"--resume {os.path.join(run_dir, 'training-state-latest.npz')}")
     print(f"done in {time.time() - start:.1f}s")
@@ -691,7 +759,7 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
 @click.option("--aug_p", type=float, default=0.0)
 @click.option("--freezed", type=int, default=0)
 @click.option("--ray_shards", type=int, default=1,
-              help="only 1: sharding the render over cards is not ported")
+              help="ranks that split each render's rays (must divide the world size)")
 @click.option("--neural_rendering_resolution_final", type=int, default=0)
 @click.option("--neural_rendering_resolution_fade_kimg", type=float, default=1000.0)
 @click.option("--style_mixing_prob", type=float, default=0.0)

@@ -18,6 +18,13 @@ flow through G into ws and z. Both losses are differentiated with
 `torch.autograd.grad` with respect to their own trainable set, so D collects
 no gradient from the G loss. The step mutates the modules and optimizers of
 a `TrainState` in place and returns the stats.
+
+Given a `parallel.Mesh`, the step is the JAX package's global-batch step:
+each rank holds its rows of the batch (and, with a ray axis, renders its
+share of the rays), BatchNorm and minibatch std see the global batch,
+`factor` is normalized by its global sum, the gradients are averaged over
+every rank (`pmean_grads`) before Adam, the stats are global means and
+cur_nimg counts the global batch.
 """
 
 from __future__ import annotations
@@ -35,8 +42,11 @@ from ..models.encoder import ResNeXt50Encoder
 from ..models.stylegan2 import Discriminator
 from ..models.triplane import TriPlaneGenerator
 from ..ops.interpolate import interpolate_bilinear
+from ..parallel.collectives import pmean_grads
+from ..parallel.mesh import Mesh, active_mesh, use_mesh
+from ..parallel.sharding import data_sum, mean_stats
 from ..utils import checkpoint as ckpt_lib
-from ..utils.misc import ema_update, nan_to_num
+from ..utils.misc import ema_update
 from . import losses as L
 
 
@@ -129,35 +139,50 @@ def checkpointed(fn: Callable, rng: Optional[torch.Generator], *args):
     explicit generator: a recompute that draws from `rng` would take new
     jitter and importance depths and give wrong gradients. So the body puts
     `rng` back to its state at the forward before it draws, and after the
-    recompute returns the generator to where it was."""
-    if rng is None:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    start = rng.get_state()
+    recompute returns the generator to where it was. The recompute runs
+    under the forward's mesh: on CUDA the autograd engine runs it on a
+    thread of its own, which does not see the step's `use_mesh`."""
+    mesh = active_mesh()
+    start = rng.get_state() if rng is not None else None
     calls = [0]
 
     def body(*a):
         calls[0] += 1
-        if calls[0] == 1:
-            return fn(*a)
-        now = rng.get_state()
-        rng.set_state(start)
-        try:
-            return fn(*a)
-        finally:
-            rng.set_state(now)
+        with use_mesh(mesh):
+            if rng is None or calls[0] == 1:
+                return fn(*a)
+            now = rng.get_state()
+            rng.set_state(start)
+            try:
+                return fn(*a)
+            finally:
+                rng.set_state(now)
 
     return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None) -> Callable:
+def ray_overrides(rendering_overrides: Optional[dict], mesh: Optional[Mesh]) -> Optional[dict]:
+    """The per-call rendering options of a step: `rendering_overrides`, plus
+    the mesh as `ray_sharding` when it has a ray axis."""
+    if mesh is None or mesh.rays == 1:
+        return rendering_overrides
+    return {**(rendering_overrides or {}), "ray_sharding": mesh}
+
+
+def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """The step `train_step(state, batch, rng=None) -> (state, stats)`.
 
     `batch` holds the collated dataset tensors on G's device (uint8 images,
-    fp32 labels, depths and factor). `rng` is the step's generator on that
-    device, for the synthesis noise, the stratified jitter and the
-    importance samples; None gives deterministic sampling (constant noise,
-    no jitter, evenly spaced importance samples)."""
+    fp32 labels, depths and factor): under `mesh`, this rank's rows of the
+    global batch. `rng` is the step's generator on that device, for the
+    synthesis noise, the stratified jitter and the importance samples; None
+    gives deterministic sampling (constant noise, no jitter, evenly spaced
+    importance samples). Under a mesh every rank passes a generator in the
+    same state and draws its part of the global draw."""
     res = cfg.neural_rendering_resolution
+    rendering_overrides = ray_overrides(rendering_overrides, mesh)
+    data = mesh.data if mesh is not None else 1
 
     def to_vgg_res(x, vgg):
         # The resize vgg.apply would do, hoisted so both tiers share one
@@ -209,17 +234,24 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         # Antialiased 64^2 target, as the JAX package chose (PARITY.md).
         real_raw = interpolate_bilinear(loss_image, res, res, antialias=True) / 127.5 - 1.0
         factor = batch["factor"].float()
+        # The masked mean over the global batch, scaled so that its mean over
+        # the data shards is the global value (at data=1, the masked mean).
+        factor_sum = data_sum(factor.sum())
+
+        def masked_mean(values):
+            return data * L.masked_mean(values, factor, factor_sum=factor_sum)
+
         l1_raw, ssim_raw = recon_terms(real_raw, image_raw)
         l1_full, ssim_full = recon_terms(real_img, image)
         lp_raw, lp_full = lpips_pair_terms(st.vgg, real_raw, image_raw, real_img, image)
-        total = L.masked_mean(l1_raw + ssim_raw + lp_raw + l1_full + ssim_full + lp_full, factor)
+        total = masked_mean(l1_raw + ssim_raw + lp_raw + l1_full + ssim_full + lp_full)
         stats = {
-            "Loss/G/l1_loss": L.masked_mean(l1_full, factor),
-            "Loss/G/l_ssim_val": L.masked_mean(ssim_full, factor),
-            "Loss/G/p_loss": L.masked_mean(lp_full, factor),
-            "Loss/G/l1_loss_raw": L.masked_mean(l1_raw, factor),
-            "Loss/G/ssim_val_raw": L.masked_mean(ssim_raw, factor),
-            "Loss/G/p_loss_raw": L.masked_mean(lp_raw, factor),
+            "Loss/G/l1_loss": masked_mean(l1_full),
+            "Loss/G/l_ssim_val": masked_mean(ssim_full),
+            "Loss/G/p_loss": masked_mean(lp_full),
+            "Loss/G/l1_loss_raw": masked_mean(l1_raw),
+            "Loss/G/ssim_val_raw": masked_mean(ssim_raw),
+            "Loss/G/p_loss_raw": masked_mean(lp_raw),
         }
         if cfg.gan_depth and st.disc is not None:
             loss_gmain = L.g_nonsaturating_loss(st.disc.apply(depth, loss_c))
@@ -247,13 +279,17 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         return loss_dgen + loss_dreal + loss_dr1, stats
 
     def apply_grads(opt, params, grads):
+        grads = pmean_grads(grads, mesh.group if mesh is not None else None)
         for p, gr in zip(params, grads):
             p.grad = gr
-        nan_to_num(grads)
         opt.step()
         opt.zero_grad(set_to_none=True)
 
     def train_step(state: TrainState, batch, rng: Optional[torch.Generator] = None):
+        with use_mesh(mesh):
+            return step(state, batch, rng)
+
+    def step(state: TrainState, batch, rng: Optional[torch.Generator]):
         g_params = [p for grp in state.opt_g.param_groups for p in grp["params"]] \
             if state.opt_g is not None else []
         total, stats, depth_fake = g_loss(state, batch, rng)
@@ -272,8 +308,8 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
             apply_grads(state.opt_g, g_params, g_grads)
         beta = 0.5 ** (cfg.batch_size / max(cfg.ema_kimg * 1000.0, 1e-8))
         ema_update(state.g_ema.state_dict(), state.g.state_dict(), beta)
-        state.cur_nimg += int(batch["condition_image"].shape[0])
-        return state, {k: v.detach() for k, v in stats.items()}
+        state.cur_nimg += int(batch["condition_image"].shape[0]) * data
+        return state, mean_stats({k: v.detach() for k, v in stats.items()}, mesh)
 
     return train_step
 

@@ -34,7 +34,7 @@ def test_import_pulls_in_no_jax():
         "import gnerf_tpu_torch.models.dual_discriminator, gnerf_tpu_torch.training.eg3d_loss\n"
         "import gnerf_tpu_torch.training.augment, gnerf_tpu_torch.training.inception\n"
         "import gnerf_tpu_torch.training.metrics, gnerf_tpu_torch.training.pti\n"
-        "import gnerf_tpu_torch.training.eval\n"
+        "import gnerf_tpu_torch.training.eval, gnerf_tpu_torch.parallel\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -143,6 +143,13 @@ def _run_eval(tmp_path):
     return run_eval(str(tmp_path / "g.npz"))
 
 
+def _init_distributed(monkeypatch):
+    from gnerf_tpu_torch.parallel import init_distributed
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    return init_distributed()
+
+
 def _run_training(tmp_path):
     from gnerf_tpu_torch.training.train import run_training
 
@@ -151,7 +158,8 @@ def _run_training(tmp_path):
 
 ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
            "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training",
-           "DualDiscriminator", "InceptionV3Features", "run_pti_cli", "run_eval"]
+           "DualDiscriminator", "InceptionV3Features", "run_pti_cli", "run_eval",
+           "init_distributed"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -175,7 +183,8 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
              "run_training": lambda: _run_training(tmp_path),
              "DualDiscriminator": _dual_discriminator, "InceptionV3Features": _inception,
              "run_pti_cli": lambda: _run_pti_cli(tmp_path),
-             "run_eval": lambda: _run_eval(tmp_path)}
+             "run_eval": lambda: _run_eval(tmp_path),
+             "init_distributed": lambda: _init_distributed(monkeypatch)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     if entry == "GNerfService":
@@ -194,6 +203,15 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
         vol = extract_sigma_grid(g, torch.zeros((1, g.num_ws, g.w_dim)), voxel_resolution=4,
                                  device="cpu")
         assert vol.shape == (4, 4, 4)
+    elif entry == "init_distributed":
+        # Asked for the CPU, the group is gloo's; CUDA would be NCCL's.
+        from gnerf_tpu_torch.parallel import init_distributed
+
+        backends = []
+        monkeypatch.setattr(torch.distributed, "init_process_group", backends.append)
+        assert init_distributed("cpu") and backends == ["gloo"]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert init_distributed("cuda") and backends == ["gloo", "nccl"]
     elif entry == "run_training":
         from click.testing import CliRunner
 

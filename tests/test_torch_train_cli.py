@@ -60,10 +60,11 @@ def _check_dry_run_options(tmp_path, capsys, **extra):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(chain=2), ValueError, "--chain"),
-    (dict(ray_shards=2), ValueError, "item 14"),
+    (dict(ray_shards=2), ValueError, "--ray_shards 2 must divide device count 1"),
 ])
 def test_unported_options_raise(tmp_path, kw, exc, match):
-    """--ray_shards names the roadmap item that would port it."""
+    """--chain > 1 is not ported; --ray_shards that does not divide the
+    world (here one process) raises with the JAX CLI's message."""
     from gnerf_tpu_torch.training.train import run_training
 
     with pytest.raises(exc, match=match):

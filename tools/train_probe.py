@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The full-width train steps of `gnerf_tpu_torch`, measured on one CUDA card.
 
-    python3 tools/train_probe.py [--objective gnerf|eg3d|ada] [--steps 5] [--profile FILE]
+    python3 tools/train_probe.py [--objective gnerf|eg3d|ada|ddp] [--steps 5] [--profile FILE]
 
 Builds the networks of the `ffhq` preset as `chip_smoke.py`'s train (or
 eg3d) phase does (seed-init weights, batch 4, SyntheticDataset batches) and
@@ -27,6 +27,12 @@ prints, after the card's name and power limit:
     fp32 pairs): the median ms of its geometric parts alone (reflect pad,
     FIR upsample, warp, FIR downsample), of the whole pipe's forward and of
     its forward with the input backward;
+  - ddp (fp32): the G-NeRF step through the distributed path in a world-1
+    NCCL group and the plain step, on one state and batch, in turns (plain,
+    distributed, distributed, plain, ...): the median ms of each over
+    `--steps` pairs after two warm-up steps each, by CUDA events and by the
+    host's clock; then one profiled step of each and the ops whose device or
+    host time differs most between them;
   - with `--profile FILE`, a torch.profiler table of one step (no remat,
     fp32; for eg3d one Gmain + Dmain, Greg and Dreg; for ada one ADA Gmain
     + Dmain and Dreg), sorted by device time.
@@ -296,6 +302,94 @@ def _probe_ada(args) -> int:
     return 0
 
 
+def _op_times(prof) -> dict:
+    """{op: (self device ms, self host ms, calls)} of a profile."""
+    out = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        out[e.key] = (dev / 1e3, e.self_cpu_time_total / 1e3, e.count)
+    return out
+
+
+def _probe_ddp(args) -> int:
+    """The G-NeRF step in a world-1 NCCL group against the plain step (see
+    the module docstring)."""
+    import socket
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from gnerf_tpu_torch.parallel import make_mesh
+    from gnerf_tpu_torch.training import SyntheticDataset, data_iterator, make_train_step
+    from gnerf_tpu_torch.training.train import step_generator
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        data = SyntheticDataset(resolution=chip_smoke.SIDE, depth_resolution=64)
+        raw = next(data_iterator(data, batch_size=chip_smoke.TRAIN_BATCH, seed=0))
+        batch = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in raw.items()}
+        state, cfg = chip_smoke._full_width_trainer(0)
+        steps = {"plain": make_train_step(cfg), "distributed": make_train_step(
+            cfg, mesh=make_mesh(data=1, rays=1))}
+
+        def run(kind):
+            steps[kind](state, batch, step_generator(0, state.cur_nimg, "cuda"))
+
+        for kind in ("plain", "distributed", "plain", "distributed"):
+            run(kind)
+        torch.cuda.synchronize()
+        times = {k: ([], []) for k in steps}
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for i in range(args.steps):
+            for kind in (("plain", "distributed") if i % 2 == 0 else ("distributed", "plain")):
+                t0 = time.perf_counter()
+                ev[0].record()
+                run(kind)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[kind][0].append(ev[0].elapsed_time(ev[1]))
+                times[kind][1].append(1e3 * (time.perf_counter() - t0))
+        for kind, (dev_ms, host_ms) in times.items():
+            print(f"[ddp {kind}] step_ms (CUDA events) median={statistics.median(dev_ms):.3f} "
+                  f"min={min(dev_ms):.3f} max={max(dev_ms):.3f}; host clock median="
+                  f"{statistics.median(host_ms):.3f}", flush=True)
+        ops, profs = {}, {}
+        for kind in steps:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(kind)
+                torch.cuda.synchronize()
+            ops[kind], profs[kind] = _op_times(prof), prof
+        a, b = ops["plain"], ops["distributed"]
+        zero = (0.0, 0.0, 0)
+        for col, what in ((0, "device"), (1, "host")):
+            total = [sum(v[col] for v in o.values()) for o in (a, b)]
+            print(f"[ddp profile] self {what} ms summed over ops: plain {total[0]:.3f}, "
+                  f"distributed {total[1]:.3f}; the ops that differ most (distributed - plain, "
+                  f"ms; calls plain / distributed):", flush=True)
+            diff = sorted(set(a) | set(b),
+                          key=lambda k: -abs(b.get(k, zero)[col] - a.get(k, zero)[col]))
+            for k in diff[:12]:
+                print(f"[ddp profile]   {b.get(k, zero)[col] - a.get(k, zero)[col]:+10.3f}  "
+                      f"{a.get(k, zero)[2]:5d} / {b.get(k, zero)[2]:5d}  {k[:90]}", flush=True)
+        if args.profile:
+            for kind, prof in profs.items():
+                root, ext = os.path.splitext(args.profile)
+                _write_profile(prof, f"{root}_{kind}{ext}", f"one {kind} step (world 1)")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def _write_profile(prof, path, what):
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -306,8 +400,9 @@ def _write_profile(prof, path, what):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--objective", choices=("gnerf", "eg3d", "ada"), default="gnerf",
-                    help="ada: the EG3D step's augment pipe by part (and a profile)")
+    ap.add_argument("--objective", choices=("gnerf", "eg3d", "ada", "ddp"), default="gnerf",
+                    help="ada: the EG3D step's augment pipe by part (and a profile); ddp: "
+                         "the G-NeRF step in a world-1 NCCL group against the plain one")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile", metavar="FILE", default=None)
     args = ap.parse_args(argv)
@@ -329,6 +424,8 @@ def main(argv=None) -> int:
         return _probe_eg3d(args)
     if args.objective == "ada":
         return _probe_ada(args)
+    if args.objective == "ddp":
+        return _probe_ddp(args)
     batches = data_iterator(SyntheticDataset(resolution=512, depth_resolution=64),
                             batch_size=chip_smoke.TRAIN_BATCH, seed=0)
     dev = [{k: torch.from_numpy(np.asarray(v)).cuda() for k, v in next(batches).items()}
