@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build:   compiles every kernel of the paths from csrc/ with nvcc;
               prints ptxas's registers and spills per kernel instance.
   3. kernels: each kernel vs its plain PyTorch version on the card, at the
-              shapes of the main, server, shape and training paths (with
+              shapes of the main, server, shape and training paths and of a
+              rank's part under the inference mesh (with
               gradients at the G-NeRF and EG3D step's shapes, fp32 and
               bf16, and at Greg's) and at the edge cases, with its time,
               its bound and the plain version's time.
@@ -86,6 +87,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               planted faults on the same ranks (BatchNorm moments of the local
               rows, minibatch std of the local rows, gradients not averaged),
               each of which the same bounds must catch.
+ 15. infer_ddp: multi-device inference at the full width of phase main (bf16,
+              96+96, 8XDC to 512^2, 8 frames): (a) `generate_videos` in a
+              world-1 NCCL group (the mesh path at 1x1), its frames equal to
+              phase main's; (b) two gloo ranks spawned on the one card at
+              data=2 (with the 256^3 sigma sweep split over both) and at
+              rays=2, rank 0's frames within +-1 of phase main's (max gap
+              and share of differing values printed), the volume within
+              rtol 1e-4 / atol 1e-5 of phase shapes'; (c) `GNerfService`
+              with two replicas of G on the card (devices=[cuda:0, cuda:0]),
+              frames_per_chunk 4, its 30-frame orbit within +-1 of the
+              one-device orbit. osg_decode launches checked exactly on every
+              rank: data=2 2 per frame of the rank's 4 plus 16 sweep chunks of
+              2^19 points, rays=2 2 per frame at M/2, the server 2 per
+              replica's part. ms and peak memory per rank (two processes
+              sharing one card: correctness, not speed).
+ 16. sg3:     StyleGAN3-T at the published FFHQ-U 1024^2 configuration
+              (z = w = 512, c_dim 0, 2 mapping layers, channel_base 32768,
+              channel_max 512, 14 layers, 2 critical; seed-init weights):
+              forward at batch 4 in fp32 and bf16 (shape, finite, ms per
+              image, peak memory); a fp32 backward of out.square().mean() at
+              batch 1 (every parameter's gradient finite and nonzero); every
+              layer's magnitude EMA moved by `updated_magnitude_ema`; the
+              card's fp32 output at batch 1 within 1e-3 of the same weights
+              on the CPU; a profile of one forward with filtered_lrelu's
+              share of device time. It runs no hand-written kernel.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -97,6 +123,7 @@ import argparse
 import base64
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -256,6 +283,10 @@ def phase_kernels():
         ("server_mb4_bf16", 4, MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("orbit_chunk_bf16", 1, ORBIT_FRAMES * MAIN_M, 32, 32, 1.0, bf16, 1.0, True),
         ("shape_chunk_f32", 1, SHAPE_CHUNK, 32, 32, 1.0, f32, 1.0, True),
+        # a rank's part under the inference mesh: half a frame's points at
+        # rays=2; half a sweep chunk over 2 ranks
+        ("ray_shard_bf16", 1, MAIN_M // 2, 32, 32, 1.0, bf16, 1.0, True),
+        ("sweep_shard_f32", 1, SHAPE_CHUNK // 2, 32, 32, 1.0, f32, 1.0, True),
         # one pass of the train step: 4 identities x 64^2 rays x 48 samples;
         # the same in bf16 (the EG3D step under --dtype bf16); the EG3D
         # density regularizer's points (Greg)
@@ -488,7 +519,7 @@ def phase_main(frames: int):
     if launches != 2 * frames:
         raise SystemExit(f"chip_smoke: osg_decode launched {launches} times, "
                          f"want {2 * frames}")
-    return launches
+    return launches, f
 
 
 def phase_timing(frames: int, profile: Optional[str]):
@@ -831,7 +862,7 @@ def phase_shapes():
         f"max |again - first|={float(np.abs(again - vol).max()):.3e}")
     if sweep_launches != chunks or not np.allclose(again, vol, rtol=1e-4, atol=1e-5):
         raise SystemExit("chip_smoke: the sweep is not repeatable or launched wrongly")
-    return launches
+    return launches, vol
 
 
 def _state_tensors(state) -> dict:
@@ -1888,6 +1919,319 @@ def phase_ddp(timed: int = DDP_TIMED_STEPS):
     return total
 
 
+INFER_DDP_RUNS = (("data=2", 1, True), ("rays=2", 2, False))  # name, ray_shards, gen_shapes
+
+
+def _infer_rank(rank: int, world: int, port: int, tmp: str, frames: int) -> None:
+    """One of the gloo ranks sharing cuda:0: `generate_videos` over the
+    (data=2) mesh with the 256^3 sweep split over both ranks, then over the
+    (rays=2) mesh; writes each run's wall ms, launches and peak memory (and
+    rank 0's frames and volume) to tmp/rank{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from gnerf_tpu_torch.infer import shape_utils
+    from gnerf_tpu_torch.infer.gen_videos import generate_videos
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.utils.device import resolve_device
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    resolve_device("cuda")  # TF32 off, as in the parent
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    out = {}
+    for name, rays, shapes in INFER_DDP_RUNS:
+        run_dir = os.path.join(tmp, f"{name}-rank{rank}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        osg_decode.launches = 0
+        t0 = time.perf_counter()
+        res = generate_videos(None, seed_init=0, frames=frames, res=64, ray_shards=rays,
+                              gen_shapes=shapes, shape_res=SHAPE_RES, video_out_path=run_dir,
+                              outdir=run_dir, device="cuda")
+        torch.cuda.synchronize()
+        row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": osg_decode.launches,
+               "peak": torch.cuda.max_memory_allocated()}
+        if res is not None:
+            row.update(frames=res["frames"], finite=res["finite"])
+            if shapes:
+                row["volume"] = shape_utils.read_mrc(res["mrc"])
+        out[name] = row
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    # Skip the interpreter's teardown: gloo's threads abort it (std::terminate)
+    # while the other rank still holds connections to this one.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _frame_gap(got, want) -> tuple[int, float]:
+    """(max |got - want| in uint8 levels, share of differing values)."""
+    import numpy as np
+
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def phase_infer_ddp(frames: int, main_frames, volume):
+    """Multi-device inference at full width on the one card (see the module
+    docstring): (a) `generate_videos` in a world-1 NCCL group, equal to
+    phase main's frames; (b) two gloo ranks sharing the card at data=2 (with
+    the 256^3 sweep over both) and at rays=2, rank 0's frames within +-1 of
+    phase main's and the volume within rtol 1e-4 / atol 1e-5 of phase
+    shapes'; (c) `GNerfService` with two replicas on the card, its 30-frame
+    orbit within +-1 of the one-device orbit. osg_decode launches are
+    checked exactly on every rank. Returns them, all ranks summed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gnerf_tpu_torch.infer import gen_videos as gv
+    from gnerf_tpu_torch.infer.server import GNerfService
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+
+    ok = True
+    # (a) the mesh path in a world-1 NCCL group, in this process.
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            osg_decode.launches = 0
+            t0 = time.perf_counter()
+            res = gv.generate_videos(None, seed_init=0, frames=frames, res=64,
+                                     video_out_path=tmp, device="cuda")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches_a = osg_decode.launches
+    finally:
+        dist.destroy_process_group()
+    equal = bool(np.array_equal(res["frames"], main_frames))
+    good = equal and res["finite"] and launches_a == 2 * frames
+    ok &= good
+    log(f"[infer_ddp] (a) generate_videos in a world-1 NCCL group (mesh 1x1): {frames} frames "
+        f"equal to phase main's={equal}; wall_ms={wall:.3f} (set-up included); osg_decode "
+        f"launches={launches_a} (want {2 * frames})" + ("" if good else " FAILED"))
+
+    # (b) two gloo ranks sharing the one card (NCCL refuses two ranks on one device).
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_infer_rank, args=(2, _free_port(), tmp, frames), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    total = launches_a
+    chunks = -(-SHAPE_RES ** 3 // SHAPE_CHUNK)
+    per_rank = math.ceil(min(8, frames) / 2)
+    want_launches = {"data=2": 2 * per_rank * math.ceil(frames / (2 * per_rank)) + chunks,
+                     "rays=2": 2 * frames}
+    for name, _, shapes in INFER_DDP_RUNS:
+        row0 = ranks[0][name]
+        gap, share = _frame_gap(row0["frames"], main_frames)
+        launches = [r[name]["launches"] for r in ranks]
+        total += sum(launches)
+        good = (row0["frames"].shape == main_frames.shape and gap <= 1 and row0["finite"]
+                and launches == [want_launches[name]] * 2)
+        msg = (f"[infer_ddp] (b) generate_videos, {name}, two gloo ranks sharing one card: "
+               f"rank 0's {row0['frames'].shape[0]} frames vs phase main's: max_abs_gap={gap} "
+               f"(bound 1), differing share={share:.3e}")
+        if shapes:
+            vol = row0["volume"]
+            err = float(np.abs(vol - volume).max())
+            close = vol.shape == volume.shape and np.allclose(vol, volume, rtol=1e-4, atol=1e-5)
+            good &= close
+            msg += (f"; the {SHAPE_RES}^3 sweep over both ranks vs phase shapes' volume: "
+                    f"max_abs_err={err:.3e} (rtol 1e-4, atol 1e-5)")
+        ok &= good
+        log(msg + f"; wall_ms per rank (the call, set-up included; two processes sharing one "
+            f"card) {[round(r[name]['ms'], 3) for r in ranks]}; max_memory_allocated per rank "
+            f"{[r[name]['peak'] for r in ranks]} bytes; osg_decode launches per rank {launches} "
+            f"(want {want_launches[name]})" + ("" if good else " FAILED"))
+    log(f"[infer_ddp] (b) spawn to join {spawn_s:.1f} s")
+
+    # (c) the server with two replicas of G on the one card.
+    g, enc = gv.load_networks(None, seed_init=0, device="cuda")
+    orbits, times = {}, {}
+    for n in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        service = GNerfService(g, enc, microbatch=0, devices=["cuda:0"] * n)
+        try:
+            ident = service.encode_seed(0)
+            service.render_orbit(ident, frames=30)  # warm-up at the same chunk shapes
+            torch.cuda.synchronize()
+            osg_decode.launches = 0
+            t0 = time.perf_counter()
+            orbits[n] = np.stack(service.render_orbit(ident, frames=30))
+            times[n] = ((time.perf_counter() - t0) * 1e3, osg_decode.launches,
+                        torch.cuda.max_memory_allocated(), service.frames_per_chunk)
+        finally:
+            service.close()
+    fpc = times[2][3]
+    want_c = 2 * sum(min(2, len(range(s, min(s + fpc, 30)))) for s in range(0, 30, fpc))
+    gap, share = _frame_gap(orbits[2], orbits[1])
+    total += times[2][1]
+    good = fpc == 4 and gap <= 1 and orbits[2].shape == (30, SIDE, SIDE, 3) and \
+        times[2][1] == want_c
+    ok &= good
+    log(f"[infer_ddp] (c) GNerfService(devices=[cuda:0, cuda:0]): frames_per_chunk={fpc} "
+        f"(want 4); 30-frame render_orbit vs the one-device orbit: max_abs_gap={gap} (bound 1), "
+        f"differing share={share:.3e}; ms {times[2][0]:.3f} (one device, chunks of "
+        f"{times[1][3]}: {times[1][0]:.3f}); max_memory_allocated {times[2][2]} bytes (one "
+        f"device: {times[1][2]}); osg_decode launches={times[2][1]} (want {want_c}: 2 per "
+        f"replica's part)" + ("" if good else " FAILED"))
+    if not ok:
+        raise SystemExit("chip_smoke: multi-device inference does not hold to one device")
+    return total
+
+
+SG3_CFG = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=1024, img_channels=3,
+               mapping_layers=2, channel_base=32768, channel_max=512, num_layers=14)
+SG3_CPU_BOUND = 1e-3  # max |card - CPU| of the fp32 output (about +-1 at output_scale 0.25)
+
+
+def phase_sg3(batch: int = 4):
+    """StyleGAN3-T at the published FFHQ-U 1024^2 configuration (seed-init
+    weights): forward at `batch` in fp32 and bf16 (shape, finite, ms per
+    image, peak memory); a fp32 backward of out.square().mean() at batch 1
+    (every parameter's gradient finite and nonzero); the magnitude EMAs
+    moved by `updated_magnitude_ema` in a forward; the card's fp32 output at
+    batch 1 against the same weights on the CPU; a profile of one forward,
+    with filtered_lrelu's share of device time."""
+    import copy
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gnerf_tpu_torch.models import stylegan3
+
+    g = stylegan3.Generator(**SG3_CFG, device="cuda",
+                            generator=torch.Generator().manual_seed(0)).requires_grad_(False)
+    z = torch.randn((batch, SG3_CFG["z_dim"]), generator=torch.Generator().manual_seed(1))
+    z = z.cuda()
+    n_params = sum(p.numel() for p in g.parameters())
+    ok = True
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = g(z, None, dtype=dtype)
+            ms = cuda_ms(lambda: g(z, None, dtype=dtype), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        side = SG3_CFG["img_resolution"]
+        good = tuple(out.shape) == (batch, 3, side, side) and bool(torch.isfinite(out).all())
+        ok &= good
+        outs[dtype] = out
+        log(f"[sg3] StyleGAN3-T {side}^2 ({n_params} parameters) forward, batch {batch}, {dtype}: "
+            f"{tuple(out.shape)} finite={good} std={out.std().item():.4f}; ms={ms:.3f} "
+            f"({ms / batch:.3f} ms per image); max_memory_allocated={peak} bytes")
+    gap = (outs[torch.bfloat16] - outs[torch.float32]).abs().max().item()
+    log(f"[sg3] max |bf16 - fp32| of the output: {gap:.3e}")
+    del outs, out
+
+    # The fp32 backward at batch 1: every parameter's gradient.
+    g.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        g.zero_grad(set_to_none=True)
+        g(z[:1], None).square().mean().backward()
+
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    missing, bad, zero = [], [], []
+    for name, p in g.named_parameters():
+        if p.grad is None:
+            missing.append(name)
+        elif not bool(torch.isfinite(p.grad).all()):
+            bad.append(name)
+        elif not bool((p.grad != 0).any()):
+            zero.append(name)
+    ms = cuda_ms(step, iters=2, warmup=0)
+    good = not (missing or bad or zero)
+    ok &= good
+    log(f"[sg3] fp32 forward + backward of out.square().mean(), batch 1: ms={ms:.3f}; "
+        f"max_memory_allocated={peak} bytes; gradients of {len(list(g.parameters()))} "
+        f"parameters: none missing={not missing} all finite={not bad} all nonzero={not zero}"
+        + ("" if good else f" FAILED (missing {missing[:4]}, non-finite {bad[:4]}, "
+                          f"zero {zero[:4]})"))
+    g.requires_grad_(False)
+    g.zero_grad(set_to_none=True)
+
+    # The magnitude EMAs, updated from each layer's input as the reference
+    # does before the layer reads its input gain.
+    layers = [getattr(g.synthesis, n) for n in g.synthesis.layer_names]
+
+    def update_ema(layer, args):
+        layer.magnitude_ema.copy_(layer.updated_magnitude_ema(args[0]))
+
+    hooks = [layer.register_forward_pre_hook(update_ema) for layer in layers]
+    try:
+        with torch.no_grad():
+            moved = g(z, None)
+    finally:
+        for h in hooks:
+            h.remove()
+    emas = [float(layer.magnitude_ema) for layer in layers]
+    good = all(math.isfinite(e) and e != 1.0 for e in emas) and bool(torch.isfinite(moved).all())
+    ok &= good
+    log(f"[sg3] updated_magnitude_ema in one forward: every layer's EMA moved from 1 "
+        f"={good} (range {min(emas):.6f} .. {max(emas):.6f})")
+
+    # The card against the CPU, fp32, batch 1, the same weights.
+    g_cpu = copy.deepcopy(g).cpu()
+    with torch.no_grad():
+        want_card = g(z[:1], None).cpu()
+        t0 = time.perf_counter()
+        want_cpu = g_cpu(z[:1].cpu(), None)
+        cpu_s = time.perf_counter() - t0
+    err = (want_card - want_cpu).abs().max().item()
+    good = err <= SG3_CPU_BOUND
+    ok &= good
+    del g_cpu
+    log(f"[sg3] fp32 batch 1, card vs CPU at {side}^2: max_abs_err={err:.3e} (bound "
+        f"{SG3_CPU_BOUND:g}, output std {want_cpu.std().item():.4f}); the CPU forward took "
+        f"{cpu_s:.1f} s" + ("" if good else " FAILED"))
+
+    # filtered_lrelu's share of one forward's device time.
+    real = stylegan3.filtered_lrelu
+
+    def traced(*args, **kwargs):
+        with record_function("filtered_lrelu"):
+            return real(*args, **kwargs)
+
+    with mock.patch.object(stylegan3, "filtered_lrelu", traced), torch.no_grad():
+        g(z, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("sg3_forward"):
+                g(z, None)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    by_key = {e.key: device_us(e) for e in events}
+    total, flr = by_key.get("sg3_forward", 0), by_key.get("filtered_lrelu", 0)
+    kernels = sorted(((getattr(e, "self_device_time_total", 0) or
+                       getattr(e, "self_cuda_time_total", 0), e.key) for e in events
+                      if e.key not in ("sg3_forward", "filtered_lrelu")), reverse=True)[:8]
+    log(f"[sg3] profile of one fp32 forward, batch {batch}: device time "
+        + (f"{total / 1e3:.3f} ms, filtered_lrelu {flr / 1e3:.3f} ms = {flr / total:.3f} of it"
+           if total else "not measured (no device time in the trace)")
+        + "; top ops by self device ms: "
+        + ", ".join(f"{k[:60]} {us / 1e3:.3f}" for us, k in kernels))
+    if not ok:
+        raise SystemExit("chip_smoke: the StyleGAN3 phase failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
@@ -1904,21 +2248,24 @@ def main(argv=None) -> int:
     phase_build()
     kern = phase_kernels()
     phase_small()
-    launches = {"main": phase_main(args.frames)}
+    launches = {}
+    launches["main"], main_frames = phase_main(args.frames)
     phase_timing(args.frames, args.profile)
     launches["server"] = phase_server()
-    launches["shapes"] = phase_shapes()
+    launches["shapes"], volume = phase_shapes()
     launches["train"] = phase_train()
     launches["eg3d"] = phase_eg3d()
     launches["eg3d_ada"] = phase_eg3d_ada()
     launches["pti"] = phase_pti()
     launches["eval"] = phase_eval()
     launches["ddp"] = phase_ddp()
+    launches["infer_ddp"] = phase_infer_ddp(args.frames, main_frames, volume)
+    phase_sg3()
 
     log(card_line())  # again beside the results: the run's output is long
     main_row = kern["main_bf16"]
     timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32",
-             "train_bf16", "greg_f32")
+             "train_bf16", "greg_f32", "ray_shard_bf16", "sweep_shard_f32")
     print(json.dumps({"kernels": [{
         "name": "osg_decode", "route": "cuda",
         "source": "gnerf_tpu_torch/csrc/osg_decode.cu",

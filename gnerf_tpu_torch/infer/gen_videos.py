@@ -1,16 +1,28 @@
 """Single-image -> pose-swept novel-view video (the flagship workload).
 
-Port of `gnerf_tpu/infer/gen_videos.py` for one CUDA device: encode the
-identity photo(s) with E, map to ws and build the tri-planes ONCE, then
-render the camera orbit frame by frame (8 frames per host round trip, uint8
-conversion on the device) and write `<name>.mp4` + `<name>_raw.mp4` (or the
-fallback formats of `video_io`). Sampling density is doubled at load, as in
-the reference. Photos are decoded and resized to 512^2 by the native loader
+Port of `gnerf_tpu/infer/gen_videos.py`: encode the identity photo(s) with
+E, map to ws and build the tri-planes ONCE, then render the camera orbit
+frame by frame (8 frames per host round trip, uint8 conversion on the
+device) and write `<name>.mp4` + `<name>_raw.mp4` (or the fallback formats
+of `video_io`). Sampling density is doubled at load, as in the reference.
+Photos are decoded and resized to 512^2 by the native loader
 (`utils/native_loader.py`, PIL bilinear without the library), or
 FFHQ-aligned first when `--align_lm` names a folder of landmark files;
 `--gen_shapes true` also writes the sigma volume `<outdir>/<name>/<frames-1>.mrc`.
 
     python -m gnerf_tpu_torch.infer.gen_videos --seed-init 0 --frames 8
+
+Several cards: one process per card under torchrun, as the training CLI
+(the JAX package takes every attached device in one process instead):
+
+    torchrun --nproc_per_node=K -m gnerf_tpu_torch.infer.gen_videos --seed-init 0 --ray_shards R
+
+The ranks form a (data = K / R, rays = R) mesh. Each chunk of
+ceil(min(8, frames) / data) * data frames (the tail padded with the last
+label, and the padding dropped) is split over the data axis, and each
+frame's rays over the rays axis (`render_rays`' `ray_sharding`); the uint8
+frames are gathered to rank 0, which alone writes the videos and returns
+the result. The sigma sweep splits each chunk's points over every rank.
 """
 
 from __future__ import annotations
@@ -168,12 +180,14 @@ def prepare_identity(g, enc, id_images: np.ndarray, truncation_psi: float = 1.0,
 
 
 @torch.inference_mode()
-def render_frame(g, planes, ws, c, res: int, dtype: torch.dtype = torch.bfloat16):
+def render_frame(g, planes, ws, c, res: int, dtype: torch.dtype = torch.bfloat16,
+                 rendering_kwargs=None):
     """One camera label [1, 25] -> (image, image_raw) as uint8 NCHW on the
-    device, and whether both float images were finite (a device bool)."""
+    device, and whether both float images were finite (a device bool).
+    `rendering_kwargs` overrides G's per call (the mesh's `ray_sharding`)."""
     c = c.to(planes.device).expand(planes.shape[0], -1)
     out = g.render_planes(planes, c, ws, neural_rendering_resolution=res,
-                          noise_mode="const", dtype=dtype)
+                          noise_mode="const", dtype=dtype, rendering_kwargs=rendering_kwargs)
     finite = torch.isfinite(out["image"]).all() & torch.isfinite(out["image_raw"]).all()
     return u8(out["image"]), u8(out["image_raw"]), finite
 
@@ -198,18 +212,28 @@ def generate_videos(
     device=None,
 ) -> dict:
     """Render the orbit video(s). Runs on CUDA unless `device` names another
-    device. Returns {'video', 'video_raw': output paths, 'frames',
+    device; under torchrun (or an initialised process group) over the
+    (data, rays) mesh of its ranks, `ray_shards` of which split each frame's
+    rays. Returns, on rank 0, {'video', 'video_raw': output paths, 'frames',
     'frames_raw': uint8 [F, H, W * n_ids, 3], 'finite': bool} and, with
-    `gen_shapes`, 'mrc': the sigma volume's path."""
+    `gen_shapes`, 'mrc': the sigma volume's path; None on the other ranks."""
+    from ..parallel import all_gather, all_reduce, init_distributed, make_mesh, process_info
     from .video_io import VideoWriter
 
     device = resolve_device(device)
+    init_distributed(device)
+    rank, world = process_info()
+    ray_shards = max(1, int(ray_shards))
+    if world == 1 and ray_shards > 1:
+        print(f"--ray_shards {ray_shards} ignored: single device attached")
+        ray_shards = 1
+    if world % ray_shards:  # refused, not clamped, as the JAX CLI and train.py do
+        raise ValueError(f"--ray_shards {ray_shards} must divide device count {world}")
+    mesh = make_mesh(data=world // ray_shards, rays=ray_shards)  # None without a group
     id_images = _load_images(id_image, prepared, align_lm=align_lm)
     g, enc = load_networks(network, seed_init, device)
     if enc is None:
         raise ValueError(f"{network} holds no encoder E")
-    if ray_shards > 1:
-        print(f"--ray_shards {ray_shards} ignored: single device attached")
     dtype = torch.float32 if fp32 else torch.bfloat16
     ws, planes = prepare_identity(g, enc, id_images, truncation_psi, dtype)
 
@@ -224,44 +248,67 @@ def generate_videos(
                             for i in range(frames)], dim=0)
 
     name = os.path.basename(prepared or id_image or "seedinit").split(".")[0]
-    os.makedirs(video_out_path, exist_ok=True)
-    writer = VideoWriter(os.path.join(video_out_path, name + ".mp4"), fps=30)
-    writer_raw = VideoWriter(os.path.join(video_out_path, name + "_raw.mp4"), fps=30)
+    if rank == 0:
+        os.makedirs(video_out_path, exist_ok=True)
+        writer = VideoWriter(os.path.join(video_out_path, name + ".mp4"), fps=30)
+        writer_raw = VideoWriter(os.path.join(video_out_path, name + "_raw.mp4"), fps=30)
+    data = mesh.data if mesh is not None else 1
+    chunk = math.ceil(min(CHUNK, frames) / data) * data
+    per_rank = chunk // data
+    rk = {"ray_sharding": mesh} if mesh is not None and mesh.rays > 1 else None
     finite = torch.ones((), dtype=torch.bool, device=device)
     all_imgs, all_raws = [], []
-    for start in range(0, frames, CHUNK):
+    for start in range(0, frames, chunk):
+        n_valid = min(chunk, frames - start)
+        # Under a mesh the chunk is padded with the last label; this data
+        # rank renders its contiguous part of it.
+        ids = [min(i, frames - 1) for i in range(start, start + (chunk if mesh else n_valid))]
+        if mesh is not None:
+            ids = ids[mesh.data_rank * per_rank:(mesh.data_rank + 1) * per_rank]
         imgs, raws = [], []
-        for i in range(start, min(start + CHUNK, frames)):
-            img, raw, ok = render_frame(g, planes, ws, labels[i: i + 1], res, dtype)
+        for i in ids:
+            img, raw, ok = render_frame(g, planes, ws, labels[i: i + 1], res, dtype, rk)
             imgs.append(img)
             raws.append(raw)
             finite &= ok
+        imgs, raws = torch.stack(imgs), torch.stack(raws)
+        if mesh is not None:  # every data rank's frames, in chunk order; padding dropped
+            imgs = all_gather(imgs, mesh.data_group)[:n_valid]
+            raws = all_gather(raws, mesh.data_group)[:n_valid]
+        if rank != 0:
+            continue
         # One device -> host copy per chunk; identities side by side.
-        imgs = torch.stack(imgs).permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
-        raws = torch.stack(raws).permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+        imgs = imgs.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+        raws = raws.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
         for img, raw in zip(imgs, raws):
             writer.append_data(img)
             writer_raw.append_data(raw)
         all_imgs.append(imgs)
         all_raws.append(raws)
-    writer.close()
-    writer_raw.close()
-    print(f"wrote {writer.output_path} ({frames} frames)")
-    result = {"video": writer.output_path, "video_raw": writer_raw.output_path,
-              "frames": np.concatenate(all_imgs), "frames_raw": np.concatenate(all_raws),
-              "finite": bool(finite.item())}
+    if mesh is not None:
+        finite = all_reduce((~finite).float(), mesh.group) == 0
+    result = None
+    if rank == 0:
+        writer.close()
+        writer_raw.close()
+        print(f"wrote {writer.output_path} ({frames} frames)")
+        result = {"video": writer.output_path, "video_raw": writer_raw.output_path,
+                  "frames": np.concatenate(all_imgs), "frames_raw": np.concatenate(all_raws),
+                  "finite": bool(finite.item())}
 
     if gen_shapes:  # the first identity's sigma volume, fp32 planes
         from .shape_utils import extract_sigma_grid, write_mrc
 
         t0 = time.perf_counter()
         sigmas = extract_sigma_grid(g, ws[:1], voxel_resolution=shape_res,
-                                    cube_length=g.rendering_kwargs["box_warp"], device=device)
+                                    cube_length=g.rendering_kwargs["box_warp"], mesh=mesh,
+                                    device=device)
         secs = time.perf_counter() - t0
-        os.makedirs(os.path.join(outdir, name), exist_ok=True)
-        result["mrc"] = os.path.join(outdir, name, f"{frames - 1}.mrc")
-        write_mrc(result["mrc"], sigmas)
-        print(f"wrote {result['mrc']} ({shape_res}^3 sigma volume, swept in {secs:.3f} s)")
+        if rank == 0:
+            os.makedirs(os.path.join(outdir, name), exist_ok=True)
+            result["mrc"] = os.path.join(outdir, name, f"{frames - 1}.mrc")
+            write_mrc(result["mrc"], sigmas)
+            print(f"wrote {result['mrc']} ({shape_res}^3 sigma volume, swept in {secs:.3f} s)")
     return result
 
 
@@ -282,7 +329,9 @@ def generate_videos(
               help="Full fp32 compute (default: bf16 backbone/SR)")
 @click.option("--label_path", default=None,
               help="JSON of 25-dim camera labels to render instead of the orbit")
-@click.option("--ray_shards", type=int, default=1, help="Ignored: one device")
+@click.option("--ray_shards", type=int, default=1,
+              help="Shard each frame's rays over this many ranks (torchrun; must divide "
+                   "their number): the 2-D frames x rays inference mesh")
 @click.option("--align_lm", default="",
               help="Folder of per-image 68-pt landmark files (<stem>.json/.npy/.txt); "
                    "photos with landmarks are FFHQ-aligned before encoding")

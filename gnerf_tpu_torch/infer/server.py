@@ -1,9 +1,9 @@
 """Serving runtime: a resident model + identity cache behind HTTP.
 
-Port of `gnerf_tpu/infer/server.py` for one CUDA device. A checkpoint is
-loaded once; each identity's prepared state (ws + tri-planes, the expensive
-reusable part) stays on the device in an LRU cache, and frames are served
-over a minimal stdlib HTTP API:
+Port of `gnerf_tpu/infer/server.py`: one process that owns one or more
+cards. A checkpoint is loaded once; each identity's prepared state (ws +
+tri-planes, the expensive reusable part) stays on the device in an LRU
+cache, and frames are served over a minimal stdlib HTTP API:
 
     POST /encode   {"image": <base64 png/jpg>[, "landmarks": 68x[x,y],
                     "align_size": 512]} | {"seed": int}
@@ -30,6 +30,14 @@ layer answers 503. An orbit renders 15 frames per chunk with the identity's
 planes shared by the chunk's cameras (one tri-plane lookup and one decoder
 launch per pass for all 15).
 
+Several cards (`devices`, by default every visible card): G has one replica
+per device, an identity's (ws, planes) is copied to each when it is
+prepared, and an orbit chunk of 2 frames per device (the JAX server's
+frame-sharded chunk) is split evenly over the replicas, each part launched
+from the device worker, then all copied to the host. Encodes, single
+frames and micro-batches stay on the first device, as the JAX server's
+unsharded programs do.
+
 `encode_seed` draws z from `torch.Generator().manual_seed(seed)`, so a seed
 names the same identity within the port (not the JAX package's identity).
 
@@ -39,6 +47,7 @@ names the same identity within the port (not the JAX package's identity).
 from __future__ import annotations
 
 import base64
+import copy
 import io
 import json
 import math
@@ -170,19 +179,31 @@ class GNerfService:
     """Device-resident renderer with an LRU identity cache.
 
     G (and E, when given) must already live on `device`: CUDA unless the
-    caller passes another device. `batch_sizes` counts the micro-batches
-    served, by size."""
+    caller passes another device. `devices` lists the devices of G's
+    replicas, the first G's own; by default every visible card (G's device
+    alone off CUDA). A device may repeat: each entry gets a replica.
+    `batch_sizes` counts the micro-batches served, by size."""
 
     def __init__(self, g, enc=None, max_identities: int = 16, dtype=torch.bfloat16,
                  microbatch: int = 4, microbatch_window_ms: float = 4.0,
-                 max_queue: int = 64, device=None):
-        self.device = module_device(g, device)
+                 max_queue: int = 64, device=None, devices=None):
+        self.device = module_device(g, device if devices is None else devices[0])
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        devices = [torch.device(d) for d in devices]
+        if devices[0] != self.device:
+            raise ValueError(f"devices[0] is {devices[0]}, but G lives on {self.device}")
+        self.devices = devices
+        self.replicas = [g] + [copy.deepcopy(g).to(d).requires_grad_(False).eval()
+                               for d in devices[1:]]
         self.g = g
         self.enc = enc
         self.dtype = dtype
-        self.frames_per_chunk = 15
+        self.frames_per_chunk = 15 if len(devices) == 1 else 2 * len(devices)
         self.batch_sizes: Counter = Counter()
         self._identities: OrderedDict[str, tuple] = OrderedDict()
+        self._copies: dict[str, list] = {}  # the replicas' (ws, planes), devices[1:]
         self._max = max_identities
         self._lock = threading.Lock()
         self._counter = 0
@@ -194,10 +215,10 @@ class GNerfService:
             if microbatch and microbatch > 1 else None
         )
 
-    def _render(self, planes, ws, c) -> torch.Tensor:
+    def _render(self, g, planes, ws, c) -> torch.Tensor:
         """Planes [1 or N, ...], ws [N, ...], labels [N, 25] -> uint8 [N, H, W, 3]
-        on the device."""
-        out = self.g.render_planes(planes, c, ws, noise_mode="const", dtype=self.dtype)
+        on the device of G's replica `g`."""
+        out = g.render_planes(planes, c, ws, noise_mode="const", dtype=self.dtype)
         return _to_u8(out["image"])
 
     @torch.inference_mode()
@@ -205,7 +226,7 @@ class GNerfService:
         """items: list of (ws [1, ...], planes [1, ...], label [1, 25]) ->
         list of [H, W, 3] uint8 frames, from one render of batch len(items)."""
         ws, planes, cs = (torch.cat(parts, dim=0) for parts in zip(*items))
-        imgs = self._render(planes, ws, cs).cpu().numpy()
+        imgs = self._render(self.g, planes, ws, cs).cpu().numpy()
         with self._lock:
             self.batch_sizes[len(items)] += 1
         return list(imgs)
@@ -246,14 +267,18 @@ class GNerfService:
                                   camera.FFHQ_INTRINSICS).to(self.device)
         ws = self.g.mapping(z, c0)
         planes = self.g.backbone_planes(ws, noise_mode="const", dtype=self.dtype)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        copies = [(ws.to(d), planes.to(d)) for d in self.devices[1:]]  # one per replica
+        for d in set(self.devices):
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
         with self._lock:
             self._counter += 1
             ident = f"id{self._counter:06d}"
             self._identities[ident] = (ws, planes)
+            self._copies[ident] = copies
             while len(self._identities) > self._max:
-                self._identities.popitem(last=False)  # LRU eviction
+                evicted, _ = self._identities.popitem(last=False)  # LRU eviction
+                del self._copies[evicted]
         return ident
 
     def _get(self, identity: str):
@@ -280,12 +305,15 @@ class GNerfService:
     def render_orbit(self, identity: str, frames: int = 30,
                      radius: float = 2.7) -> list[np.ndarray]:
         """The orbit in chunks of `frames_per_chunk` frames; each chunk shares
-        the identity's planes across its cameras."""
-        return self._on_device_worker(self._render_orbit, self._get(identity), frames, radius)
+        the identity's planes across its cameras and is split evenly over
+        the replicas."""
+        first = self._get(identity)
+        with self._lock:
+            states = [first] + self._copies[identity]
+        return self._on_device_worker(self._render_orbit, states, frames, radius)
 
     @torch.inference_mode()
-    def _render_orbit(self, identity_state, frames: int, radius: float) -> list[np.ndarray]:
-        ws, planes = identity_state
+    def _render_orbit(self, states, frames: int, radius: float) -> list[np.ndarray]:
         labels = torch.cat([
             camera.pose_to_label(
                 camera.lookat_sample(
@@ -293,12 +321,17 @@ class GNerfService:
                     math.pi / 2 - 0.05 + 0.3 * math.cos(2 * math.pi * i / frames),
                     radius=radius),
                 camera.FFHQ_INTRINSICS)
-            for i in range(frames)]).to(self.device)
+            for i in range(frames)])
         out: list[np.ndarray] = []
         for start in range(0, frames, self.frames_per_chunk):
             cs = labels[start:start + self.frames_per_chunk]
-            imgs = self._render(planes, ws.expand(cs.shape[0], -1, -1), cs)
-            out.extend(imgs.cpu().numpy())
+            # Launch every replica's part before the first copy to the host.
+            parts = [self._render(g, planes, ws.expand(c.shape[0], -1, -1), c.to(d))
+                     for c, d, g, (ws, planes) in zip(cs.tensor_split(len(self.replicas)),
+                                                      self.devices, self.replicas, states)
+                     if c.shape[0]]
+            for imgs in parts:
+                out.extend(imgs.cpu().numpy())
         return out
 
     @property

@@ -7,9 +7,11 @@ run isosurface extraction, write a `.ply` mesh.
 The sweep builds one identity's planes once (fp32, as the JAX sweep does)
 and makes each chunk's voxel centres on the device from their indices, so
 no host coordinate array exists; the ragged last chunk runs at its own
-size. The MRC (MRC2014, mode 2) reader/writer, the PLY writer and marching
-tetrahedra (6-tet cube split, no case tables) are numpy copies of the JAX
-package's.
+size. Under a `parallel.Mesh` each rank decodes its contiguous part of
+every chunk (the JAX package's P(None, 'data', None) over every device),
+and the parts are gathered. The MRC (MRC2014, mode 2) reader/writer, the
+PLY writer and marching tetrahedra (6-tet cube split, no case tables) are
+numpy copies of the JAX package's.
 
     python -m gnerf_tpu_torch.infer.shape_utils out/seedinit/119.mrc --level 10
 """
@@ -20,6 +22,7 @@ import struct
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import module_device
 
@@ -55,23 +58,42 @@ def extract_sigma_grid(g, ws: torch.Tensor, voxel_resolution: int = 512,
     """[res, res, res] float32 sigma volume for one identity (ws [1, ...]).
 
     Runs on CUDA unless `device` names another device; G must live there.
-    Post-processing as the reference: axis-0 flip + border zeroing. `mesh`
-    (the JAX package's sharding argument) must be None: one device."""
-    if mesh is not None:
-        raise ValueError("mesh sharding is not supported: the sweep runs on one device")
+    Post-processing as the reference: axis-0 flip + border zeroing. With a
+    `parallel.Mesh`, every rank of it sweeps its part of each chunk
+    (`max_batch` rounded up to a multiple of the ranks; the ragged last
+    chunk's parts padded with zeros, the padding dropped) and every rank
+    returns the whole volume."""
     from ..render.renderer import run_model
 
     device = module_device(g, device)
+    ranks, me = 1, 0
+    if mesh is not None:
+        from ..parallel import Mesh, all_gather
+
+        if not isinstance(mesh, Mesh):  # e.g. a jax.sharding.Mesh
+            raise ValueError(f"mesh must be a gnerf_tpu_torch.parallel.Mesh, "
+                             f"got {type(mesh).__name__}")
+        ranks, me = dist.get_world_size(mesh.group), dist.get_rank(mesh.group)
+        max_batch = -(-max_batch // ranks) * ranks
     planes = g.backbone_planes(ws.to(device), noise_mode="const")
     opts = dict(g.rendering_kwargs)
     total = voxel_resolution ** 3
     sigmas = torch.empty((total,), dtype=torch.float32, device=device)
     for head in range(0, total, max_batch):
-        stop = min(head + max_batch, total)
-        coords = grid_points(voxel_resolution, head, stop, cube_length, device=device)[None]
+        n = min(max_batch, total - head)
+        part = -(-n // ranks)
+        lo = min(head + me * part, head + n)
+        coords = grid_points(voxel_resolution, lo, min(lo + part, head + n), cube_length,
+                             device=device)
+        if mesh is not None:
+            coords = torch.cat([coords, coords.new_zeros((part - coords.shape[0], 3))])
+        coords = coords[None]
         dirs = torch.zeros_like(coords)
         dirs[..., 2] = -1.0
-        sigmas[head:stop] = run_model(planes, g.decoder, coords, dirs, opts)["sigma"][0, :, 0]
+        sigma = run_model(planes, g.decoder, coords, dirs, opts)["sigma"][0, :, 0]
+        if mesh is not None:
+            sigma = all_gather(sigma, mesh.group)[:n]
+        sigmas[head:head + n] = sigma
 
     vol = sigmas.cpu().numpy().reshape((voxel_resolution,) * 3)
     vol = np.flip(vol, 0).copy()

@@ -1,7 +1,8 @@
 """Networks: the tri-plane generator G, its StyleGAN2 parts, the
-superresolution modules, the ResNeXt50 encoder E, the depth discriminator D
-and the EG3D dual discriminators."""
+superresolution modules, the ResNeXt50 encoder E, the depth discriminator D,
+the EG3D dual discriminators and the StyleGAN3 generator (`stylegan3`)."""
 
+from . import stylegan3
 from .dual_discriminator import (DualDiscriminator, DummyDualDiscriminator,
                                  SingleDiscriminator, filtered_resizing)
 from .encoder import ResNeXt50Encoder
@@ -19,4 +20,5 @@ __all__ = [
     "SR_REGISTRY", "SingleDiscriminator", "SuperresolutionHybrid8XDC", "SynthesisBlock",
     "SynthesisLayer", "SynthesisNetwork", "ToRGBLayer", "TriPlaneGenerator", "filtered_resizing",
     "make_superresolution", "minibatch_std", "modulated_conv2d", "normalize_2nd_moment",
+    "stylegan3",
 ]

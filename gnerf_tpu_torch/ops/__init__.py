@@ -3,12 +3,15 @@ hand-written CUDA kernel that replaces the package's one Pallas kernel."""
 
 from .bias_act import activation_funcs, bias_act
 from .conv2d_resample import conv2d_resample
+from .filtered_lrelu import filtered_lrelu
+from .fma import fma
 from .fused_decoder import osg_decode, osg_decode_ref
+from .grid_sample import grid_sample_2d, grid_sample_3d
 from .interpolate import interpolate_bilinear
 from .upfirdn2d import downsample2d, filter2d, setup_filter, upfirdn2d, upsample2d
 
 __all__ = [
     "activation_funcs", "bias_act", "conv2d_resample", "downsample2d", "filter2d",
-    "interpolate_bilinear", "osg_decode", "osg_decode_ref", "setup_filter",
-    "upfirdn2d", "upsample2d",
+    "filtered_lrelu", "fma", "grid_sample_2d", "grid_sample_3d", "interpolate_bilinear",
+    "osg_decode", "osg_decode_ref", "setup_filter", "upfirdn2d", "upsample2d",
 ]

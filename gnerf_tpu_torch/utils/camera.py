@@ -1,12 +1,15 @@
 """Camera pose helpers (look-at orbits, intrinsics, 25-dim labels).
 
-Port of the deterministic part of `gnerf_tpu/utils/camera.py`: float32 CPU
-tensors; callers move them to their device.
+Port of `gnerf_tpu/utils/camera.py`: float32 CPU tensors; callers move them
+to their device. The pose samplers draw their angles from an explicit
+`torch.Generator` (`rng`), h first, then v; with no generator, or no
+stddev, they give the mean pose.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -35,17 +38,72 @@ def create_cam2world_matrix_srn(forward_vector: torch.Tensor, origin: torch.Tens
     return _cam2world(forward_vector, origin, (0.0, 0.0, 1.0))
 
 
+def _orbit_origin(theta: torch.Tensor, phi: torch.Tensor, radius: float) -> torch.Tensor:
+    """Camera position [B, 3] on the y-up orbit sphere."""
+    return torch.stack([
+        radius * torch.sin(phi) * torch.cos(math.pi - theta),
+        radius * torch.cos(phi),
+        radius * torch.sin(phi) * torch.sin(math.pi - theta),
+    ], dim=-1)
+
+
 def lookat_sample(horizontal_mean: float, vertical_mean: float, radius: float = 1.0,
                   batch_size: int = 1) -> torch.Tensor:
     """Mean orbit pose looking at the origin; theta = azimuth, phi = polar
     angle, used directly."""
     h = torch.full((batch_size,), float(horizontal_mean))
     v = torch.full((batch_size,), float(vertical_mean))
-    origins = torch.stack([
-        radius * torch.sin(v) * torch.cos(math.pi - h),
-        radius * torch.cos(v),
-        radius * torch.sin(v) * torch.sin(math.pi - h),
-    ], dim=-1)
+    origins = _orbit_origin(h, v, radius)
+    return create_cam2world_matrix(normalize_vecs(-origins), origins)
+
+
+def _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev, vertical_stddev,
+                    radius, batch_size, rng, uniform: bool) -> torch.Tensor:
+    """Orbit origins [B, 3] at angles drawn around the means (normal, or
+    uniform in +-stddev), the polar angle through the arccos warp."""
+    if rng is not None and (horizontal_stddev or vertical_stddev):
+        def draw():
+            if uniform:
+                return torch.rand((batch_size,), generator=rng) * 2 - 1
+            return torch.randn((batch_size,), generator=rng)
+        h = draw() * horizontal_stddev + horizontal_mean
+        v = draw() * vertical_stddev + vertical_mean
+    else:
+        h = torch.full((batch_size,), float(horizontal_mean))
+        v = torch.full((batch_size,), float(vertical_mean))
+    v = v.clamp(1e-5, math.pi - 1e-5)
+    return _orbit_origin(h, torch.arccos(1 - 2 * (v / math.pi)), radius)
+
+
+def lookat_sample_origin(horizontal_mean: float, vertical_mean: float, lookat_position,
+                         horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
+                         radius: float = 1.0, batch_size: int = 1,
+                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gaussian angles through the arccos warp, looking at `lookat_position`."""
+    origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,
+                              vertical_stddev, radius, batch_size, rng, uniform=False)
+    target = torch.as_tensor(lookat_position, dtype=torch.float32)
+    return create_cam2world_matrix(normalize_vecs(target[None] - origins), origins)
+
+
+def gaussian_pose_sample(horizontal_mean: float, vertical_mean: float,
+                         horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
+                         radius: float = 1.0, batch_size: int = 1,
+                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gaussian angles through the arccos warp, looking at the origin."""
+    origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,
+                              vertical_stddev, radius, batch_size, rng, uniform=False)
+    return create_cam2world_matrix(normalize_vecs(-origins), origins)
+
+
+def uniform_pose_sample(horizontal_mean: float, vertical_mean: float,
+                        horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
+                        radius: float = 1.0, batch_size: int = 1,
+                        rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Angles uniform in mean +- stddev through the arccos warp, looking at
+    the origin."""
+    origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,
+                              vertical_stddev, radius, batch_size, rng, uniform=True)
     return create_cam2world_matrix(normalize_vecs(-origins), origins)
 
 

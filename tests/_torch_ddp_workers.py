@@ -427,3 +427,28 @@ def cli_case(rank, world, runs):
     shrink_networks()
     assert init_distributed("cpu") and dist.get_backend() == "gloo"
     return [run_training(**kw) for kw in runs]
+
+
+# ---------------------------------------------------------------------------
+# Inference (tests/test_torch_ddp_infer.py)
+
+
+def infer_case(rank, world, runs):
+    """generate_videos for each kwargs of `runs` in turn on every rank (the
+    first call brings the process group up from torchrun's environment), the
+    video written with the numpy backend; returns, per run, rank 0's frames,
+    raw frames and volume, None on the other ranks, or the message of the
+    ValueError the run raised."""
+    from gnerf_tpu_torch.infer import gen_videos, shape_utils, video_io
+
+    video_io.available_backends = lambda: ("npy",)
+    out = []
+    for kw in runs:
+        try:
+            res = gen_videos.generate_videos(**kw)
+        except ValueError as err:
+            out.append(str(err))
+            continue
+        out.append(None if res is None else
+                   (res["frames"], res["frames_raw"], shape_utils.read_mrc(res["mrc"])))
+    return out

@@ -185,3 +185,84 @@ def test_conv2d_twice_differentiated_matches_native(stride, padding, size, group
         out[name] = (y, gx, gw)
     for a, b in zip(out["port"], out["native"]):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def _sg3_taps(factor, radial=False):
+    """A layer's Kaiser filter (separable [taps]) or jinc filter (radial
+    [taps, taps]) for a resampling factor (None for 1)."""
+    from gnerf_tpu.models.stylegan3 import design_lowpass_filter
+
+    return design_lowpass_filter(6 * factor, 8.0, 9.0, 64, radial) if factor > 1 else None
+
+
+@pytest.mark.parametrize("up,down,radial", [
+    (1, 1, False), (2, 1, False), (1, 2, False), (2, 2, False), (4, 2, False), (2, 4, False),
+    (4, 4, False), (4, 2, True), (2, 4, True),  # 2-D filters at factors 2 and 4
+])
+def test_filtered_lrelu_and_its_gradient_match_jax(up, down, radial):
+    import jax
+
+    rng = np.random.RandomState(up * 10 + down)
+    x = rng.randn(2, 3, 10, 10).astype(np.float32)
+    b = rng.randn(3).astype(np.float32)
+    fu, fd = _sg3_taps(up, radial), _sg3_taps(down, radial)
+    pad = 6 * max(up, down)
+    padding = (pad, pad - 1, pad - 1, pad)
+    kw = dict(up=up, down=down, padding=padding, gain=1.3, slope=0.2, clamp=0.9)
+
+    def jfn(x, b):
+        return jops.filtered_lrelu(x, None if fu is None else jnp.asarray(fu),
+                                   None if fd is None else jnp.asarray(fd), b, **kw)
+
+    want = jfn(jnp.asarray(x), jnp.asarray(b))
+    xt, bt = t(x).requires_grad_(True), t(b).requires_grad_(True)
+    got = ops.filtered_lrelu(xt, None if fu is None else t(fu), None if fd is None else t(fd),
+                             bt, **kw)
+    assert got.shape == want.shape
+    unclamped = ops.filtered_lrelu(t(x), None if fu is None else t(fu),
+                                   None if fd is None else t(fd), t(b), **dict(kw, clamp=None))
+    assert (to_np(unclamped) != to_np(got)).any()  # the clamp bites
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=0, atol=1e-5)
+    r = rng.randn(*want.shape).astype(np.float32)
+    gx, gb = jax.grad(lambda x, b: jnp.sum(jfn(x, b) * r), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(b))
+    (got * t(r)).sum().backward()
+    # The bias gradient sums ~10^3 terms to magnitudes near 50, where fp32
+    # itself rounds by ~4e-6: 1e-5 of each gradient's largest, at least 1e-5.
+    for g, w in ((xt.grad, gx), (bt.grad, gb)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(to_np(g), w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("packing", [{}, {"lane_pack": True}, {"cell_pack": True}])
+def test_grid_sample_2d_matches_jax(packing):
+    rng = np.random.RandomState(5)
+    feats = rng.randn(2, 6, 7, 9).astype(np.float32)
+    coords = rng.uniform(-1.3, 1.3, (2, 50, 2)).astype(np.float32)  # some outside the map
+    coords[0, :4] = [[-1.0, -1.0], [1.0, 1.0], [1.2, 0.0], [0.0, -1.06]]
+    want = jops.grid_sample_2d(jnp.asarray(feats), jnp.asarray(coords), **packing)
+    got = ops.grid_sample_2d(t(feats), t(coords), **packing)
+    assert got.shape == (2, 50, 6)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=0, atol=1e-5)
+    assert (to_np(got)[0, 2] == 0).all()  # wholly outside: zeros
+
+
+def test_grid_sample_3d_matches_jax():
+    rng = np.random.RandomState(6)
+    grid = rng.randn(2, 4, 5, 6, 7).astype(np.float32)
+    coords = rng.uniform(-1.3, 1.3, (2, 60, 3)).astype(np.float32)
+    coords[1, 0] = [0.0, 0.0, 1.5]  # outside along z alone
+    want = jops.grid_sample_3d(jnp.asarray(grid), jnp.asarray(coords))
+    got = ops.grid_sample_3d(t(grid), t(coords))
+    assert got.shape == (2, 60, 4)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=0, atol=1e-5)
+    assert (to_np(got)[1, 0] == 0).all()
+
+
+def test_fma_matches_jax():
+    rng = np.random.RandomState(7)
+    a, b, c = rng.randn(3, 1, 5), rng.randn(4, 1), rng.randn(5)
+    a, b, c = (v.astype(np.float32) for v in (a, b, c))
+    want = jops.fma(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
+    np.testing.assert_allclose(to_np(ops.fma(t(a), t(b), t(c))), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)

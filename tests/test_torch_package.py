@@ -150,6 +150,13 @@ def _init_distributed(monkeypatch):
     return init_distributed()
 
 
+def _stylegan3_generator():
+    from gnerf_tpu_torch.models import stylegan3
+
+    return stylegan3.Generator(z_dim=16, c_dim=0, w_dim=32, img_resolution=32, img_channels=3,
+                               channel_base=1024, channel_max=32, num_layers=6)
+
+
 def _run_training(tmp_path):
     from gnerf_tpu_torch.training.train import run_training
 
@@ -159,7 +166,7 @@ def _run_training(tmp_path):
 ENTRIES = ["TriPlaneGenerator", "ResNeXt50Encoder", "generate_videos", "GNerfService",
            "load_service", "extract_sigma_grid", "Discriminator", "VGG16LPIPS", "run_training",
            "DualDiscriminator", "InceptionV3Features", "run_pti_cli", "run_eval",
-           "init_distributed"]
+           "init_distributed", "stylegan3.Generator"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -184,7 +191,8 @@ def test_entry_points_refuse_cpu_without_request(entry, monkeypatch, tmp_path):
              "DualDiscriminator": _dual_discriminator, "InceptionV3Features": _inception,
              "run_pti_cli": lambda: _run_pti_cli(tmp_path),
              "run_eval": lambda: _run_eval(tmp_path),
-             "init_distributed": lambda: _init_distributed(monkeypatch)}
+             "init_distributed": lambda: _init_distributed(monkeypatch),
+             "stylegan3.Generator": _stylegan3_generator}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     if entry == "GNerfService":
