@@ -15,21 +15,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               its bound and the plain version's time.
   4. small:   a tiny generator on the card (fp32) vs the same weights on
               the CPU, through render + 8XDC, and through `sample_mixed`.
-  5. main:    `generate_videos` at the full width of the default
+  5. prng:    the threefry key stream (`utils/prng.py`) on the card vs the
+              CPU: keys, splits, folds, bits and uniform draws bit for bit,
+              normal draws within 1e-6; the full-width G (PRNGKey(0)) and E
+              (PRNGKey(1)) of `--seed-init 0` drawn on the card vs built on
+              the CPU, leaf by leaf within the init tests' bound; the card's
+              seed-init time. The CPU tests hold the CPU's to JAX's.
+  6. main:    `generate_videos` at the full width of the default
               TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
               must have launched (osg_decode: twice per frame).
-  6. timing:  identity prep, render and SR ms, frames/s and peak memory.
-  7. server:  `GNerfService` at the same full width behind a loopback
+  7. timing:  identity prep, render and SR ms, frames/s and peak memory.
+  8. server:  `GNerfService` at the same full width behind a loopback
               ThreadingHTTPServer: /healthz, /encode (seeds, a 512^2 PNG, a
               non-square photo with 68 landmarks), sequential and 4
               concurrent /render (a batch of 4, within +-1 of direct
               renders), /orbit (30 frames; 400 and 404 cases); latencies,
               orbit frames/s, launches and peak memory.
-  8. shapes:  `generate_videos(..., gen_shapes=True, shape_res=256)`: the
+  9. shapes:  `generate_videos(..., gen_shapes=True, shape_res=256)`: the
               .mrc reads back 256^3, finite, not constant inside the mask; a
               mesh with faces; sweep ms and its 16 fp32 launches.
-  9. train:   the G-NeRF train step at the full width of the `ffhq` preset
+ 10. train:   the G-NeRF train step at the full width of the `ffhq` preset
               (ResNeXt50 E in train mode, default G frozen, 48+48 samples,
               8XDC to 512^2, depth D with R1, VGG16-LPIPS at 256^2, batch 4,
               fp32, seed-init weights, SyntheticDataset batches): warm-up,
@@ -38,7 +44,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               osg_decode launched twice per step; a full-state save and load
               gives the state back bit for bit, and the next step from both
               agrees within tolerance.
- 10. eg3d:    the EG3D objective at the full width of the `ffhq` preset (all
+ 11. eg3d:    the EG3D objective at the full width of the `ffhq` preset (all
               of G trained against DualDiscriminator(c_dim=25, 512^2, 3),
               lazy regularization at the CLI's cadence: Gmain + Dmain every
               step, Greg every 4, Dreg every 16; batch 4, fp32,
@@ -52,7 +58,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               the state back bit for bit and the next step from both agrees
               within tolerance; under Freeze-D (2 layers) the frozen layers
               stay bitwise through a main and a Dreg step.
- 11. eg3d_ada: the same EG3D run with `--aug ada` from p = 0.2 (2 warm-up +
+ 12. eg3d_ada: the same EG3D run with `--aug ada` from p = 0.2 (2 warm-up +
               16 timed steps): phase ms, amortised step, images/s, peak
               memory, launches checked exactly; the controller's p after
               each window equals ada_update_p's arithmetic; a Dreg profile
@@ -60,18 +66,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               backward); the pipe's forward ms on a [4, 6, 512, 512] pair;
               the share of 256 samples the pipe changes at p = 0.2 within
               3 sigma of its expected value.
- 12. pti:     `make_pti_step` on the full-width G (8XDC to 512^2, 48+48)
+ 13. pti:     `make_pti_step` on the full-width G (8XDC to 512^2, 48+48)
               with VGG16-LPIPS at 256^2, batch 4, fp32: 2 warm-up + 8 timed
               steps without and with the locality regularizer (step ms, peak
               memory, losses finite, the SR module bitwise, every weight the
               loss reaches moved, launches per step exact), then `project_w`
               steps (ms per step).
- 13. eval:    `run_eval` on a full-width snapshot the phase writes (seed
+ 14. eval:    `run_eval` on a full-width snapshot the phase writes (seed
               weights), 8 items in batches of 4: PSNR / SSIM / LPIPS with E,
               the VGG Frechet distance without; InceptionV3Features at 299^2,
               batch 4, on weights the phase writes, and the host-side Frechet
               distance of 2048-d features (times and finiteness only).
- 14. ddp:     the distributed training path (`gnerf_tpu_torch.parallel`) at
+ 15. ddp:     the distributed training path (`gnerf_tpu_torch.parallel`) at
               the full width of the `ffhq` preset, batch 4, fp32, seed-init
               weights, SyntheticDataset batches, each run held to the plain
               world-1 step on the same batch and seed (world 1 run twice
@@ -87,7 +93,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               planted faults on the same ranks (BatchNorm moments of the local
               rows, minibatch std of the local rows, gradients not averaged),
               each of which the same bounds must catch.
- 15. infer_ddp: multi-device inference at the full width of phase main (bf16,
+ 16. infer_ddp: multi-device inference at the full width of phase main (bf16,
               96+96, 8XDC to 512^2, 8 frames): (a) `generate_videos` in a
               world-1 NCCL group (the mesh path at 1x1), its frames equal to
               phase main's; (b) two gloo ranks spawned on the one card at
@@ -96,13 +102,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               and share of differing values printed), the volume within
               rtol 1e-4 / atol 1e-5 of phase shapes'; (c) `GNerfService`
               with two replicas of G on the card (devices=[cuda:0, cuda:0]),
-              frames_per_chunk 4, its 30-frame orbit within +-1 of the
-              one-device orbit. osg_decode launches checked exactly on every
+              frames_per_chunk 4, its orbit within +-1 of one device's at
+              the same batch sizes (the 30-frame orbit's gap to one
+              device's chunks of 15 printed: bf16 convolutions round
+              otherwise at batch 2). osg_decode launches checked exactly on every
               rank: data=2 2 per frame of the rank's 4 plus 16 sweep chunks of
               2^19 points, rays=2 2 per frame at M/2, the server 2 per
               replica's part. ms and peak memory per rank (two processes
               sharing one card: correctness, not speed).
- 16. sg3:     StyleGAN3-T at the published FFHQ-U 1024^2 configuration
+ 17. sg3:     StyleGAN3-T at the published FFHQ-U 1024^2 configuration
               (z = w = 512, c_dim 0, 2 mapping layers, channel_base 32768,
               channel_max 512, 14 layers, 2 critical; seed-init weights):
               forward at batch 4 in fp32 and bf16 (shape, finite, ms per
@@ -250,6 +258,7 @@ def phase_kernels():
 
     from gnerf_tpu_torch.models import OSGDecoder
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode, osg_decode_ref
+    from gnerf_tpu_torch.utils import prng
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, N, M, C, out_dim, lr_mul, dtype, feature scale, timed
@@ -299,7 +308,7 @@ def phase_kernels():
     for name, n, m, c, out_dim, lr, dtype, scale, timed in cases:
         gen = torch.Generator().manual_seed(m + c)
         dec = OSGDecoder(n_features=c, decoder_output_dim=out_dim, decoder_lr_mul=lr,
-                         generator=gen).cuda()
+                         key=prng.PRNGKey(m + c)).cuda()
         weights = [w.detach() for w in dec.folded_weights(dtype)]
         feats = (torch.randn((n, 3, m, c), generator=gen) * scale).to("cuda", dtype)
         got = osg_decode(feats, *weights)
@@ -398,6 +407,7 @@ def phase_small():
 
     from gnerf_tpu_torch.infer.gen_videos import orbit_label
     from gnerf_tpu_torch.models import DEFAULT_RENDERING_KWARGS, TriPlaneGenerator
+    from gnerf_tpu_torch.utils import prng
 
     cfg = dict(z_dim=32, c_dim=25, w_dim=32, img_resolution=512, plane_resolution=16,
                channel_base=512, channel_max=64, mapping_layers=2,
@@ -406,7 +416,7 @@ def phase_small():
                                      depth_resolution_importance=6, sr_input_resolution=16))
     outs = {}
     for dev in ("cpu", "cuda"):
-        g = TriPlaneGenerator(**cfg, device=dev, generator=torch.Generator().manual_seed(3))
+        g = TriPlaneGenerator(**cfg, device=dev, key=prng.PRNGKey(3))
         g.requires_grad_(False)
         z = torch.randn((1, 32), generator=torch.Generator().manual_seed(4)).to(dev)
         c = orbit_label(2, 8, "ffhq", g.rendering_kwargs).to(dev)
@@ -424,6 +434,106 @@ def phase_small():
     _small_train_step()
 
 
+PRNG_SEEDS = (0, 1, 42, 2 ** 31 - 1)
+PRNG_SHAPES = ((), (7,), (257, 300), (1 << 22,))
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _init_gaps(got: dict, want: dict, uniform: tuple = ()) -> list:
+    """The leaves of `got` outside the init tests' bound around `want`
+    (tests/test_torch_init.py): constant and uniform leaves equal, the rest
+    within 1e-6 times the leaf's std plus 2e-6 of its magnitude."""
+    bad = []
+    for name, w in want.items():
+        g = got[name]
+        if w.numel() == 0 or name in uniform or bool((w == w.flatten()[0]).all()):
+            ok = _same(g, w)
+        else:
+            ok = bool(((g - w).abs() <= 1e-6 * w.std() + 2e-6 * w.abs()).all())
+        if not ok:
+            bad.append((name, float((g - w).abs().max())))
+    return bad
+
+
+def phase_prng():
+    """The threefry key stream on the card against the CPU's: keys, splits,
+    folds, bits and uniform draws bit for bit, normal draws within 1e-6;
+    then the full-width G (PRNGKey(0)) and E (PRNGKey(1)) of
+    `load_networks(None, seed_init=0)` drawn on the card against the same
+    built on the CPU, leaf by leaf. The CPU tests hold the CPU's stream and
+    inits to JAX's, so this chains the card's weights to JAX's. Prints the
+    card-side seed-init time (CUDA events; the first build, then a second)."""
+    import torch
+
+    from gnerf_tpu_torch.models import ResNeXt50Encoder, TriPlaneGenerator
+    from gnerf_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    checks, worst_normal = 0, 0.0
+    for seed in PRNG_SEEDS:
+        kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device="cuda")
+        pairs = [(prng.split(kg, n), prng.split(kc, n)) for n in range(1, 6)]
+        pairs += [(prng.fold_in(kg, d), prng.fold_in(kc, d)) for d in (0, 1, 7, 2 ** 31 - 1)]
+        for shape in PRNG_SHAPES:
+            pairs.append((prng.bits(kg, shape), prng.bits(kc, shape)))
+            for lo, hi in ((0.0, 1.0), (-0.3, 2.5)):
+                pairs.append((prng.uniform(kg, shape, lo, hi), prng.uniform(kc, shape, lo, hi)))
+            got, want = prng.normal(kg, shape), prng.normal(kc, shape)
+            if got.device.type != "cuda":
+                raise SystemExit("chip_smoke: a key on the card drew off the card")
+            err = float((got.cpu() - want).abs().max()) if want.numel() else 0.0
+            worst_normal = max(worst_normal, err)
+            if not err <= 1e-6:
+                raise SystemExit(f"chip_smoke: normal{shape} of seed {seed} on the card is "
+                                 f"{err:.3e} from the CPU's (bound 1e-6)")
+        for got, want in pairs:
+            if got.device.type != "cuda" or not _same(got.cpu(), want):
+                raise SystemExit(f"chip_smoke: a threefry draw of seed {seed} on the card "
+                                 f"differs from the CPU's: shape {tuple(want.shape)}")
+        checks += len(pairs) + len(PRNG_SHAPES)
+    log(f"[prng] {checks} draws of seeds {PRNG_SEEDS} (split n 1..5, fold_in, bits / uniform / "
+        f"normal at shapes {PRNG_SHAPES}): card == CPU bit for bit but normal, max abs err "
+        f"{worst_normal:.3e} (bound 1e-6); {time.perf_counter() - t0:.2f} s host clock")
+
+    def build(dev):
+        g = TriPlaneGenerator(device=dev, key=prng.PRNGKey(0))
+        return g, ResNeXt50Encoder(out_dim=g.z_dim, device=dev, key=prng.PRNGKey(1))
+
+    init_ms = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        nets = build("cuda")
+        ev[1].record()
+        torch.cuda.synchronize()
+        init_ms.append(ev[0].elapsed_time(ev[1]))
+    n_params = sum(p.numel() for net in nets for p in net.parameters())
+    t0 = time.perf_counter()
+    cpu_nets = build("cpu")
+    cpu_s = time.perf_counter() - t0
+    bad, n_leaves = [], sum(len(net.state_dict()) for net in nets)
+    for net, ref, uniform in zip(nets, cpu_nets, ((), ("fc.weight", "fc.bias"))):
+        want = ref.state_dict()
+        got = {k: v.cpu() for k, v in net.state_dict().items()}
+        if sorted(got) != sorted(want):
+            raise SystemExit("chip_smoke: the card's and the CPU's seed-init leaves differ")
+        bad += _init_gaps(got, want, uniform)
+    log(f"[prng] seed init of the full-width G (PRNGKey(0)) and E (PRNGKey(1)), {n_params} "
+        f"parameters: card {init_ms[0]:.1f} ms first build, {init_ms[1]:.1f} ms second (CUDA "
+        f"events); CPU {cpu_s:.2f} s (host clock, {torch.get_num_threads()} threads); "
+        f"{n_leaves} leaves, {len(bad)} outside the init bound "
+        f"{bad[:4]}")
+    if bad:
+        raise SystemExit("chip_smoke: the seed-init weights on the card differ from the CPU's")
+    del nets, cpu_nets
+    torch.cuda.empty_cache()
+
+
 def _tiny_trainer(dev, **cfg_overrides):
     """The tests' tiny training configuration (tests/test_torch_training.py)
     on `dev`, every weight from fixed seeds."""
@@ -432,19 +542,17 @@ def _tiny_trainer(dev, **cfg_overrides):
     from gnerf_tpu_torch.models import (DEFAULT_RENDERING_KWARGS, Discriminator,
                                         ResNeXt50Encoder, TriPlaneGenerator)
     from gnerf_tpu_torch.training import VGG16LPIPS, TrainConfig, init_train_state
+    from gnerf_tpu_torch.utils import prng
 
     rk = dict(DEFAULT_RENDERING_KWARGS, superresolution_module="SuperresolutionHybrid2X",
               depth_resolution=4, depth_resolution_importance=4)
     g = TriPlaneGenerator(z_dim=32, w_dim=32, img_resolution=128, plane_resolution=16,
                           channel_base=512, channel_max=32, neural_rendering_resolution=8,
-                          rendering_kwargs=rk, device=dev,
-                          generator=torch.Generator().manual_seed(1))
-    enc = ResNeXt50Encoder(out_dim=32, layers=(1, 1, 1, 1), device=dev,
-                           generator=torch.Generator().manual_seed(2))
+                          rendering_kwargs=rk, device=dev, key=prng.PRNGKey(1))
+    enc = ResNeXt50Encoder(out_dim=32, layers=(1, 1, 1, 1), device=dev, key=prng.PRNGKey(2))
     disc = Discriminator(c_dim=25, img_resolution=8, img_channels=1, channel_base=256,
-                         channel_max=32, mbstd_group_size=1, device=dev,
-                         generator=torch.Generator().manual_seed(3))
-    vgg = VGG16LPIPS(resize_to=32, device=dev, generator=torch.Generator().manual_seed(4))
+                         channel_max=32, mbstd_group_size=1, device=dev, key=prng.PRNGKey(3))
+    vgg = VGG16LPIPS(resize_to=32, device=dev, key=prng.PRNGKey(4))
     cfg = TrainConfig(batch_size=2, neural_rendering_resolution=8, **cfg_overrides)
     return init_train_state(g, enc, disc, vgg, cfg), cfg
 
@@ -889,28 +997,24 @@ def _full_width_g_cfg() -> dict:
     return dict(img_resolution=SIDE, rendering_kwargs=rk)
 
 
-def _full_width_g(gen):
-    """That G on the card, drawn from `gen`."""
+def _full_width_g(seed: int):
+    """That G on the card, drawn from PRNGKey(seed)."""
     from gnerf_tpu_torch.models import TriPlaneGenerator
+    from gnerf_tpu_torch.utils import prng
 
-    return TriPlaneGenerator(**_full_width_g_cfg(), device="cuda", generator=gen)
+    return TriPlaneGenerator(**_full_width_g_cfg(), device="cuda", key=prng.PRNGKey(seed))
 
 
 def _full_width_trainer(seed: int):
     """The `ffhq` preset's networks at full width on the card, as
-    `gnerf_tpu_torch.training.train` builds them (seed-init weights)."""
-    import torch
+    `gnerf_tpu_torch.training.train` builds them from `--seed` (the JAX
+    CLI's weights for that seed)."""
+    from gnerf_tpu_torch.training import TrainConfig, init_train_state
+    from gnerf_tpu_torch.training.train import gnerf_networks
 
-    from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder
-    from gnerf_tpu_torch.training import TrainConfig, VGG16LPIPS, init_train_state
-
-    gen = torch.Generator().manual_seed(seed)
-    g = _full_width_g(gen)
-    enc = ResNeXt50Encoder(device="cuda", generator=gen)
-    disc = Discriminator(c_dim=25, img_resolution=64, img_channels=1, device="cuda",
-                         generator=gen)
-    vgg = VGG16LPIPS(device="cuda", generator=torch.Generator().manual_seed(seed + 7))
     cfg = TrainConfig(batch_size=TRAIN_BATCH)
+    g, enc, disc, vgg, _ = gnerf_networks(seed, cfg, 512, 512, SIDE,
+                                          _full_width_g_cfg()["rendering_kwargs"], device="cuda")
     return init_train_state(g, enc, disc, vgg, cfg), cfg
 
 
@@ -1016,16 +1120,11 @@ def _full_width_eg3d(seed: int, **cfg_overrides):
     builds for `--objective eg3d --batch 4` (seed-init weights)."""
     import dataclasses
 
-    import torch
-
-    from gnerf_tpu_torch.models import DualDiscriminator
     from gnerf_tpu_torch.training import TrainConfig, init_eg3d_state
-    from gnerf_tpu_torch.training.train import eg3d_loss_config
+    from gnerf_tpu_torch.training.train import eg3d_loss_config, eg3d_networks
 
-    gen = torch.Generator().manual_seed(seed)
-    g = _full_width_g(gen)
-    disc = DualDiscriminator(c_dim=25, img_resolution=SIDE, img_channels=3, device="cuda",
-                             generator=gen)
+    g, disc = eg3d_networks(seed, 512, 512, SIDE, _full_width_g_cfg()["rendering_kwargs"],
+                            device="cuda")
     cfg = eg3d_loss_config(g.rendering_kwargs, TrainConfig(batch_size=TRAIN_BATCH),
                            g.neural_rendering_resolution)
     cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -1365,9 +1464,10 @@ def phase_pti(warmup: int = 2, steps: int = 8, project_steps: int = 6):
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.training import (PTIConfig, VGG16LPIPS, init_pti_state, make_pti_step,
                                           project_w)
+    from gnerf_tpu_torch.utils import prng
 
-    g = _full_width_g(torch.Generator().manual_seed(0)).requires_grad_(False).eval()
-    vgg = VGG16LPIPS(device="cuda", generator=torch.Generator().manual_seed(7))
+    g = _full_width_g(0).requires_grad_(False).eval()
+    vgg = VGG16LPIPS(device="cuda", key=prng.PRNGKey(7))
     batch = _pti_batch(g)
     osg_decode.launches = 0
     for locality in (False, True):
@@ -1377,14 +1477,15 @@ def phase_pti(warmup: int = 2, steps: int = 8, project_steps: int = 6):
         torch.cuda.reset_peak_memory_stats()
         state = init_pti_state(g, vgg, cfg)
         step = make_pti_step(cfg)
-        rng = torch.Generator(device="cuda").manual_seed(0)
+        rng = prng.PRNGKey(0, device="cuda")
         before = {n: p.detach().clone() for n, p in state.g.named_parameters()}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(warmup + steps + 1)]
         launches, losses = [], []
         for i in range(warmup + steps):
             n0 = osg_decode.launches
             ev[i].record()
-            losses.append(step(state, batch, rng)[1])
+            rng, key = prng.split(rng)
+            losses.append(step(state, batch, key)[1])
             ev[i + 1].record()
             launches.append(osg_decode.launches - n0)
         torch.cuda.synchronize()
@@ -1449,10 +1550,10 @@ def phase_eval(max_items: int = 8, batch: int = 4):
                                           frechet_distance, load_inception)
     from gnerf_tpu_torch.training.eval import run_eval
     from gnerf_tpu_torch.utils import checkpoint as ckpt
+    from gnerf_tpu_torch.utils import prng
 
-    g = _full_width_g(torch.Generator().manual_seed(0))
-    enc = ResNeXt50Encoder(out_dim=g.z_dim, device="cuda",
-                           generator=torch.Generator().manual_seed(1))
+    g = _full_width_g(0)
+    enc = ResNeXt50Encoder(out_dim=g.z_dim, device="cuda", key=prng.PRNGKey(1))
     config = {"generator": json.loads(json.dumps(_full_width_g_cfg()))}
     osg_decode.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1478,7 +1579,7 @@ def phase_eval(max_items: int = 8, batch: int = 4):
         launches = osg_decode.launches
         inc_path = os.path.join(tmp, "inception.npz")
         ckpt.save_checkpoint(inc_path, {"inception": ckpt.module_params(InceptionV3Features(
-            device="cpu", generator=torch.Generator().manual_seed(3)))})
+            device="cuda", key=prng.PRNGKey(3)))})
         net = load_inception(inc_path, device="cuda")
     x = torch.rand((batch, 3, 299, 299), device="cuda") * 2 - 1
     feats = net.features(x)
@@ -1980,8 +2081,9 @@ def phase_infer_ddp(frames: int, main_frames, volume):
     phase main's frames; (b) two gloo ranks sharing the card at data=2 (with
     the 256^3 sweep over both) and at rays=2, rank 0's frames within +-1 of
     phase main's and the volume within rtol 1e-4 / atol 1e-5 of phase
-    shapes'; (c) `GNerfService` with two replicas on the card, its 30-frame
-    orbit within +-1 of the one-device orbit. osg_decode launches are
+    shapes'; (c) `GNerfService` with two replicas on the card, its orbit
+    within +-1 of one device's at the same batch sizes (its 30-frame orbit's
+    gap to one device's chunks of 15 printed). osg_decode launches are
     checked exactly on every rank. Returns them, all ranks summed."""
     import numpy as np
     import torch
@@ -2052,7 +2154,7 @@ def phase_infer_ddp(frames: int, main_frames, volume):
 
     # (c) the server with two replicas of G on the one card.
     g, enc = gv.load_networks(None, seed_init=0, device="cuda")
-    orbits, times = {}, {}
+    orbits, times, parts, one_28 = {}, {}, {}, None
     for n in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2066,21 +2168,35 @@ def phase_infer_ddp(frames: int, main_frames, volume):
             orbits[n] = np.stack(service.render_orbit(ident, frames=30))
             times[n] = ((time.perf_counter() - t0) * 1e3, osg_decode.launches,
                         torch.cuda.max_memory_allocated(), service.frames_per_chunk)
+            # The same frames at the same batch sizes on both sides: the
+            # replicas' parts of chunks of 4 (2 frames each) and one device's
+            # chunks of 2; 28 frames, so no chunk of 2 is split 1 + 1. bf16
+            # convolutions round otherwise at batch 2 than at 15 (cuDNN picks
+            # its algorithms by shape), which the 30-frame gap also carries.
+            if n == 1:
+                one_28 = np.stack(service.render_orbit(ident, frames=28))
+                service.frames_per_chunk = 2
+            parts[n] = np.stack(service.render_orbit(ident, frames=28))
         finally:
             service.close()
     fpc = times[2][3]
     want_c = 2 * sum(min(2, len(range(s, min(s + fpc, 30)))) for s in range(0, 30, fpc))
     gap, share = _frame_gap(orbits[2], orbits[1])
+    part_gap, part_share = _frame_gap(parts[2], parts[1])
+    batch_gap, batch_share = _frame_gap(parts[1], one_28)
     total += times[2][1]
-    good = fpc == 4 and gap <= 1 and orbits[2].shape == (30, SIDE, SIDE, 3) and \
+    good = fpc == 4 and part_gap <= 1 and orbits[2].shape == (30, SIDE, SIDE, 3) and \
         times[2][1] == want_c
     ok &= good
     log(f"[infer_ddp] (c) GNerfService(devices=[cuda:0, cuda:0]): frames_per_chunk={fpc} "
-        f"(want 4); 30-frame render_orbit vs the one-device orbit: max_abs_gap={gap} (bound 1), "
-        f"differing share={share:.3e}; ms {times[2][0]:.3f} (one device, chunks of "
-        f"{times[1][3]}: {times[1][0]:.3f}); max_memory_allocated {times[2][2]} bytes (one "
-        f"device: {times[1][2]}); osg_decode launches={times[2][1]} (want {want_c}: 2 per "
-        f"replica's part)" + ("" if good else " FAILED"))
+        f"(want 4); 28-frame render_orbit vs one device's at the same batches of 2: "
+        f"max_abs_gap={part_gap} (bound 1), differing share={part_share:.3e}; the 30-frame orbit "
+        f"vs one device's chunks of {times[1][3]}: max_abs_gap={gap}, share={share:.3e} (one "
+        f"device alone, batches of 2 vs {times[1][3]}: max_abs_gap={batch_gap}, share="
+        f"{batch_share:.3e}); ms {times[2][0]:.3f} (one device: {times[1][0]:.3f}); "
+        f"max_memory_allocated {times[2][2]} bytes (one device: {times[1][2]}); osg_decode "
+        f"launches={times[2][1]} (want {want_c}: 2 per replica's part)"
+        + ("" if good else " FAILED"))
     if not ok:
         raise SystemExit("chip_smoke: multi-device inference does not hold to one device")
     return total
@@ -2106,9 +2222,9 @@ def phase_sg3(batch: int = 4):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from gnerf_tpu_torch.models import stylegan3
+    from gnerf_tpu_torch.utils import prng
 
-    g = stylegan3.Generator(**SG3_CFG, device="cuda",
-                            generator=torch.Generator().manual_seed(0)).requires_grad_(False)
+    g = stylegan3.Generator(**SG3_CFG, device="cuda", key=prng.PRNGKey(0)).requires_grad_(False)
     z = torch.randn((batch, SG3_CFG["z_dim"]), generator=torch.Generator().manual_seed(1))
     z = z.cuda()
     n_params = sum(p.numel() for p in g.parameters())
@@ -2233,6 +2349,7 @@ def phase_sg3(batch: int = 4):
 
 
 def main(argv=None) -> int:
+    start = time.perf_counter()
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
     ap.add_argument("--profile", metavar="FILE", default=None,
@@ -2248,6 +2365,7 @@ def main(argv=None) -> int:
     phase_build()
     kern = phase_kernels()
     phase_small()
+    phase_prng()
     launches = {}
     launches["main"], main_frames = phase_main(args.frames)
     phase_timing(args.frames, args.profile)
@@ -2262,6 +2380,8 @@ def main(argv=None) -> int:
     launches["infer_ddp"] = phase_infer_ddp(args.frames, main_frames, volume)
     phase_sg3()
 
+    log(f"[wall] chip_smoke.py: {time.perf_counter() - start:.1f} s from start to the results "
+        "(host clock, the kernels' build included)")
     log(card_line())  # again beside the results: the run's output is long
     main_row = kern["main_bf16"]
     timed = ("main_f32", "server_mb4_bf16", "orbit_chunk_bf16", "shape_chunk_f32", "train_f32",

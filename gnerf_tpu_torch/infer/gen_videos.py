@@ -37,7 +37,7 @@ import click
 import numpy as np
 import torch
 
-from ..utils import camera
+from ..utils import camera, prng
 from ..utils.device import resolve_device
 
 CHUNK = 8  # frames per device -> host copy
@@ -123,9 +123,13 @@ def u8(img: torch.Tensor) -> torch.Tensor:
 
 
 def load_networks(network: Optional[str], seed_init: Optional[int] = None, device=None,
-                  double_sampling: bool = True):
+                  double_sampling: bool = True, fallback_config: Optional[dict] = None):
     """(G, E) for inference, from an npz checkpoint or random init from
-    `seed_init`. G comes from `G_ema` (else `G`); E is None when the
+    `seed_init`: G from PRNGKey(seed_init) and E from PRNGKey(seed_init + 1),
+    drawn on `device`, as the JAX CLI builds them. A checkpoint is loaded
+    into networks built on `meta` (nothing drawn). G comes from `G_ema`
+    (else `G`), built from the checkpoint's `generator` config, else from
+    `fallback_config` (the default G when None); E is None when the
     checkpoint has none. `double_sampling` doubles G's samples per ray, as
     the reference does at inference. Parameters are frozen."""
     from ..models import ResNeXt50Encoder, TriPlaneGenerator
@@ -135,34 +139,32 @@ def load_networks(network: Optional[str], seed_init: Optional[int] = None, devic
     if network:
         trees, config = ckpt.load_checkpoint(network)
         config = config or {}
-        gen_cfg = dict(config.get("generator") or {})
+        gen_cfg = dict(config.get("generator") or fallback_config or {})
         if gen_cfg.get("rendering_kwargs"):  # JSON lists back to tuples
             gen_cfg["rendering_kwargs"] = {k: tuple(v) if isinstance(v, list) else v
                                            for k, v in gen_cfg["rendering_kwargs"].items()}
-        g = TriPlaneGenerator(**gen_cfg, device="cpu")
-        ckpt.load_jax_params(g, trees.get("G_ema", trees.get("G")))
+        g = ckpt.load_jax_params(TriPlaneGenerator(**gen_cfg, device="meta"),
+                                 trees.get("G_ema", trees.get("G")), device=device)
         enc = None
         if "E" in trees:
             # The port also reads an optional `encoder` entry (e.g. `layers`).
-            enc = ResNeXt50Encoder(out_dim=g.z_dim, **config.get("encoder", {}), device="cpu")
+            enc = ResNeXt50Encoder(out_dim=g.z_dim, **config.get("encoder", {}), device="meta")
             state_e = trees.get("E_state")
             if state_e is None:  # default BN statistics
-                state_e = {k: v for k, v in ckpt.module_params(enc).items()
-                           if k.endswith(("/mean", "/var"))}
-            ckpt.load_jax_params(enc, trees["E"], state_e)
+                state_e = ckpt.default_bn_state(enc)
+            ckpt.load_jax_params(enc, trees["E"], state_e, device=device)
     else:
         if seed_init is None:
             raise ValueError("--network or --seed-init required")
-        g = TriPlaneGenerator(device="cpu", generator=torch.Generator().manual_seed(seed_init))
-        enc = ResNeXt50Encoder(out_dim=g.z_dim, device="cpu",
-                               generator=torch.Generator().manual_seed(seed_init + 1))
+        g = TriPlaneGenerator(device=device, key=prng.PRNGKey(seed_init))
+        enc = ResNeXt50Encoder(out_dim=g.z_dim, device=device, key=prng.PRNGKey(seed_init + 1))
     if double_sampling:
         rk = g.rendering_kwargs
         rk["depth_resolution"] = int(rk["depth_resolution"] * 2)
         rk["depth_resolution_importance"] = int(rk["depth_resolution_importance"] * 2)
     for net in (g, enc):
         if net is not None:
-            net.to(device).requires_grad_(False).eval()
+            net.requires_grad_(False).eval()
     return g, enc
 
 

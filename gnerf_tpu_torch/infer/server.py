@@ -38,8 +38,10 @@ from the device worker, then all copied to the host. Encodes, single
 frames and micro-batches stay on the first device, as the JAX server's
 unsharded programs do.
 
-`encode_seed` draws z from `torch.Generator().manual_seed(seed)`, so a seed
-names the same identity within the port (not the JAX package's identity).
+`encode_seed` draws z from `PRNGKey(seed)` (`utils.prng`), as the JAX
+server does, so a seed names the same identity in both packages. With
+'auto' ray limits every replica's part of an orbit chunk takes the limits'
+extremes over the whole chunk, as the JAX server's frame-sharded chunk does.
 
     python -m gnerf_tpu_torch.infer.server --network g.npz --port 8000 [--device cuda]
 """
@@ -61,7 +63,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils import camera
+from ..render.ray_sampler import sample_rays
+from ..render.renderer import auto_ray_extremes
+from ..utils import camera, prng
 from ..utils.device import module_device, resolve_device
 
 # Upper bound on client-requested orbit length (10 s at 30 fps).
@@ -215,11 +219,24 @@ class GNerfService:
             if microbatch and microbatch > 1 else None
         )
 
-    def _render(self, g, planes, ws, c) -> torch.Tensor:
+    def _render(self, g, planes, ws, c, rendering_kwargs=None) -> torch.Tensor:
         """Planes [1 or N, ...], ws [N, ...], labels [N, 25] -> uint8 [N, H, W, 3]
         on the device of G's replica `g`."""
-        out = g.render_planes(planes, c, ws, noise_mode="const", dtype=self.dtype)
+        out = g.render_planes(planes, c, ws, noise_mode="const", dtype=self.dtype,
+                              rendering_kwargs=rendering_kwargs)
         return _to_u8(out["image"])
+
+    def _chunk_extremes(self, cs: torch.Tensor) -> Optional[torch.Tensor]:
+        """With 'auto' ray limits, their extremes over all the rays of an
+        orbit chunk (labels [F, 25]), which every replica's part takes, as
+        the JAX server's frame-sharded chunk does; else None."""
+        rk = self.g.rendering_kwargs
+        if not rk["ray_start"] == rk["ray_end"] == "auto":
+            return None
+        cs = cs.to(self.device)
+        origins, dirs = sample_rays(cs[:, :16].reshape(-1, 4, 4), cs[:, 16:25].reshape(-1, 3, 3),
+                                    self.g.neural_rendering_resolution)
+        return auto_ray_extremes(origins, dirs, rk["box_warp"])
 
     @torch.inference_mode()
     def _run_frame_batch(self, items):
@@ -253,8 +270,9 @@ class GNerfService:
         return self._prepare(self.enc.apply(x, train=False))
 
     def encode_seed(self, seed: int) -> str:
-        z = torch.randn((1, self.g.z_dim), generator=torch.Generator().manual_seed(seed))
-        return self._register(z)
+        """Identity from z = normal(PRNGKey(seed), (1, z_dim)), the JAX
+        server's draw: a seed names the same identity in both packages."""
+        return self._register(prng.normal(prng.PRNGKey(seed), (1, self.g.z_dim)))
 
     def _register(self, z) -> str:
         """Identity from a latent z [1, z_dim] (numpy or tensor)."""
@@ -325,8 +343,10 @@ class GNerfService:
         out: list[np.ndarray] = []
         for start in range(0, frames, self.frames_per_chunk):
             cs = labels[start:start + self.frames_per_chunk]
+            ext = self._chunk_extremes(cs) if len(self.replicas) > 1 else None
             # Launch every replica's part before the first copy to the host.
-            parts = [self._render(g, planes, ws.expand(c.shape[0], -1, -1), c.to(d))
+            parts = [self._render(g, planes, ws.expand(c.shape[0], -1, -1), c.to(d),
+                                  None if ext is None else {"auto_extremes": ext.to(d)})
                      for c, d, g, (ws, planes) in zip(cs.tensor_split(len(self.replicas)),
                                                       self.devices, self.replicas, states)
                      if c.shape[0]]

@@ -5,9 +5,10 @@ discriminating the final image concatenated with the (resized) raw
 neural-render image, so G cannot cheat the superresolution. Each class is the
 port's `Discriminator` trunk (6 input channels for the dual forms), so its
 parameter names are the JAX trees' and `load_jax_params` takes them
-unchanged. `raw_fade` of `DummyDualDiscriminator` is an explicit argument,
-and `disc_c_noise` draws from an explicit `torch.Generator`. Constructed on
-CUDA unless `device` names another device.
+unchanged, and a `key` gives the JAX `init`'s parameters. `raw_fade` of
+`DummyDualDiscriminator` is an explicit argument, and `disc_c_noise` draws
+from an explicit `torch.Generator`. Constructed on CUDA unless `device`
+names another device.
 """
 
 from __future__ import annotations
@@ -66,10 +67,10 @@ class DualDiscriminator(Discriminator):
                  channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: Optional[float] = 256, mbstd_group_size: Optional[int] = 4,
                  disc_c_noise: float = 0.0, filter_mode: Union[str, float] = "antialiased",
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, key: Optional[torch.Tensor] = None):
         super().__init__(c_dim, img_resolution, img_channels * 2, channel_base=channel_base,
                          channel_max=channel_max, conv_clamp=conv_clamp,
-                         mbstd_group_size=mbstd_group_size, device=device, generator=generator)
+                         mbstd_group_size=mbstd_group_size, device=device, key=key)
         self.disc_c_noise = disc_c_noise
         self.filter_mode = filter_mode
 
@@ -95,10 +96,10 @@ class DummyDualDiscriminator(Discriminator):
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
                  channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: Optional[float] = 256, mbstd_group_size: Optional[int] = 4,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, key: Optional[torch.Tensor] = None):
         super().__init__(c_dim, img_resolution, img_channels * 2, channel_base=channel_base,
                          channel_max=channel_max, conv_clamp=conv_clamp,
-                         mbstd_group_size=mbstd_group_size, device=device, generator=generator)
+                         mbstd_group_size=mbstd_group_size, device=device, key=key)
 
     def forward(self, img: Mapping[str, torch.Tensor], c: Optional[torch.Tensor] = None,
                 raw_fade: float = 1.0, dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -23,22 +23,23 @@ from torch import nn
 
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import data_mean
-from ..utils.device import resolve_device
+from ..utils import prng
+from ..utils.device import place, resolve_device
 
 
-def _kaiming(shape, generator) -> nn.Parameter:
+def _kaiming(shape, key: torch.Tensor) -> nn.Parameter:
     fan_in = shape[1] * shape[2] * shape[3]
-    return nn.Parameter(torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in))
+    return nn.Parameter(prng.normal(key, shape) * math.sqrt(2.0 / fan_in))
 
 
 class _BatchNorm(nn.Module):
-    def __init__(self, c: int, eps: float = 1e-5):
+    def __init__(self, c: int, device: Optional[torch.device] = None, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
+        self.scale = nn.Parameter(torch.ones(c, device=device))
+        self.bias = nn.Parameter(torch.zeros(c, device=device))
+        self.register_buffer("mean", torch.zeros(c, device=device))
+        self.register_buffer("var", torch.ones(c, device=device))
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.1) -> torch.Tensor:
@@ -73,21 +74,22 @@ def _conv(x, w, stride=1, padding=0, groups=1):
 
 class _Bottleneck(nn.Module):
     def __init__(self, in_c: int, planes: int, stride: int, groups: int,
-                 width_per_group: int, generator: torch.Generator):
+                 width_per_group: int, key: torch.Tensor):
         super().__init__()
         width = int(planes * (width_per_group / 64.0)) * groups
         out_c = planes * 4
         self.stride = stride
         self.groups = groups
-        self.conv1 = _kaiming((width, in_c, 1, 1), generator)
-        self.bn1 = _BatchNorm(width)
-        self.conv2 = _kaiming((width, width // groups, 3, 3), generator)
-        self.bn2 = _BatchNorm(width)
-        self.conv3 = _kaiming((out_c, width, 1, 1), generator)
-        self.bn3 = _BatchNorm(out_c)
+        k = prng.split(key, 4)
+        self.conv1 = _kaiming((width, in_c, 1, 1), k[0])
+        self.bn1 = _BatchNorm(width, key.device)
+        self.conv2 = _kaiming((width, width // groups, 3, 3), k[1])
+        self.bn2 = _BatchNorm(width, key.device)
+        self.conv3 = _kaiming((out_c, width, 1, 1), k[2])
+        self.bn3 = _BatchNorm(out_c, key.device)
         if stride != 1 or in_c != out_c:
-            self.downsample_conv = _kaiming((out_c, in_c, 1, 1), generator)
-            self.downsample_bn = _BatchNorm(out_c)
+            self.downsample_conv = _kaiming((out_c, in_c, 1, 1), k[3])
+            self.downsample_bn = _BatchNorm(out_c, key.device)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         out = F.relu(self.bn1(_conv(x, self.conv1), train))
@@ -102,34 +104,35 @@ class _Bottleneck(nn.Module):
 
 
 class ResNeXt50Encoder(nn.Module):
-    """Identity encoder E: image [N, 3, H, W] in [-1, 1] -> z [N, out_dim]."""
+    """Identity encoder E: image [N, 3, H, W] in [-1, 1] -> z [N, out_dim].
+    Constructed on CUDA unless `device` names another device, from `key`
+    (PRNGKey(0) when None) split as the JAX `init` splits it; on `meta`
+    nothing is drawn."""
 
     _planes = (64, 128, 256, 512)
 
     def __init__(self, out_dim: int = 512, groups: int = 32, width_per_group: int = 4,
-                 layers: tuple = (3, 4, 6, 3), device=None,
-                 generator: Optional[torch.Generator] = None):
+                 layers: tuple = (3, 4, 6, 3), device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        keys = prng.split((prng.PRNGKey(0) if key is None else key).to(device), 7)
         self.layers = tuple(layers)
-        self.conv1 = _kaiming((64, 3, 7, 7), generator)
-        self.bn1 = _BatchNorm(64)
+        self.conv1 = _kaiming((64, 3, 7, 7), keys[0])
+        self.bn1 = _BatchNorm(64, device)
         in_c = 64
         for stage, (planes, blocks) in enumerate(zip(self._planes, self.layers)):
-            for b in range(blocks):
+            for b, bkey in enumerate(prng.split(keys[1 + stage], blocks)):
                 stride = (1 if stage == 0 else 2) if b == 0 else 1
                 setattr(self, f"layer{stage + 1}_{b}", _Bottleneck(
-                    in_c, planes, stride, groups, width_per_group, generator))
+                    in_c, planes, stride, groups, width_per_group, bkey))
                 in_c = planes * 4
         fan_in = 2048 * 4
         bound = 1.0 / math.sqrt(fan_in)
-        self.fc = nn.Linear(fan_in, out_dim)
-        with torch.no_grad():
-            self.fc.weight.uniform_(-bound, bound, generator=generator)
-            self.fc.bias.uniform_(-bound, bound, generator=generator)
-        self.to(device)
+        kw, kb = prng.split(keys[5])
+        self.fc = nn.Module()
+        self.fc.weight = nn.Parameter(prng.uniform(kw, (out_dim, fan_in), -bound, bound))
+        self.fc.bias = nn.Parameter(prng.uniform(kb, (out_dim,), -bound, bound))
+        place(self, device)
 
     def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = F.relu(self.bn1(_conv(images, self.conv1, stride=2, padding=3), train))

@@ -6,9 +6,11 @@ state_dict: `fc0`, `b4.conv1.affine.weight`, OIHW conv weights, `[out, in]`
 dense weights), so `utils.checkpoint.load_jax_params` is a rename. Weights
 stay fp32 and are cast to the activation dtype at use; `dtype=bf16` runs the
 blocks in bf16 while the ToRGB skip accumulates in fp32, as in the JAX
-package. Random init draws from an explicit `torch.Generator`, and so does
-`noise_mode="random"`. Every op is plain PyTorch, so the discriminator is
-twice differentiable, as the R1 penalty needs.
+package. Every constructor takes a threefry `key` (`utils.prng`) and splits
+it as the JAX `init` does, so a key gives JAX's parameters; they are made on
+the key's device (nothing is drawn on `meta`). `noise_mode="random"` draws
+from an explicit `torch.Generator`. Every op is plain PyTorch, so the
+discriminator is twice differentiable, as the R1 penalty needs.
 """
 
 from __future__ import annotations
@@ -25,7 +27,18 @@ from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw, local_rows
-from ..utils.device import resolve_device
+from ..utils import prng
+from ..utils.device import place, resolve_device
+
+
+def root_key(key: Optional[torch.Tensor]) -> torch.Tensor:
+    """`key`, or PRNGKey(0) on the CPU when None."""
+    return prng.PRNGKey(0) if key is None else key
+
+
+def zeros(shape, key: torch.Tensor) -> torch.Tensor:
+    """A constant leaf on the key's device (`meta` while a load builds)."""
+    return torch.zeros(shape, device=key.device)
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> torch.Tensor:
@@ -66,14 +79,14 @@ class FullyConnectedLayer(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  activation: str = "linear", lr_multiplier: float = 1.0,
-                 bias_init: float = 0.0, generator: Optional[torch.Generator] = None):
+                 bias_init: float = 0.0, key: Optional[torch.Tensor] = None):
         super().__init__()
+        key = root_key(key)
         self.in_features = in_features
         self.activation = activation
         self.lr_multiplier = lr_multiplier
-        self.weight = nn.Parameter(
-            torch.randn((out_features, in_features), generator=generator) / lr_multiplier)
-        self.bias = (nn.Parameter(torch.full((out_features,), float(bias_init)))
+        self.weight = nn.Parameter(prng.normal(key, (out_features, in_features)) / lr_multiplier)
+        self.bias = (nn.Parameter(zeros((out_features,), key) + float(bias_init))
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,17 +102,17 @@ class Conv2dLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool = True, activation: str = "linear", up: int = 1, down: int = 1,
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 conv_clamp: Optional[float] = None, key: Optional[torch.Tensor] = None):
         super().__init__()
+        key = root_key(key)
         self.in_channels = in_channels
         self.kernel_size = kernel_size
         self.activation = activation
         self.up, self.down = up, down
         self.conv_clamp = conv_clamp
         self.weight = nn.Parameter(
-            torch.randn((out_channels, in_channels, kernel_size, kernel_size), generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+            prng.normal(key, (out_channels, in_channels, kernel_size, kernel_size)))
+        self.bias = nn.Parameter(zeros(out_channels, key)) if bias else None
         self.register_buffer("resample_filter", setup_filter(list(resample_filter)),
                              persistent=False)
 
@@ -120,8 +133,9 @@ class MappingNetwork(nn.Module):
                  num_layers: int = 8, embed_features: Optional[int] = None,
                  layer_features: Optional[int] = None, activation: str = "lrelu",
                  lr_multiplier: float = 0.01, w_avg_beta: Optional[float] = 0.998,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        keys = prng.split(root_key(key), num_layers + 1)
         self.z_dim, self.c_dim, self.w_dim, self.num_ws = z_dim, c_dim, w_dim, num_ws
         self.num_layers = num_layers
         embed = embed_features if embed_features is not None else w_dim
@@ -132,11 +146,11 @@ class MappingNetwork(nn.Module):
         for i in range(num_layers):
             setattr(self, f"fc{i}", FullyConnectedLayer(
                 feats[i], feats[i + 1], activation=activation,
-                lr_multiplier=lr_multiplier, generator=generator))
+                lr_multiplier=lr_multiplier, key=keys[i]))
         if c_dim > 0:
-            self.embed = FullyConnectedLayer(c_dim, embed, generator=generator)
+            self.embed = FullyConnectedLayer(c_dim, embed, key=keys[-1])
         if num_ws is not None and w_avg_beta is not None:
-            self.register_buffer("w_avg", torch.zeros(w_dim))
+            self.register_buffer("w_avg", zeros(w_dim, keys))
 
     def forward(self, z: Optional[torch.Tensor], c: Optional[torch.Tensor],
                 truncation_psi: float = 1.0,
@@ -167,22 +181,22 @@ class SynthesisLayer(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
                  kernel_size: int = 3, up: int = 1, use_noise: bool = True,
                  activation: str = "lrelu", resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 conv_clamp: Optional[float] = None, key: Optional[torch.Tensor] = None):
         super().__init__()
+        k_affine, k_weight, k_noise = prng.split(root_key(key), 3)
         self.resolution = resolution
         self.kernel_size = kernel_size
         self.up = up
         self.use_noise = use_noise
         self.activation = activation
         self.conv_clamp = conv_clamp
-        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, generator=generator)
+        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, key=k_affine)
         self.weight = nn.Parameter(
-            torch.randn((out_channels, in_channels, kernel_size, kernel_size), generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+            prng.normal(k_weight, (out_channels, in_channels, kernel_size, kernel_size)))
+        self.bias = nn.Parameter(zeros(out_channels, k_weight))
         if use_noise:
-            self.noise_const = nn.Parameter(torch.randn((resolution, resolution), generator=generator))
-            self.noise_strength = nn.Parameter(torch.zeros(()))
+            self.noise_const = nn.Parameter(prng.normal(k_noise, (resolution, resolution)))
+            self.noise_strength = nn.Parameter(zeros((), k_noise))
         self.register_buffer("resample_filter", setup_filter(list(resample_filter)),
                              persistent=False)
 
@@ -213,14 +227,15 @@ class ToRGBLayer(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
                  kernel_size: int = 1, conv_clamp: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        k_affine, k_weight = prng.split(root_key(key))
         self.weight_gain = 1 / math.sqrt(in_channels * kernel_size ** 2)
         self.conv_clamp = conv_clamp
-        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, generator=generator)
+        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, key=k_affine)
         self.weight = nn.Parameter(
-            torch.randn((out_channels, in_channels, kernel_size, kernel_size), generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+            prng.normal(k_weight, (out_channels, in_channels, kernel_size, kernel_size)))
+        self.bias = nn.Parameter(zeros(out_channels, k_weight))
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w) * self.weight_gain
@@ -236,7 +251,7 @@ class SynthesisBlock(nn.Module):
                  img_channels: int, is_last: bool, architecture: str = "skip",
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
                  conv_clamp: Optional[float] = 256, up: int = 2, use_noise: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
         if architecture not in ("orig", "skip", "resnet"):
             raise ValueError(f"unknown architecture {architecture!r}")
@@ -245,21 +260,21 @@ class SynthesisBlock(nn.Module):
         self.up = up
         self.num_conv = 1 if in_channels == 0 else 2
         self.num_torgb = 1 if (is_last or architecture == "skip") else 0
-        g = generator
+        keys = prng.split(root_key(key), 5)
         if in_channels == 0:
-            self.const = nn.Parameter(torch.randn((out_channels, resolution, resolution), generator=g))
+            self.const = nn.Parameter(prng.normal(keys[0], (out_channels, resolution, resolution)))
         else:
             self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution, up=up,
-                                        resample_filter=resample_filter,
-                                        conv_clamp=conv_clamp, use_noise=use_noise, generator=g)
+                                        resample_filter=resample_filter, conv_clamp=conv_clamp,
+                                        use_noise=use_noise, key=keys[0])
         self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution,
-                                    conv_clamp=conv_clamp, use_noise=use_noise, generator=g)
+                                    conv_clamp=conv_clamp, use_noise=use_noise, key=keys[1])
         if self.num_torgb:
             self.torgb = ToRGBLayer(out_channels, img_channels, w_dim,
-                                    conv_clamp=conv_clamp, generator=g)
+                                    conv_clamp=conv_clamp, key=keys[2])
         if in_channels != 0 and architecture == "resnet":
             self.skip = Conv2dLayer(in_channels, out_channels, kernel_size=1, bias=False,
-                                    up=2, resample_filter=resample_filter, generator=g)
+                                    up=2, resample_filter=resample_filter, key=keys[3])
         self.register_buffer("resample_filter", setup_filter(list(resample_filter)),
                              persistent=False)
 
@@ -296,17 +311,18 @@ class SynthesisNetwork(nn.Module):
     def __init__(self, w_dim: int, img_resolution: int, img_channels: int,
                  channel_base: int = 32768, channel_max: int = 512, num_fp16_res: int = 4,
                  conv_clamp: Optional[float] = 256, architecture: str = "skip",
-                 use_noise: bool = True, generator: Optional[torch.Generator] = None):
+                 use_noise: bool = True, key: Optional[torch.Tensor] = None):
         super().__init__()
         log2 = int(math.log2(img_resolution))
         self.block_resolutions = [2 ** i for i in range(2, log2 + 1)]
         self.num_ws = 0
-        for res in self.block_resolutions:
+        keys = prng.split(root_key(key), len(self.block_resolutions))
+        for res, k in zip(self.block_resolutions, keys):
             in_ch = min(channel_base // (res // 2), channel_max) if res > 4 else 0
             block = SynthesisBlock(in_ch, min(channel_base // res, channel_max), w_dim, res,
                                    img_channels, is_last=res == img_resolution,
                                    conv_clamp=conv_clamp, architecture=architecture,
-                                   use_noise=use_noise, generator=generator)
+                                   use_noise=use_noise, key=k)
             setattr(self, f"b{res}", block)
             self.num_ws += block.num_conv + (block.num_torgb if res == img_resolution else 0)
 
@@ -331,15 +347,16 @@ class Generator(nn.Module):
                  img_channels: int, mapping_layers: int = 8, channel_base: int = 32768,
                  channel_max: int = 512, conv_clamp: Optional[float] = 256,
                  use_noise: bool = True, architecture: str = "skip",
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        k_map, k_syn = prng.split(root_key(key))
         self.synthesis = SynthesisNetwork(w_dim, img_resolution, img_channels,
                                           channel_base=channel_base, channel_max=channel_max,
                                           conv_clamp=conv_clamp, architecture=architecture,
-                                          use_noise=use_noise, generator=generator)
+                                          use_noise=use_noise, key=k_syn)
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim, c_dim, w_dim, num_ws=self.num_ws,
-                                      num_layers=mapping_layers, generator=generator)
+                                      num_layers=mapping_layers, key=k_map)
 
     def forward(self, z, c, truncation_psi=1.0, truncation_cutoff=None,
                 noise_mode="random", rng=None, dtype=torch.float32) -> torch.Tensor:
@@ -358,25 +375,24 @@ class DiscriminatorBlock(nn.Module):
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
                  resolution: int, img_channels: int, architecture: str = "resnet",
                  activation: str = "lrelu", resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 conv_clamp: Optional[float] = None, key: Optional[torch.Tensor] = None):
         super().__init__()
         if architecture not in ("orig", "skip", "resnet"):
             raise ValueError(f"unknown architecture {architecture!r}")
         self.in_channels = in_channels
         self.architecture = architecture
-        g = generator
+        keys = prng.split(root_key(key), 4)
         if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
-                                       activation=activation, conv_clamp=conv_clamp, generator=g)
+                                       activation=activation, conv_clamp=conv_clamp, key=keys[0])
         self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3,
-                                 activation=activation, conv_clamp=conv_clamp, generator=g)
+                                 activation=activation, conv_clamp=conv_clamp, key=keys[1])
         self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3,
                                  activation=activation, down=2, resample_filter=resample_filter,
-                                 conv_clamp=conv_clamp, generator=g)
+                                 conv_clamp=conv_clamp, key=keys[2])
         if architecture == "resnet":
             self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1, bias=False,
-                                    down=2, resample_filter=resample_filter, generator=g)
+                                    down=2, resample_filter=resample_filter, key=keys[3])
         self.register_buffer("resample_filter", setup_filter(list(resample_filter)),
                              persistent=False)
 
@@ -432,22 +448,21 @@ class DiscriminatorEpilogue(nn.Module):
     def __init__(self, in_channels: int, cmap_dim: int, resolution: int, img_channels: int,
                  architecture: str = "resnet", mbstd_group_size: Optional[int] = 4,
                  mbstd_num_channels: int = 1, activation: str = "lrelu",
-                 conv_clamp: Optional[float] = None,
-                 generator: Optional[torch.Generator] = None):
+                 conv_clamp: Optional[float] = None, key: Optional[torch.Tensor] = None):
         super().__init__()
         self.cmap_dim = cmap_dim
         self.architecture = architecture
         self.mbstd_group_size = mbstd_group_size
         self.mbstd_num_channels = mbstd_num_channels
-        g = generator
+        keys = prng.split(root_key(key), 4)
         self.conv = Conv2dLayer(in_channels + mbstd_num_channels, in_channels, kernel_size=3,
-                                activation=activation, conv_clamp=conv_clamp, generator=g)
+                                activation=activation, conv_clamp=conv_clamp, key=keys[0])
         self.fc = FullyConnectedLayer(in_channels * resolution ** 2, in_channels,
-                                      activation=activation, generator=g)
-        self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim, generator=g)
+                                      activation=activation, key=keys[1])
+        self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim, key=keys[2])
         if architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, in_channels, kernel_size=1,
-                                       activation=activation, generator=g)
+                                       activation=activation, key=keys[3])
 
     def forward(self, x, img, cmap):
         x = x.float()
@@ -466,19 +481,17 @@ class DiscriminatorEpilogue(nn.Module):
 class Discriminator(nn.Module):
     """StyleGAN2 discriminator, conditioned on the camera label through a
     mapping network. G-NeRF's depth discriminator takes one-channel 64^2
-    depth maps. Constructed on CUDA unless `device` names another device;
-    parameters are drawn on the CPU from `generator` (seed 0 when None)."""
+    depth maps. Constructed on CUDA unless `device` names another device,
+    from `key` (PRNGKey(0) when None) split as the JAX `init` splits it, on
+    that device; on `meta` nothing is drawn (`load_jax_params` fills it)."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
                  architecture: str = "resnet", channel_base: int = 32768,
                  channel_max: int = 512, conv_clamp: Optional[float] = 256,
                  cmap_dim: Optional[int] = None, mbstd_group_size: Optional[int] = 4,
-                 mapping_layers: int = 8, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 mapping_layers: int = 8, device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
         log2 = int(math.log2(img_resolution))
         self.block_resolutions = [2 ** i for i in range(log2, 2, -1)]
         self.c_dim = c_dim
@@ -488,20 +501,20 @@ class Discriminator(nn.Module):
 
         cmap = cmap_dim if cmap_dim is not None else channels(4)
         cmap = 0 if c_dim == 0 else cmap
-        for res in self.block_resolutions:
+        keys = prng.split(root_key(key).to(device), len(self.block_resolutions) + 2)
+        for res, k in zip(self.block_resolutions, keys):
             setattr(self, f"b{res}", DiscriminatorBlock(
                 channels(res) if res < img_resolution else 0, channels(res), channels(res // 2),
-                res, img_channels, architecture=architecture, conv_clamp=conv_clamp,
-                generator=generator))
+                res, img_channels, architecture=architecture, conv_clamp=conv_clamp, key=k))
         if c_dim > 0:
             self.mapping = MappingNetwork(z_dim=0, c_dim=c_dim, w_dim=cmap, num_ws=None,
                                           w_avg_beta=None, num_layers=mapping_layers,
-                                          generator=generator)
+                                          key=keys[-2])
         self.b4 = DiscriminatorEpilogue(channels(4), cmap_dim=cmap, resolution=4,
                                         img_channels=img_channels, architecture=architecture,
                                         mbstd_group_size=mbstd_group_size, conv_clamp=conv_clamp,
-                                        generator=generator)
-        self.to(device)
+                                        key=keys[-1])
+        place(self, device)
 
     def forward(self, img: torch.Tensor, c: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:

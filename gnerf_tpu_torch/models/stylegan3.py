@@ -25,8 +25,9 @@ from torch import nn
 
 from ..ops.conv2d_resample import _conv2d
 from ..ops.filtered_lrelu import filtered_lrelu
-from ..utils.device import resolve_device
-from .stylegan2 import FullyConnectedLayer, MappingNetwork
+from ..utils import prng
+from ..utils.device import place, resolve_device
+from .stylegan2 import FullyConnectedLayer, MappingNetwork, root_key, zeros
 
 
 def sg3_modulated_conv2d(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
@@ -82,20 +83,21 @@ class SynthesisInput(nn.Module):
     translation predicted from w."""
 
     def __init__(self, w_dim: int, channels: int, size: int, sampling_rate: float,
-                 bandwidth: float, generator: Optional[torch.Generator] = None):
+                 bandwidth: float, key: Optional[torch.Tensor] = None):
         super().__init__()
+        k_f, k_p, k_w, k_a = prng.split(root_key(key), 4)
         self.w_dim, self.channels, self.size = w_dim, channels, size
         self.sampling_rate, self.bandwidth = sampling_rate, bandwidth
-        freqs = torch.randn((channels, 2), generator=generator)
+        freqs = prng.normal(k_f, (channels, 2))
         radii = freqs.square().sum(dim=1, keepdim=True).sqrt()
         freqs = freqs / (radii * radii.square().exp() ** 0.25) * bandwidth
-        phases = torch.rand((channels,), generator=generator) - 0.5
-        self.weight = nn.Parameter(torch.randn((channels, channels), generator=generator))
-        self.affine = FullyConnectedLayer(w_dim, 4, bias_init=0.0, generator=generator)
-        with torch.no_grad():  # weight 0, bias [1, 0, 0, 0]: the identity transform
-            self.affine.weight.zero_()
-            self.affine.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
-        self.register_buffer("transform", torch.eye(3))
+        phases = prng.uniform(k_p, (channels,)) - 0.5
+        self.weight = nn.Parameter(prng.normal(k_w, (channels, channels)))
+        # Drawn, then set to the identity transform (weight 0, bias [1, 0, 0, 0]).
+        self.affine = FullyConnectedLayer(w_dim, 4, bias_init=0.0, key=k_a)
+        self.affine.weight = nn.Parameter(zeros((4, w_dim), k_a))
+        self.affine.bias = nn.Parameter(torch.tensor([1.0, 0.0, 0.0, 0.0], device=k_a.device))
+        self.register_buffer("transform", torch.eye(3, device=k_a.device))
         self.register_buffer("freqs", freqs)
         self.register_buffer("phases", phases)
 
@@ -141,8 +143,9 @@ class SynthesisLayer(nn.Module):
                  out_cutoff: float, in_half_width: float, out_half_width: float,
                  filter_size: int = 6, lrelu_upsampling: int = 2,
                  conv_clamp: Optional[float] = 256, magnitude_ema_beta: float = 0.999,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        k_a, k_w = prng.split(root_key(key))
         self.is_torgb, self.is_critically_sampled = is_torgb, is_critically_sampled
         self.in_channels, self.out_channels = in_channels, out_channels
         self.in_size, self.out_size = in_size, out_size
@@ -163,11 +166,11 @@ class SynthesisLayer(nn.Module):
         pad_hi = pad_total - pad_lo
         self.padding = (int(pad_lo), int(pad_hi), int(pad_lo), int(pad_hi))
 
-        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, generator=generator)
-        self.weight = nn.Parameter(torch.randn(
-            (out_channels, in_channels, self.kernel, self.kernel), generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
-        self.register_buffer("magnitude_ema", torch.ones(()))
+        self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1, key=k_a)
+        self.weight = nn.Parameter(
+            prng.normal(k_w, (out_channels, in_channels, self.kernel, self.kernel)))
+        self.bias = nn.Parameter(zeros(out_channels, k_w))
+        self.register_buffer("magnitude_ema", torch.ones((), device=k_w.device))
 
     def forward(self, x: torch.Tensor, w: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -199,8 +202,9 @@ class SynthesisNetwork(nn.Module):
                  num_critical: int = 2, first_cutoff: float = 2.0,
                  first_stopband: float = 2 ** 2.1, last_stopband_rel: float = 2 ** 0.3,
                  margin_size: int = 10, output_scale: float = 0.25,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        keys = prng.split(root_key(key), num_layers + 2)
         self.num_layers, self.output_scale = num_layers, output_scale
         last_cutoff = img_resolution / 2
         last_stopband = last_cutoff * last_stopband_rel
@@ -215,8 +219,7 @@ class SynthesisNetwork(nn.Module):
         channels[-1] = img_channels
 
         self.input = SynthesisInput(w_dim, int(channels[0]), int(sizes[0]),
-                                    float(sampling_rates[0]), float(cutoffs[0]),
-                                    generator=generator)
+                                    float(sampling_rates[0]), float(cutoffs[0]), key=keys[0])
         self.layer_names = []
         for idx in range(num_layers + 1):
             prev = max(idx - 1, 0)
@@ -229,7 +232,7 @@ class SynthesisNetwork(nn.Module):
                 out_sampling_rate=float(sampling_rates[idx]),
                 in_cutoff=float(cutoffs[prev]), out_cutoff=float(cutoffs[idx]),
                 in_half_width=float(half_widths[prev]), out_half_width=float(half_widths[idx]),
-                generator=generator)
+                key=keys[idx + 1])
             name = f"L{idx}_{layer.out_size}_{layer.out_channels}"
             setattr(self, name, layer)
             self.layer_names.append(name)
@@ -250,25 +253,25 @@ class SynthesisNetwork(nn.Module):
 
 class Generator(nn.Module):
     """The StyleGAN3 generator: mapping, then alias-free synthesis.
-    Constructed on CUDA unless `device` names another device; parameters
-    are drawn on the CPU from `generator` (seed 0 when None), then moved."""
+    Constructed on CUDA unless `device` names another device, from `key`
+    (PRNGKey(0) when None) split as the JAX `init` splits it; on `meta`
+    nothing is drawn."""
 
     def __init__(self, z_dim: int, c_dim: int, w_dim: int, img_resolution: int,
                  img_channels: int, mapping_layers: int = 2, channel_base: int = 32768,
                  channel_max: int = 512, num_layers: int = 14, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        k_m, k_s = prng.split(root_key(key).to(device))
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.img_resolution, self.img_channels = img_resolution, img_channels
         self.synthesis = SynthesisNetwork(w_dim, img_resolution, img_channels,
                                           channel_base=channel_base, channel_max=channel_max,
-                                          num_layers=num_layers, generator=generator)
+                                          num_layers=num_layers, key=k_s)
         self.mapping = MappingNetwork(z_dim, c_dim, w_dim, num_ws=self.synthesis.num_ws,
-                                      num_layers=mapping_layers, generator=generator)
-        self.to(device)
+                                      num_layers=mapping_layers, key=k_m)
+        place(self, device)
 
     @property
     def num_ws(self) -> int:

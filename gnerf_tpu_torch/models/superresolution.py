@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import interpolate_bilinear
-from .stylegan2 import SynthesisBlock
+from ..utils import prng
+from .stylegan2 import SynthesisBlock, root_key
 
 
 def _block_ws(ws: torch.Tensor) -> torch.Tensor:
@@ -35,7 +36,8 @@ def _block_ws(ws: torch.Tensor) -> torch.Tensor:
 
 class _SRBase(nn.Module):
     """Builds the blocks of `BLOCKS`, in order: (name, in channels, out
-    channels, resolution, is_last, up); None stands for `channels`."""
+    channels, resolution, is_last, up); None stands for `channels`. Block
+    i takes the i-th key of `key`'s split, as the JAX `init` does."""
 
     IMG_RESOLUTION = 512
     INPUT_RESOLUTION = 128
@@ -43,8 +45,7 @@ class _SRBase(nn.Module):
 
     def __init__(self, channels: int, img_resolution: int, sr_num_fp16_res: int = 0,
                  sr_antialias: bool = True, w_dim: int = 512, use_noise: bool = True,
-                 input_resolution: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 input_resolution: Optional[int] = None, key: Optional[torch.Tensor] = None):
         super().__init__()
         if img_resolution != self.IMG_RESOLUTION:
             raise ValueError(f"{type(self).__name__} produces {self.IMG_RESOLUTION}^2 images")
@@ -53,11 +54,12 @@ class _SRBase(nn.Module):
         self.sr_antialias = sr_antialias
         self.input_resolution = input_resolution or self.INPUT_RESOLUTION
         conv_clamp = 256 if sr_num_fp16_res > 0 else None
-        for name, cin, cout, res, is_last, up in self.BLOCKS:
+        keys = prng.split(root_key(key), len(self.BLOCKS))
+        for (name, cin, cout, res, is_last, up), k in zip(self.BLOCKS, keys):
             self.add_module(name, SynthesisBlock(
                 channels if cin is None else cin, channels if cout is None else cout, w_dim,
                 res, img_channels=3, is_last=is_last, conv_clamp=conv_clamp, up=up,
-                use_noise=use_noise, generator=generator))
+                use_noise=use_noise, key=k))
 
     def _resize(self, x, rgb, antialias):
         r = self.input_resolution

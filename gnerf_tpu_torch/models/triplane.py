@@ -19,8 +19,9 @@ from torch import nn
 from ..ops.fused_decoder import osg_decode
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import render_rays, run_model
-from ..utils.device import resolve_device
-from .stylegan2 import FullyConnectedLayer, Generator
+from ..utils import prng
+from ..utils.device import place, resolve_device
+from .stylegan2 import FullyConnectedLayer, Generator, root_key
 from .superresolution import make_superresolution
 
 
@@ -35,15 +36,16 @@ class OSGDecoder(nn.Module):
 
     def __init__(self, n_features: int = 32, hidden_dim: int = 64,
                  decoder_output_dim: int = 32, decoder_lr_mul: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
+        k0, k1 = prng.split(root_key(key))
         self.n_features = n_features
         self.hidden_dim = hidden_dim
         self.lr_mul = decoder_lr_mul
         self.fc0 = FullyConnectedLayer(n_features, hidden_dim, lr_multiplier=decoder_lr_mul,
-                                       generator=generator)
+                                       key=k0)
         self.fc1 = FullyConnectedLayer(hidden_dim, 1 + decoder_output_dim,
-                                       lr_multiplier=decoder_lr_mul, generator=generator)
+                                       lr_multiplier=decoder_lr_mul, key=k1)
 
     def folded_weights(self, dtype: torch.dtype):
         """(w1e [C, H] in `dtype`, b1e [H], w2e [H, D], b2e [D] fp32): the
@@ -88,9 +90,10 @@ DEFAULT_RENDERING_KWARGS = dict(
 
 
 class TriPlaneGenerator(nn.Module):
-    """Network G. Constructed on CUDA unless `device` names another device;
-    parameters are drawn on the CPU from `generator` (seed 0 when None) and
-    then moved, so a seed gives the same weights on every device."""
+    """Network G. Constructed on CUDA unless `device` names another device,
+    from `key` (PRNGKey(0) when None) split as the JAX `init` splits it:
+    the same key gives JAX's weights, drawn on that device. On `meta`
+    nothing is drawn; `load_jax_params(g, tree, device=...)` fills it."""
 
     def __init__(self, z_dim: int = 512, c_dim: int = 25, w_dim: int = 512,
                  img_resolution: int = 512, img_channels: int = 3, sr_num_fp16_res: int = 0,
@@ -98,12 +101,10 @@ class TriPlaneGenerator(nn.Module):
                  plane_resolution: int = 256, plane_channels: int = 32,
                  neural_rendering_resolution: int = 64,
                  rendering_kwargs: Optional[Mapping[str, Any]] = None,
-                 use_noise: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_noise: bool = True, device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        kb, kd, ks = prng.split(root_key(key).to(device), 3)
         self.rendering_kwargs = dict(
             DEFAULT_RENDERING_KWARGS if rendering_kwargs is None else rendering_kwargs)
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
@@ -113,19 +114,17 @@ class TriPlaneGenerator(nn.Module):
         self.backbone = Generator(z_dim, c_dim, w_dim, img_resolution=plane_resolution,
                                   img_channels=plane_channels * 3,
                                   mapping_layers=mapping_layers, channel_base=channel_base,
-                                  channel_max=channel_max, use_noise=use_noise,
-                                  generator=generator)
+                                  channel_max=channel_max, use_noise=use_noise, key=kb)
         self.decoder = OSGDecoder(n_features=plane_channels, decoder_output_dim=32,
-                                  decoder_lr_mul=rk.get("decoder_lr_mul", 1.0),
-                                  generator=generator)
+                                  decoder_lr_mul=rk.get("decoder_lr_mul", 1.0), key=kd)
         extra = {}
         if rk.get("sr_input_resolution"):
             extra["input_resolution"] = int(rk["sr_input_resolution"])
         self.superresolution = make_superresolution(
             rk["superresolution_module"], channels=32, img_resolution=img_resolution,
             sr_num_fp16_res=sr_num_fp16_res, sr_antialias=rk.get("sr_antialias", True),
-            w_dim=w_dim, use_noise=use_noise, generator=generator, **extra)
-        self.to(device)
+            w_dim=w_dim, use_noise=use_noise, key=ks, **extra)
+        place(self, device)
 
     @property
     def num_ws(self) -> int:

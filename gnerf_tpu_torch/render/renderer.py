@@ -105,13 +105,32 @@ def unify_samples(depths1, colors1, densities1, depths2, colors2, densities2):
     return depths_s[..., None], colors, densities
 
 
+def auto_ray_extremes(ray_origins: torch.Tensor, ray_directions: torch.Tensor,
+                      box_warp: float) -> torch.Tensor:
+    """The extremes that the 'auto' ray limits take over a batch of rays:
+    [-min valid start, max valid start, any valid], so that extremes over
+    several batches are the elementwise max."""
+    ray_start, ray_end = math_utils.get_ray_limits_box(
+        ray_origins, ray_directions, box_side_length=box_warp)
+    return _extremes(ray_start, ray_end > ray_start)
+
+
+def _extremes(ray_start: torch.Tensor, is_valid: torch.Tensor) -> torch.Tensor:
+    inf = torch.full_like(ray_start, float("inf"))
+    return torch.stack([-torch.where(is_valid, ray_start, inf).min(),
+                        torch.where(is_valid, ray_start, -inf).max(),
+                        is_valid.any().to(ray_start.dtype)])
+
+
 def render_rays(plane_features: torch.Tensor, decoder: Decoder,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
                 options: Mapping[str, Any], rng: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full two-pass render of rays [N, R, 3] ->
     (features [N, R, C_out], depth [N, R, 1], weight_sum [N, R, 1]).
-    rng=None gives fully deterministic sampling."""
+    rng=None gives fully deterministic sampling. With 'auto' ray limits,
+    `options["auto_extremes"]` (from `auto_ray_extremes`) names a larger
+    batch whose part these rays are."""
     if options["ray_start"] == options["ray_end"] == "auto":
         ray_start, ray_end = math_utils.get_ray_limits_box(
             ray_origins, ray_directions, box_side_length=options["box_warp"])
@@ -119,10 +138,9 @@ def render_rays(plane_features: torch.Tensor, decoder: Decoder,
         # Invalid rays get start = min(valid starts) and end = max(valid
         # STARTS), as the reference does; with no valid ray, limits stay.
         # Both extremes are over the global batch.
-        inf = torch.full_like(ray_start, float("inf"))
-        ext = torch.stack([-torch.where(is_valid, ray_start, inf).min(),
-                           torch.where(is_valid, ray_start, -inf).max(),
-                           is_valid.any().to(ray_start.dtype)])
+        ext = options.get("auto_extremes")
+        if ext is None:
+            ext = _extremes(ray_start, is_valid)
         mesh = active_mesh()
         if mesh is not None:
             ext = reduce_max(ext, mesh.data_group)

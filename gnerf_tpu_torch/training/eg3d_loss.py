@@ -318,7 +318,9 @@ def init_eg3d_state(g: TriPlaneGenerator, disc: DualDiscriminator, cfg: EG3DLoss
     all of G trainable, D's first `freeze_d_layers` conv layers frozen
     (`requires_grad_(False)`, out of the optimizer: they never move, while
     R1's input gradient still flows through them). `lazy` picks the Adam
-    scaling of `make_eg3d_phase_steps` (else `make_eg3d_train_step`'s)."""
+    scaling of `make_eg3d_phase_steps` (else `make_eg3d_train_step`'s). The
+    JAX `init_eg3d_state(..., rng)` draws G and D from split(rng);
+    `train.eg3d_networks` builds the modules from those keys."""
     g.requires_grad_(True)
     disc.requires_grad_(True)
     if cfg.freeze_d_layers > 0:

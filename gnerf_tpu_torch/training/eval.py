@@ -9,9 +9,12 @@ Frechet distance to the real images over pooled VGG features (not canonical
 FID, with a warning), or FID over InceptionV3 features when
 `--inception-weights` names converted weights.
 
-The generative route's z come from `torch.Generator().manual_seed(start)`
-per batch, not JAX's threefry: a seed names other samples than in the JAX
-package.
+The generative route's z for the batch at item `start` come from
+`fold_in(PRNGKey(0), start)` (`utils.prng`) and the random-VGG fallback from
+PRNGKey(1), as in the JAX CLI, so both CLIs score a snapshot alike. A
+snapshot without a `generator` config gets the JAX CLI's fallback G:
+128^2 through `SuperresolutionHybrid2X`, 12 + 12 samples per ray
+(`_eval_fallback_g`).
 
     python -m gnerf_tpu_torch.training.eval --network snap.npz --max_items 64 \\
         [--inception-weights inception.npz] [--device cpu]
@@ -24,6 +27,22 @@ import json
 import click
 import numpy as np
 import torch
+
+
+def _eval_fallback_g() -> dict:
+    from ..models.triplane import DEFAULT_RENDERING_KWARGS
+
+    return dict(img_resolution=128, rendering_kwargs=dict(
+        DEFAULT_RENDERING_KWARGS, superresolution_module="SuperresolutionHybrid2X",
+        depth_resolution=12, depth_resolution_importance=12))
+
+
+def generative_z(start: int, batch: int, z_dim: int, device=None) -> torch.Tensor:
+    """The generative route's z for the batch at item `start`: JAX's
+    normal(fold_in(PRNGKey(0), start), (batch, z_dim))."""
+    from ..utils import prng
+
+    return prng.normal(prng.fold_in(prng.PRNGKey(0, device=device), start), (batch, z_dim))
 
 
 def _dataset(dataset_name: str, real_data: str, max_items: int, resolution: int):
@@ -55,7 +74,8 @@ def run_eval(network: str, real_data: str = "", dataset_name: str = "synthetic",
 
     device = resolve_device(device)
     trees, _ = ckpt_lib.load_checkpoint(network)
-    g, enc = load_networks(network, device=device, double_sampling=False)
+    g, enc = load_networks(network, device=device, double_sampling=False,
+                           fallback_config=_eval_fallback_g())
     vgg = lpips_from_checkpoint(trees, lpips_weights, device)
     generative = enc is None
     dataset = _dataset(dataset_name, real_data, max_items, g.output_resolution())
@@ -73,8 +93,7 @@ def run_eval(network: str, real_data: str = "", dataset_name: str = "synthetic",
             real = to_device(bd, "loss_image") / 127.5 - 1.0
             if generative:
                 # Unconditional samples at psi = 1 (the fid50k convention).
-                z = torch.randn((batch, g.z_dim), generator=torch.Generator().manual_seed(start))
-                ws = g.mapping(z.to(device), c)
+                ws = g.mapping(generative_z(start, batch, g.z_dim, device), c)
             else:
                 ws = g.mapping(enc.apply(to_device(bd, "condition_image") / 127.5 - 1.0), c)
             fake = g.synthesis(ws, c, noise_mode="none")["image"]

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.interpolate import interpolate_bilinear
-from ..utils.device import resolve_device
+from ..utils import prng
+from ..utils.device import place, resolve_device
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -96,27 +97,29 @@ def inception_conv_shapes() -> dict:
 
 
 class _Conv(nn.Module):
-    def __init__(self, shape):
+    def __init__(self, shape, key: torch.Tensor):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(shape))
+        co, ci, kh, kw = shape
+        self.weight = nn.Parameter(prng.normal(key, shape) * math.sqrt(2.0 / (ci * kh * kw)))
 
 
 class _BN(nn.Module):
-    def __init__(self, c: int):
+    def __init__(self, c: int, device: torch.device):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.running_mean = nn.Parameter(torch.zeros(c))
-        self.running_var = nn.Parameter(torch.ones(c))
+        self.weight = nn.Parameter(torch.ones(c, device=device))
+        self.bias = nn.Parameter(torch.zeros(c, device=device))
+        self.running_mean = nn.Parameter(torch.zeros(c, device=device))
+        self.running_var = nn.Parameter(torch.ones(c, device=device))
 
 
 class _BasicConv2d(nn.Module):
-    """conv (no bias) + BN (eps 1e-3) + relu, with torchvision's names."""
+    """conv (no bias) + BN (eps 1e-3) + relu, with torchvision's names:
+    He-normal weights from `key`, identity BN."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, key: torch.Tensor):
         super().__init__()
-        self.conv = _Conv(shape)
-        self.bn = _BN(shape[0])
+        self.conv = _Conv(shape, key)
+        self.bn = _BN(shape[0], key.device)
 
     def forward(self, x, stride=1, padding=0):
         x = F.conv2d(x, self.conv.weight.to(x.dtype), stride=stride, padding=padding)
@@ -138,47 +141,26 @@ def _max_pool3s2(x):
 
 class InceptionV3Features(nn.Module):
     """Pool-3 (2048-d) InceptionV3 features for FID. Constructed on CUDA
-    unless `device` names another device, with `init`'s random weights
-    drawn on the CPU from `generator` (seed 0 when None); `load_inception`
-    loads converted pretrained weights."""
+    unless `device` names another device, with the JAX `init`'s random
+    weights (tests, and the card's smoke run) from `key` (PRNGKey(0) when
+    None); on `meta` nothing is drawn. `load_inception` loads converted
+    pretrained weights."""
 
-    def __init__(self, resize_to: int = 299, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, resize_to: int = 299, device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
         self.resize_to = resize_to
-        self._paths = list(inception_conv_shapes().items())
-        for path, shape in self._paths:
+        shapes = inception_conv_shapes()
+        keys = prng.split((prng.PRNGKey(0) if key is None else key).to(device), len(shapes))
+        for (path, shape), k in zip(shapes.items(), keys):
             node = self
             for part in path.split(".")[:-1]:
                 if not hasattr(node, part):
                     node.add_module(part, nn.Module())
                 node = getattr(node, part)
-            node.add_module(path.split(".")[-1], _BasicConv2d(shape))
-        self.init(torch.Generator().manual_seed(0) if generator is None else generator)
+            node.add_module(path.split(".")[-1], _BasicConv2d(shape, k))
         self.requires_grad_(False)
-        self.to(device)
-
-    def _unit(self, path: str) -> _BasicConv2d:
-        node = self
-        for part in path.split("."):
-            node = getattr(node, part)
-        return node
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "InceptionV3Features":
-        """Random weights with the exact torchvision shapes (tests, and the
-        card's smoke run): He-normal convolutions drawn on the CPU from
-        `generator`, identity BN."""
-        for path, (co, ci, kh, kw) in self._paths:
-            unit = self._unit(path)
-            w = torch.randn((co, ci, kh, kw), generator=generator) * math.sqrt(2.0 / (ci * kh * kw))
-            unit.conv.weight.copy_(w)
-            unit.bn.weight.fill_(1.0)
-            unit.bn.bias.zero_()
-            unit.bn.running_mean.zero_()
-            unit.bn.running_var.fill_(1.0)
-        return self
+        place(self, device)
 
     def _block_a(self, p, x):
         b1 = p.branch1x1(x)
@@ -281,6 +263,5 @@ def load_inception(path: str, device=None, resize_to: int = 299) -> InceptionV3F
     from ..utils import checkpoint as ckpt_lib
 
     trees, _ = ckpt_lib.load_checkpoint(path)
-    net = InceptionV3Features(resize_to=resize_to, device="cpu")
-    ckpt_lib.load_jax_params(net, trees["inception"])
-    return net.to(resolve_device(device))
+    net = InceptionV3Features(resize_to=resize_to, device="meta")
+    return ckpt_lib.load_jax_params(net, trees["inception"], device=resolve_device(device))

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.interpolate import interpolate_bilinear
-from ..utils.device import resolve_device
+from ..utils import prng
+from ..utils.device import place, resolve_device
 
 # ---------------------------------------------------------------------------
 # SSIM
@@ -79,11 +80,11 @@ _LPIPS_DIMS = (64, 128, 256, 512, 512)
 
 
 class _Conv3x3(nn.Module):
-    def __init__(self, in_c: int, out_c: int, generator: torch.Generator):
+    def __init__(self, in_c: int, out_c: int, key: torch.Tensor):
         super().__init__()
-        self.weight = nn.Parameter(torch.randn((out_c, in_c, 3, 3), generator=generator)
+        self.weight = nn.Parameter(prng.normal(key, (out_c, in_c, 3, 3))
                                    * math.sqrt(2.0 / (in_c * 9)))
-        self.bias = nn.Parameter(torch.zeros(out_c))
+        self.bias = nn.Parameter(torch.zeros(out_c, device=key.device))
 
     def forward(self, x):
         # The bias is cast too: an fp32 bias must not promote a bf16 chain.
@@ -107,29 +108,29 @@ class VGG16LPIPS(nn.Module):
     squared euclidean distance is the LPIPS distance. The weights are frozen
     (`requires_grad` False); names follow the JAX tree (`conv0/weight`,
     `lin0`, optional `preprocess/shift`). Constructed on CUDA unless `device`
-    names another device; random weights are drawn on the CPU from
-    `generator` (seed 0 when None)."""
+    names another device, from `key` (PRNGKey(0) when None) split as the
+    JAX `init` splits it; on `meta` nothing is drawn."""
 
     def __init__(self, resize_to: int = 256, antialias: bool = True, preprocess: bool = False,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, key: Optional[torch.Tensor] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        keys = prng.split((prng.PRNGKey(0) if key is None else key).to(device),
+                          len(_VGG_CFG) + len(_LPIPS_LAYERS))
         self.resize_to = resize_to
         self.antialias = antialias
         in_c, conv_i = 3, 0
         for v in _VGG_CFG:
             if v != "M":
-                setattr(self, f"conv{conv_i}", _Conv3x3(in_c, v, generator))
+                setattr(self, f"conv{conv_i}", _Conv3x3(in_c, v, keys[conv_i]))
                 in_c, conv_i = v, conv_i + 1
         self.n_convs = conv_i
         for i, d in enumerate(_LPIPS_DIMS):
-            setattr(self, f"lin{i}", nn.Parameter(torch.ones(d) / d))
+            setattr(self, f"lin{i}", nn.Parameter(torch.ones(d, device=device) / d))
         if preprocess:
             self.preprocess = _Preprocess()
         self.requires_grad_(False)
-        self.to(device)
+        place(self, device)
 
     def features(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = []
@@ -204,18 +205,17 @@ def load_lpips(path: str, device=None) -> tuple[VGG16LPIPS, dict]:
     meta = json.loads(flat.pop("__meta__").tobytes().decode("utf-8"))
     net = VGG16LPIPS(resize_to=int(meta.get("resize_to", 256)),
                      antialias=bool(meta.get("antialias", True)),
-                     preprocess=any(k.startswith("preprocess/") for k in flat), device="cpu")
-    load_jax_params(net, flat)
+                     preprocess=any(k.startswith("preprocess/") for k in flat), device="meta")
+    load_jax_params(net, flat, device=resolve_device(device))
     meta.setdefault("pretrained", True)
-    return net.to(resolve_device(device)), meta
+    return net, meta
 
 
 def lpips_params_or_warn(path: Optional[str] = None, device=None,
-                         generator: Optional[torch.Generator] = None
-                         ) -> tuple[VGG16LPIPS, bool]:
+                         key: Optional[torch.Tensor] = None) -> tuple[VGG16LPIPS, bool]:
     """The training loop's LPIPS: converted weights when `path` is given,
-    otherwise RANDOM VGG16 features with a loud warning. Returns (net,
-    pretrained)."""
+    otherwise RANDOM VGG16 features from `key` with a loud warning. Returns
+    (net, pretrained)."""
     if path:
         net, meta = load_lpips(path, device=device)
         print(f"LPIPS: loaded pretrained VGG16 weights from {path} "
@@ -226,25 +226,26 @@ def lpips_params_or_warn(path: Optional[str] = None, device=None,
           "perceptual term will NOT match the reference objective. Convert "
           "NVIDIA's vgg16.pt with tools/convert_vgg16_lpips.py and pass "
           "--lpips-weights to fix this.")
-    return VGG16LPIPS(device=device, generator=generator), False
+    return VGG16LPIPS(device=device, key=key), False
 
 
 def lpips_from_checkpoint(trees: dict, lpips_weights: str = "", device=None,
                           warn: bool = False) -> VGG16LPIPS:
     """The LPIPS net of the PTI and eval CLIs: converted weights when
     `lpips_weights` is given, else the checkpoint's `VGG` tree, else random
-    weights from seed 1 (with a warning when `warn`)."""
+    weights from PRNGKey(1), as the JAX CLIs draw them (with a warning when
+    `warn`)."""
     from ..utils.checkpoint import load_jax_params
 
     if lpips_weights:
         return load_lpips(lpips_weights, device=device)[0]
-    vgg = VGG16LPIPS(device="cpu", generator=torch.Generator().manual_seed(1))
+    device = resolve_device(device)
     if "VGG" in trees:
-        load_jax_params(vgg, trees["VGG"])
-    elif warn:
+        return load_jax_params(VGG16LPIPS(device="meta"), trees["VGG"], device=device)
+    if warn:
         print("WARNING: no pretrained LPIPS weights — PTI will optimize a random-VGG "
               "perceptual objective (pass --lpips-weights)")
-    return vgg.to(resolve_device(device))
+    return VGG16LPIPS(device=device, key=prng.PRNGKey(1))
 
 
 # ---------------------------------------------------------------------------

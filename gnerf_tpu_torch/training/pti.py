@@ -10,7 +10,8 @@ the identity encoder (the G-NeRF way), from the caller's ws, or from
 noise schedule). Single- and multi-image coaching are the shape of the batch.
 
 Draws (the locality regularizer's z, the projector's w_avg samples and
-noise) come from explicit `torch.Generator`s, not JAX's threefry.
+noise) come from threefry keys (`utils.prng`) split as the JAX package
+splits them, so a seed gives JAX's draws.
 
     python -m gnerf_tpu_torch.training.pti --network snap.npz --outdir runs/pti \\
         [--pivot encoder|project] [--align_lm LANDMARKS] [--device cpu]
@@ -26,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..models.triplane import TriPlaneGenerator
+from ..utils import prng
 from . import losses as L
 
 
@@ -73,15 +75,14 @@ def init_pti_state(g: TriPlaneGenerator, vgg: L.VGG16LPIPS, cfg: PTIConfig) -> P
 
 
 def make_pti_step(cfg: PTIConfig):
-    """Returns `pti_step(state, batch, rng=None, z=None) -> (state, stats)`.
+    """Returns `pti_step(state, batch, rng) -> (state, stats)`.
 
     batch: {ws [N, num_ws, w], loss_image [-1, 1] [N, 3, R, R], loss_c [N, 25]}.
-    The locality regularizer's z [samples, z_dim] is `z` when given, else
-    drawn from `rng`."""
+    `rng` is the step's threefry key; the locality regularizer's z
+    [samples, z_dim] is drawn from its second half, as in JAX."""
     res = cfg.neural_rendering_resolution
 
-    def pti_step(state: PTIState, batch, rng: Optional[torch.Generator] = None,
-                 z: Optional[torch.Tensor] = None):
+    def pti_step(state: PTIState, batch, rng: torch.Tensor):
         g, vgg = state.g, state.vgg
         synth = g.synthesis(batch["ws"], batch["loss_c"], neural_rendering_resolution=res,
                             noise_mode="none")["image"]
@@ -96,8 +97,7 @@ def make_pti_step(cfg: PTIConfig):
 
         if cfg.use_locality_reg:
             n = cfg.latent_ball_num_of_samples
-            if z is None:
-                z = torch.randn((n, g.z_dim), generator=rng, device=real.device)
+            z = prng.normal(prng.split(rng.to(real.device))[1], (n, g.z_dim))
             orig = state.g_original
             with torch.no_grad():
                 w_samples = orig.mapping(z, torch.zeros((n, g.c_dim), device=real.device),
@@ -137,16 +137,17 @@ def run_pti(g: TriPlaneGenerator, vgg: L.VGG16LPIPS, ws: torch.Tensor,
             cfg: Optional[PTIConfig] = None, seed: int = 0
             ) -> tuple[TriPlaneGenerator, list]:
     """Tune G on one pivot batch (single- or multi-id coach): (the tuned G,
-    the per-step total losses). Draws come from a generator seeded `seed`
-    on G's device."""
+    the per-step total losses). Step i's key is split from PRNGKey(seed) as
+    the JAX `run_pti` splits it."""
     cfg = cfg or PTIConfig()
     state = init_pti_state(g, vgg, cfg)
     step = make_pti_step(cfg)
-    rng = torch.Generator(device=ws.device).manual_seed(seed)
+    rng = prng.PRNGKey(seed, device=ws.device)
     batch = {"ws": ws, "loss_image": loss_image, "loss_c": loss_c}
     history = []
     for _ in range(num_steps):
-        _, stats = step(state, batch, rng)
+        rng, k = prng.split(rng)
+        _, stats = step(state, batch, k)
         history.append(float(stats["Loss/pti/total"]))
     return state.g, history
 
@@ -173,15 +174,16 @@ def project_w(
     starts at `start_ws[:, :1]` (e.g. the encoder's) or at w_avg over
     `w_avg_samples` mapping draws; Adam (no weight decay) with a linear lr
     rampup and cosine rampdown, and gaussian w noise decaying quadratically,
-    scaled by the measured w std. G's weights are not trained.
+    scaled by the measured w std. G's weights are not trained. The draws
+    come from PRNGKey(seed), split as the JAX `project_w` splits its key.
 
     Returns (ws [N, num_ws, w_dim], loss history)."""
     dev = target_image.device
     n = target_image.shape[0]
     res = neural_rendering_resolution or g.neural_rendering_resolution
-    rng = torch.Generator(device=dev).manual_seed(seed)
+    k_avg, rng = prng.split(prng.PRNGKey(seed, device=dev))
     with torch.no_grad():
-        z_samples = torch.randn((w_avg_samples, g.z_dim), generator=rng, device=dev)
+        z_samples = prng.normal(k_avg, (w_avg_samples, g.z_dim))
         w_samples = g.mapping(z_samples, torch.zeros((w_avg_samples, g.c_dim), device=dev))
         w_samples = w_samples[:, :1, :]
         w_avg = w_samples.mean(dim=0, keepdim=True)
@@ -199,7 +201,8 @@ def project_w(
         if lr_rampup_frac:
             lr_ramp = lr_ramp * min(1.0, t / lr_rampup_frac)
         opt.param_groups[0]["lr"] = initial_lr * lr_ramp
-        noise = torch.randn(w_opt.shape, generator=rng, device=dev)
+        rng, k = prng.split(rng)
+        noise = prng.normal(k, w_opt.shape)
         ws = (w_opt + noise_scale * noise).expand(n, g.num_ws, g.w_dim)
         synth = g.synthesis(ws, target_c, neural_rendering_resolution=res,
                             noise_mode="none")["image"]

@@ -253,9 +253,7 @@ def _resume(state, path, disc):
         ckpt_lib.load_jax_params(state.g, trees["G_ema"])
         ckpt_lib.load_jax_params(state.g_ema, trees["G_ema"])
     if "E" in trees:
-        state_e = trees.get("E_state") or {
-            k: v for k, v in ckpt_lib.module_params(state.enc).items()
-            if k.endswith(("/mean", "/var"))}
+        state_e = trees.get("E_state") or ckpt_lib.default_bn_state(state.enc)
         ckpt_lib.load_jax_params(state.enc, trees["E"], state_e)
     if "D" in trees and disc is not None:
         ckpt_lib.load_jax_params(disc, trees["D"])
@@ -419,13 +417,73 @@ def _any_rank(flag: bool, mesh, device) -> bool:
     return bool(flags.item() > 0)
 
 
+def _is_full_state(path: str) -> bool:
+    """Whether `path` is a full-state checkpoint of the port (which fills
+    every module of the run), read from its key names alone."""
+    with np.load(path) as data:
+        return any(k.startswith("train_state_torch/") for k in data.files)
+
+
+def _build(make, device, draw: bool):
+    """`make(device)` when `draw`; else the module built on `meta` (nothing
+    drawn) with uninitialised storage on `device`, for a full-state resume
+    to fill."""
+    from ..utils.checkpoint import materialize
+
+    return make(device) if draw else materialize(make(torch.device("meta")), device)
+
+
+def gnerf_networks(seed: int, cfg, z_dim: int, w_dim: int, img_resolution: int,
+                   rendering_kwargs: dict, lpips_weights: str = "", device=None,
+                   draw: bool = True):
+    """(G, E, the depth D or None, the LPIPS VGG, pretrained) of a G-NeRF
+    run, from the keys of the JAX `init_train_state(..., PRNGKey(seed))`:
+    split(PRNGKey(seed), 4) into E, G, D and the VGG (random unless
+    `lpips_weights`). With `draw` False nothing is drawn (`_build`)."""
+    from .. import models
+    from ..utils import prng
+    from . import losses
+
+    k_e, k_g, k_d, k_v = prng.split(prng.PRNGKey(seed), 4)
+    g = _build(lambda dev: models.TriPlaneGenerator(
+        z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
+        rendering_kwargs=rendering_kwargs, device=dev, key=k_g), device, draw)
+    enc = _build(lambda dev: models.ResNeXt50Encoder(out_dim=z_dim, device=dev, key=k_e),
+                 device, draw)
+    disc = (_build(lambda dev: models.Discriminator(
+        c_dim=25, img_resolution=cfg.neural_rendering_resolution, img_channels=1, device=dev,
+        key=k_d), device, draw) if cfg.gan_depth else None)
+    if lpips_weights:
+        vgg, pretrained = losses.lpips_params_or_warn(lpips_weights, device=device)
+    else:
+        vgg, pretrained = _build(lambda dev: losses.lpips_params_or_warn(
+            None, device=dev, key=k_v)[0], device, draw), False
+    return g, enc, disc, vgg, pretrained
+
+
+def eg3d_networks(seed: int, z_dim: int, w_dim: int, img_resolution: int,
+                  rendering_kwargs: dict, device=None, draw: bool = True):
+    """(G, the dual D) of an EG3D run, from the keys of the JAX
+    `init_eg3d_state(..., PRNGKey(seed))`: split(PRNGKey(seed)) into G and
+    D. With `draw` False nothing is drawn (`_build`)."""
+    from .. import models
+    from ..utils import prng
+
+    k_g, k_d = prng.split(prng.PRNGKey(seed))
+    g = _build(lambda dev: models.TriPlaneGenerator(
+        z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
+        rendering_kwargs=rendering_kwargs, device=dev, key=k_g), device, draw)
+    disc = _build(lambda dev: models.DualDiscriminator(
+        c_dim=25, img_resolution=img_resolution, img_channels=3, device=dev, key=k_d),
+        device, draw)
+    return g, disc
+
+
 def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name, data,
            real_data, z_dim, w_dim, lpips_weights, resume, device, mesh):
-    from ..models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
     from ..parallel import put_replicated
     from ..utils.stats import Collector
     from .dataset import collate
-    from .losses import lpips_params_or_warn
     from .train_loop import init_train_state, make_train_step, save_snapshot, save_train_state
 
     seed, batch = cfg.random_seed, cfg.batch_size
@@ -433,15 +491,9 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
     # one-step run); the loop counts whole images.
     total_nimg = int(round(cfg.total_kimg * 1000))
     tick_nimg = max(int(round(cfg.kimg_per_tick * 1000)), 1)
-    gen = torch.Generator().manual_seed(seed)
-    g = TriPlaneGenerator(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
-                          rendering_kwargs=rendering_kwargs, device=device, generator=gen)
-    enc = ResNeXt50Encoder(out_dim=z_dim, device=device, generator=gen)
-    disc = (Discriminator(c_dim=25, img_resolution=cfg.neural_rendering_resolution,
-                          img_channels=1, device=device, generator=gen)
-            if cfg.gan_depth else None)
-    vgg, lpips_pretrained = lpips_params_or_warn(
-        lpips_weights or None, device=device, generator=torch.Generator().manual_seed(seed + 7))
+    g, enc, disc, vgg, lpips_pretrained = gnerf_networks(
+        seed, cfg, z_dim, w_dim, img_resolution, rendering_kwargs, lpips_weights, device,
+        draw=not (resume and _is_full_state(resume)))
     state = init_train_state(g, enc, disc, vgg, cfg)
     best_ssim = -100.0
     lead = run_dir is not None
@@ -590,7 +642,6 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     `network-snapshot-latest.npz` (G_ema, G, D), every `--snap` ticks
     `network-snapshot-NNNNNN.npz`, and the full state with the live ADA p
     (`aug_p_live`) in its config; `--resume` restores both."""
-    from ..models import DualDiscriminator, TriPlaneGenerator
     from ..parallel import local_rows, put_replicated
     from ..utils import checkpoint as ckpt_lib
     from ..utils.stats import Collector
@@ -602,11 +653,8 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     seed, batch = train_cfg.random_seed, train_cfg.batch_size
     total_nimg = int(round(train_cfg.total_kimg * 1000))
     tick_nimg = max(int(round(train_cfg.kimg_per_tick * 1000)), 1)
-    gen = torch.Generator().manual_seed(seed)
-    g = TriPlaneGenerator(z_dim=z_dim, w_dim=w_dim, img_resolution=img_resolution,
-                          rendering_kwargs=rendering_kwargs, device=device, generator=gen)
-    disc = DualDiscriminator(c_dim=25, img_resolution=img_resolution, img_channels=3,
-                             device=device, generator=gen)
+    g, disc = eg3d_networks(seed, z_dim, w_dim, img_resolution, rendering_kwargs, device,
+                            draw=not resume)
     cfg = eg3d_loss_config(rendering_kwargs, train_cfg, g.neural_rendering_resolution, **eg3d)
     # An interval <= 1 on both sides fuses the regularizers into every step.
     lazy = cfg.g_reg_interval > 1 or cfg.d_reg_interval > 1

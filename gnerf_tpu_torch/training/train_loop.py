@@ -122,7 +122,9 @@ def init_train_state(g: TriPlaneGenerator, enc: ResNeXt50Encoder,
                      disc: Optional[Discriminator], vgg: L.VGG16LPIPS,
                      cfg: TrainConfig) -> TrainState:
     """A TrainState around freshly built modules: G_ema is a frozen copy of
-    G, the optimizers come from `make_optimizers`, cur_nimg is 0."""
+    G, the optimizers come from `make_optimizers`, cur_nimg is 0. The JAX
+    `init_train_state(..., rng)` draws E, G, D and the VGG from
+    split(rng, 4); `train.gnerf_networks` builds the modules from those keys."""
     import copy
 
     g_ema = copy.deepcopy(g).requires_grad_(False).eval()

@@ -1,9 +1,9 @@
 """Camera pose helpers (look-at orbits, intrinsics, 25-dim labels).
 
 Port of `gnerf_tpu/utils/camera.py`: float32 CPU tensors; callers move them
-to their device. The pose samplers draw their angles from an explicit
-`torch.Generator` (`rng`), h first, then v; with no generator, or no
-stddev, they give the mean pose.
+to their device. The pose samplers draw their angles from a threefry key
+(`rng`, `utils.prng`) split into h and v as in JAX, so a key gives JAX's
+poses; with no key, or no stddev, they give the mean pose.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..render.math_utils import normalize_vecs
+from . import prng
 
 
 def _cam2world(forward_vector: torch.Tensor, origin: torch.Tensor,
@@ -62,12 +63,12 @@ def _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev, vertical_
     """Orbit origins [B, 3] at angles drawn around the means (normal, or
     uniform in +-stddev), the polar angle through the arccos warp."""
     if rng is not None and (horizontal_stddev or vertical_stddev):
-        def draw():
-            if uniform:
-                return torch.rand((batch_size,), generator=rng) * 2 - 1
-            return torch.randn((batch_size,), generator=rng)
-        h = draw() * horizontal_stddev + horizontal_mean
-        v = draw() * vertical_stddev + vertical_mean
+        def draw(key):  # on the key's device; the poses are CPU tensors
+            u = prng.uniform(key, batch_size) * 2 - 1 if uniform else prng.normal(key, batch_size)
+            return u.cpu()
+        kh, kv = prng.split(rng)
+        h = draw(kh) * horizontal_stddev + horizontal_mean
+        v = draw(kv) * vertical_stddev + vertical_mean
     else:
         h = torch.full((batch_size,), float(horizontal_mean))
         v = torch.full((batch_size,), float(vertical_mean))
@@ -78,7 +79,7 @@ def _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev, vertical_
 def lookat_sample_origin(horizontal_mean: float, vertical_mean: float, lookat_position,
                          horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
                          radius: float = 1.0, batch_size: int = 1,
-                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                         rng: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gaussian angles through the arccos warp, looking at `lookat_position`."""
     origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,
                               vertical_stddev, radius, batch_size, rng, uniform=False)
@@ -89,7 +90,7 @@ def lookat_sample_origin(horizontal_mean: float, vertical_mean: float, lookat_po
 def gaussian_pose_sample(horizontal_mean: float, vertical_mean: float,
                          horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
                          radius: float = 1.0, batch_size: int = 1,
-                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                         rng: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gaussian angles through the arccos warp, looking at the origin."""
     origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,
                               vertical_stddev, radius, batch_size, rng, uniform=False)
@@ -99,7 +100,7 @@ def gaussian_pose_sample(horizontal_mean: float, vertical_mean: float,
 def uniform_pose_sample(horizontal_mean: float, vertical_mean: float,
                         horizontal_stddev: float = 0.0, vertical_stddev: float = 0.0,
                         radius: float = 1.0, batch_size: int = 1,
-                        rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                        rng: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Angles uniform in mean +- stddev through the arccos warp, looking at
     the origin."""
     origins = _warped_origins(horizontal_mean, vertical_mean, horizontal_stddev,

@@ -89,12 +89,42 @@ def encoder_trees(enc: nn.Module) -> dict[str, dict[str, np.ndarray]]:
     return {"E": {k: v for k, v in e.items() if k not in bn}, "E_state": {k: e[k] for k in bn}}
 
 
-def load_jax_params(module: nn.Module, *trees: Any) -> nn.Module:
+def default_bn_state(enc: nn.Module) -> dict[str, np.ndarray]:
+    """An encoder's BN running statistics at their init (mean 0, var 1), the
+    `E_state` of a checkpoint that has none."""
+    return {k.replace(".", SEP): (np.zeros if k.endswith(".mean") else np.ones)(
+                tuple(v.shape), np.float32)
+            for k, v in enc.state_dict().items() if k.endswith((".mean", ".var"))}
+
+
+def materialize(module: nn.Module, device) -> nn.Module:
+    """Give a module built on `meta` uninitialised storage on `device`
+    (`to_empty`), keeping the values of the buffers that were not on `meta`
+    (the constants its constructor computed)."""
+    kept = {n: b for n, b in module.named_buffers() if not b.is_meta}
+    loaded = set(module.state_dict())
+    unfilled = [n for n, b in module.named_buffers() if b.is_meta and n not in loaded]
+    if unfilled:
+        raise ValueError(f"buffers on meta that no load fills: {unfilled[:8]}")
+    module.to_empty(device=device)
+    with torch.no_grad():
+        for name, value in kept.items():
+            module.get_buffer(name).copy_(value)
+    return module
+
+
+def load_jax_params(module: nn.Module, *trees: Any, device=None) -> nn.Module:
     """Copy JAX param trees (nested dicts or flat `/`-keyed dicts of arrays)
     into `module`'s parameters and buffers, in place.
 
     Several trees are merged first (e.g. the encoder's params and its BN
-    state). Raises on any missing, extra, duplicate or mis-shaped key."""
+    state). Raises on any missing, extra, duplicate or mis-shaped key, so
+    every parameter is filled. A module built on `meta` (nothing drawn) is
+    first given storage on `device`, which it then needs."""
+    if any(p.is_meta for p in module.parameters()):
+        if device is None:
+            raise ValueError("a module built on meta needs the device to load onto")
+        materialize(module, torch.device(device))
     flat: dict[str, np.ndarray] = {}
     for tree in trees:
         for k, v in flatten_tree(tree).items():

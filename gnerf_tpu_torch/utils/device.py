@@ -42,3 +42,13 @@ def module_device(module: torch.nn.Module,
     if have.type != want.type:
         raise ValueError(f"the model lives on {have}, the call asks for {want}")
     return have
+
+
+def place(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """Move a module that was just built to `device`. On `meta` (a load
+    builds so: nothing drawn) it stays as built, its parameters on `meta`
+    and its constant buffers (resample filters, ...) where they were made,
+    for `utils.checkpoint.load_jax_params` to give storage and fill."""
+    if device.type != "meta":
+        module.to(device)
+    return module

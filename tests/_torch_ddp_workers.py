@@ -14,6 +14,7 @@ import torch.distributed as dist
 
 from gnerf_tpu_torch.parallel import (all_gather, all_reduce, check_replica_consistency,
                                       draw, local_rows, make_mesh, pmean_grads, use_mesh)
+from gnerf_tpu_torch.utils import prng
 
 
 def to_np(x):
@@ -189,7 +190,7 @@ def make_disc(name):
 
     cls, kw = DISCS[name]
     mod = stylegan2 if cls == "Discriminator" else dual_discriminator
-    return getattr(mod, cls)(**kw, device="cpu", generator=torch.Generator().manual_seed(3))
+    return getattr(mod, cls)(**kw, device="cpu", key=prng.PRNGKey(3))
 
 
 def disc_inputs(disc, name, img, raw, c):

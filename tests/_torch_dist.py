@@ -3,10 +3,15 @@ tests (tests/test_torch_parallel.py, test_torch_ddp_*.py).
 
 `run_ranks(fn, world, *args, timeout=...)` starts one child interpreter
 that spawns `world` processes with torchrun's environment (RANK,
-WORLD_SIZE, LOCAL_RANK, MASTER_ADDR=localhost, a free MASTER_PORT). Each
-joins the gloo group (unless `init=False`: then `fn` joins it itself) and
-calls `fn(rank, world, *args)`; the return values come back pickled, in
-rank order. `fn` must live in a module that imports neither JAX nor the JAX
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR=localhost, MASTER_PORT). As under
+torchrun, the rendezvous store is the spawner's: it binds a TCPStore to a
+port the system picks (port 0) before any rank starts, and the ranks join
+it as clients (TORCHELASTIC_USE_AGENT_STORE). So no port is released
+between being picked and being bound, where a concurrent run (pytest
+workers in parallel) could take it and two runs would meet in one store.
+Each rank joins the gloo group (unless `init=False`: then `fn` joins it
+itself, through env://) and calls `fn(rank, world, *args)`; the return
+values come back pickled, in rank order. `fn` must live in a module that imports neither JAX nor the JAX
 package (tests/_torch_ddp_workers.py), so the ranks start quickly. A rank
 that raises, or a run past `timeout` seconds (a hung rendezvous), fails
 the call, and every process of the run is killed.
@@ -17,26 +22,22 @@ import importlib
 import os
 import pickle
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS)
+# The ranks' collectives wait this long for a peer (a rank starting slowly
+# on a loaded host); `run_ranks`' own timeout bounds the whole run.
+PG_TIMEOUT = datetime.timedelta(seconds=300)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(fn, world: int, *args, timeout: float = 240, init: bool = True) -> list:
+def run_ranks(fn, world: int, *args, timeout: float = 300, init: bool = True) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         spec = os.path.join(tmp, "spec.pkl")
         with open(spec, "wb") as f:
-            pickle.dump((fn.__module__, fn.__name__, world, args, tmp, free_port(), init), f)
+            pickle.dump((fn.__module__, fn.__name__, world, args, tmp, init), f)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join([TESTS, ROOT]), OMP_NUM_THREADS="1")
         for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "GNERF_DISTRIBUTED"):
             env.pop(k, None)
@@ -68,10 +69,11 @@ def _rank_main(rank, module, name, world, args, tmp, port, init):
     import torch.distributed as dist
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      TORCHELASTIC_USE_AGENT_STORE="True")
     torch.set_num_threads(1)
     if init:
-        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=120))
+        dist.init_process_group("gloo", timeout=PG_TIMEOUT)
     try:
         out = getattr(importlib.import_module(module), name)(rank, world, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
@@ -87,10 +89,16 @@ def _rank_main(rank, module, name, world, args, tmp, port, init):
 
 
 if __name__ == "__main__":
+    import torch.distributed as dist
     import torch.multiprocessing as mp
 
     from _torch_dist import _rank_main as entry
 
     with open(sys.argv[1], "rb") as f:
-        module, name, world, args, tmp, port, init = pickle.load(f)
-    mp.spawn(entry, args=(module, name, world, args, tmp, port, init), nprocs=world, join=True)
+        module, name, world, args, tmp, init = pickle.load(f)
+    # The rendezvous store, as torchrun's agent hosts it, alive until the
+    # ranks are done.
+    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                          timeout=PG_TIMEOUT)
+    mp.spawn(entry, args=(module, name, world, args, tmp, store.port, init), nprocs=world,
+             join=True)

@@ -64,10 +64,10 @@ def jax_networks(**cfg_overrides):
 
 def port_state(jstate, lazy, **cfg_overrides):
     """The port's EG3DState holding the JAX state's parameters."""
-    g = TriPlaneGenerator(**TINY_G, rendering_kwargs=tiny_rendering_kwargs(), device="cpu")
-    load_jax_params(g, jstate["params_g"])
-    d = DualDiscriminator(**TINY_D, device="cpu")
-    load_jax_params(d, jstate["params_d"])
+    g = TriPlaneGenerator(**TINY_G, rendering_kwargs=tiny_rendering_kwargs(), device="meta")
+    load_jax_params(g, jstate["params_g"], device="cpu")
+    d = DualDiscriminator(**TINY_D, device="meta")
+    load_jax_params(d, jstate["params_d"], device="cpu")
     cfg = E.EG3DLossConfig(**CFG, **cfg_overrides)
     return E.init_eg3d_state(g, d, cfg, lazy=lazy), cfg
 

@@ -80,3 +80,30 @@ def to_np(x):
 def t(x):
     """numpy -> fp32 CPU tensor."""
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+# Leaves drawn by `uniform`, equal bit for bit: the encoder's projection
+# (and, by name, StyleGAN3's Fourier phases).
+ENC_UNIFORM = ("fc/weight", "fc/bias")
+
+
+def assert_init_matches(module, jax_tree, uniform=()):
+    """A port module built from a key against the JAX `init` tree of the
+    same key, leaf by leaf (tests/test_torch_init.py): constant and uniform
+    leaves equal, normal leaves within atol 1e-6 times the leaf's standard
+    deviation (its init scale) and rtol 2e-6."""
+    from gnerf_tpu_torch.utils.checkpoint import flatten_tree, module_params
+
+    want = flatten_tree(jax_tree)
+    got = module_params(module)
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        w = np.asarray(w, np.float32)
+        g = got[path]
+        assert g.shape == w.shape, path
+        if (w.size == 0 or path in uniform or path.endswith("phases")
+                or np.all(w == w.flat[0])):
+            np.testing.assert_array_equal(g, w, err_msg=path)
+        else:
+            np.testing.assert_allclose(g, w, rtol=2e-6, atol=1e-6 * float(w.std()),
+                                       err_msg=path)

@@ -39,12 +39,12 @@ def jax_setup():
 
 
 def port_vgg(params_vgg):
-    return load_jax_params(VGG16LPIPS(resize_to=32, device="cpu"), params_vgg)
+    return load_jax_params(VGG16LPIPS(resize_to=32, device="meta"), params_vgg, device="cpu")
 
 
 def port_networks(params_g, params_vgg):
-    g = TriPlaneGenerator(**TINY_GEN_CFG, device="cpu")
-    load_jax_params(g, params_g)
+    g = load_jax_params(TriPlaneGenerator(**TINY_GEN_CFG, device="meta"), params_g,
+                        device="cpu")
     return g, port_vgg(params_vgg)
 
 

@@ -53,10 +53,10 @@ def global_batch():
 def write_spec(path, jstate, cfg_overrides=None):
     spec = dict(g=dict(TINY_G, rendering_kwargs=tiny_rendering_kwargs()), disc=dict(TINY_D),
                 cfg=dict(CFG, **(cfg_overrides or {})), lazy=True)
-    g = TriPlaneGenerator(**spec["g"], device="cpu")
-    load_jax_params(g, jstate["params_g"])
-    d = DualDiscriminator(**spec["disc"], device="cpu")
-    load_jax_params(d, jstate["params_d"])
+    g = TriPlaneGenerator(**spec["g"], device="meta")
+    load_jax_params(g, jstate["params_g"], device="cpu")
+    d = DualDiscriminator(**spec["disc"], device="meta")
+    load_jax_params(d, jstate["params_d"], device="cpu")
     spec["state"] = {"g": g.state_dict(), "disc": d.state_dict()}
     torch.save(spec, path)
     return spec

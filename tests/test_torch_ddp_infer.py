@@ -87,7 +87,7 @@ def test_mesh_orbit_and_sweep_match_world1_and_jax(network, tmp_path, monkeypatc
     runs = [dict(network=network, video_out_path=str(tmp_path / name),
                  outdir=str(tmp_path / name), device="cpu", ray_shards=rays, **RUN)
             for name, rays in (("data4", 1), ("data2_rays2", 2), ("rays3", 3))]
-    ranks = run_ranks(W.infer_case, 4, runs, timeout=240, init=False)
+    ranks = run_ranks(W.infer_case, 4, runs, timeout=300, init=False)
     assert all(r == [None, None, ranks[0][2]] for r in ranks[1:])
     assert ranks[0][2] == "--ray_shards 3 must divide device count 4"
 

@@ -47,7 +47,7 @@ def test_synced_batchnorm_matches_jax_global_batch():
 
     (_, (y, st)), (gx, gp) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
         jnp.asarray(x), p)
-    results = run_ranks(W.bn_case, 4, x, w, params, 0.1, timeout=120)
+    results = run_ranks(W.bn_case, 4, x, w, params, 0.1, timeout=300)
     for rank, (y_r, gx_r, _, _, mean_r, var_r) in enumerate(results):
         rows = slice(2 * rank, 2 * rank + 2)
         np.testing.assert_allclose(y_r, np.asarray(y)[rows], **TOL)
@@ -76,7 +76,7 @@ def test_minibatch_std_groups_span_ranks_like_jax():
     gx = jax.grad(lambda xx: (jax_mbstd(xx, 4) * w).sum())(xj)
     g1 = jax.grad(lambda xx: jnp.tanh(jax_mbstd(xx, 4) * k).sum())(xj)
     gk = jax.grad(r1, argnums=1)(xj, jnp.asarray(k))
-    results = run_ranks(W.mbstd_case, 2, x, w, k, 4, timeout=120)
+    results = run_ranks(W.mbstd_case, 2, x, w, k, 4, timeout=300)
     for rank, (out_r, gx_r, g1_r, _) in enumerate(results):
         rows = slice(4 * rank, 4 * rank + 4)
         np.testing.assert_allclose(out_r, np.asarray(out)[rows], **TOL)
@@ -93,7 +93,7 @@ def discs():
     c = rs.randn(8, 25).astype(np.float32)
     want = {name: W.disc_logits_and_r1(name, *(torch.from_numpy(v) for v in (img, raw, c)))
             for name in W.DISCS}
-    return want, run_ranks(W.disc_case, 2, img, raw, c, timeout=180)
+    return want, run_ranks(W.disc_case, 2, img, raw, c, timeout=300)
 
 
 @pytest.mark.parametrize("name", list(W.DISCS))
@@ -130,7 +130,7 @@ def renders():
                    disparity_space_sampling=False, density_noise=0.5)
     want = W.render_rays_seeded(*(torch.from_numpy(v) for v in (planes, origins, dirs)),
                                 options)
-    return want, run_ranks(W.render_case, 2, planes, origins, dirs, options, timeout=120)
+    return want, run_ranks(W.render_case, 2, planes, origins, dirs, options, timeout=300)
 
 
 @pytest.mark.parametrize("split", ["data2", "rays2"])

@@ -87,14 +87,14 @@ def runs(tmp_path_factory):
                 enc=dict(out_dim=32, layers=ENC_LAYERS), disc=dict(TINY_D),
                 vgg=dict(resize_to=32),
                 cfg=dict(batch_size=BATCH, neural_rendering_resolution=8, train_gen=False))
-    tg = TriPlaneGenerator(**spec["g"], device="cpu")
-    load_jax_params(tg, jstate.params_g)
-    te = ResNeXt50Encoder(**spec["enc"], device="cpu")
-    load_jax_params(te, jstate.params_e, jstate.state_e)
-    td = Discriminator(**spec["disc"], device="cpu")
-    load_jax_params(td, jstate.params_d)
-    tv = L.VGG16LPIPS(**spec["vgg"], device="cpu")
-    load_jax_params(tv, jstate.params_vgg)
+    tg = TriPlaneGenerator(**spec["g"], device="meta")
+    load_jax_params(tg, jstate.params_g, device="cpu")
+    te = ResNeXt50Encoder(**spec["enc"], device="meta")
+    load_jax_params(te, jstate.params_e, jstate.state_e, device="cpu")
+    td = Discriminator(**spec["disc"], device="meta")
+    load_jax_params(td, jstate.params_d, device="cpu")
+    tv = L.VGG16LPIPS(**spec["vgg"], device="meta")
+    load_jax_params(tv, jstate.params_vgg, device="cpu")
     spec["state"] = {k: m.state_dict() for k, m in
                      (("g", tg), ("enc", te), ("disc", td), ("vgg", tv))}
     path = os.path.join(tmp_path_factory.mktemp("ddp_train"), "spec.pt")

@@ -41,8 +41,8 @@ def _pair(name, **extra):
                  "dummy": (jdd.DummyDualDiscriminator, dd.DummyDualDiscriminator)}[name]
     jd = jcls(**KW, **extra)
     params = jd.init(jax.random.PRNGKey(3))
-    d = cls(**KW, **extra, device="cpu")
-    load_jax_params(d, params)
+    d = cls(**KW, **extra, device="meta")
+    load_jax_params(d, params, device="cpu")
     return jd, params, d
 
 

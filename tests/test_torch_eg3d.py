@@ -109,8 +109,8 @@ def _pair_g(seed=0, **cfg_overrides):
     cfg = {**_tiny_g(), **cfg_overrides}
     jg = JGen(**cfg)
     params = jg.init(jax.random.PRNGKey(seed))
-    g = TriPlaneGenerator(**cfg, device="cpu")
-    load_jax_params(g, params)
+    g = TriPlaneGenerator(**cfg, device="meta")
+    load_jax_params(g, params, device="cpu")
     return jg, params, g
 
 

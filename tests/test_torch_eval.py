@@ -19,6 +19,7 @@ from gnerf_tpu.training import inception as JI
 from gnerf_tpu.training import metrics as JM
 from gnerf_tpu_torch.training import inception as I
 from gnerf_tpu_torch.training import metrics as M
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import flatten_tree, load_jax_params
 
 
@@ -89,8 +90,8 @@ def inception_tree():
 
 def test_inception_features_match_jax_and_the_oracle(inception_tree):
     shim, state, jparams = inception_tree
-    net = I.InceptionV3Features(resize_to=96, device="cpu")
-    load_jax_params(net, I.convert_torch_inception(state))
+    net = I.InceptionV3Features(resize_to=96, device="meta")
+    load_jax_params(net, I.convert_torch_inception(state), device="cpu")
     x = _images(2, 64, 1)
     got = to_np(net.features(t(x)))
     assert got.shape == (2, I.FEATURE_DIM)
@@ -109,7 +110,7 @@ def test_inception_features_match_jax_and_the_oracle(inception_tree):
 def test_inception_shapes_converter_and_loader(inception_tree, tmp_path):
     """The shape table and the converter equal JAX's; an npz the JAX
     package writes loads into the port's net with the converter's weights;
-    `init` redraws from its generator; a mis-shaped weight raises."""
+    a key names the random weights; a mis-shaped weight raises."""
     from gnerf_tpu.utils import checkpoint as jckpt
 
     _, state, jparams = inception_tree
@@ -127,9 +128,11 @@ def test_inception_shapes_converter_and_loader(inception_tree, tmp_path):
     assert loaded.keys() == ours.keys()
     for k, v in ours.items():
         np.testing.assert_array_equal(loaded[k], v, err_msg=k)
-    a = I.InceptionV3Features(device="cpu", generator=torch.Generator().manual_seed(5))
-    b = I.InceptionV3Features(device="cpu").init(torch.Generator().manual_seed(5))
+    a = I.InceptionV3Features(device="cpu", key=prng.PRNGKey(5))
+    b = I.InceptionV3Features(device="cpu", key=prng.PRNGKey(5))
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    assert not torch.equal(a.Conv2d_1a_3x3.conv.weight,
+                           I.InceptionV3Features(device="cpu").Conv2d_1a_3x3.conv.weight)
     bad = dict(state, **{"Mixed_5b.branch1x1.conv.weight": np.zeros((64, 192, 3, 3))})
     with pytest.raises(ValueError, match="Mixed_5b.branch1x1"):
         I.convert_torch_inception(bad)

@@ -19,6 +19,7 @@ from _torch_port import one_torch_thread, t, to_np  # noqa: F401
 from gnerf_tpu.models import OSGDecoder as JDecoder
 from gnerf_tpu_torch.models import OSGDecoder
 from gnerf_tpu_torch.ops.fused_decoder import OSGDecode, osg_decode, osg_decode_ref
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -133,7 +134,7 @@ def _kernel_tail(acc, b1e, w2e, b2e, split_dtype=torch.float16):
 
 def _case(n, m, c, out_dim, lr_mul, scale, dtype=torch.bfloat16):
     dec = OSGDecoder(n_features=c, decoder_output_dim=out_dim, decoder_lr_mul=lr_mul,
-                     generator=torch.Generator().manual_seed(m + c))
+                     key=prng.PRNGKey(m + c))
     weights = [w.detach() for w in dec.folded_weights(dtype)]
     feats = t(np.random.RandomState(m).randn(n, 3, m, c) * scale).to(dtype)
     return feats, weights

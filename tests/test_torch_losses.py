@@ -42,8 +42,8 @@ def vgg_pair():
     rs = np.random.RandomState(4)
     params = dict(params, **{f"lin{i}": jnp.asarray(rs.rand(d).astype(np.float32))
                              for i, d in enumerate((64, 128, 256, 512, 512))})
-    vgg = L.VGG16LPIPS(resize_to=32, device="cpu")
-    load_jax_params(vgg, params)
+    vgg = L.VGG16LPIPS(resize_to=32, device="meta")
+    load_jax_params(vgg, params, device="cpu")
     return jvgg, params, vgg
 
 
@@ -143,8 +143,8 @@ def test_r1_penalty_of_discriminator_matches_jax():
     kw = dict(c_dim=25, img_resolution=16, img_channels=1, channel_base=256, channel_max=32)
     jd = JD(**kw)
     params = jd.init(jax.random.PRNGKey(8))
-    d = Discriminator(**kw, device="cpu")
-    load_jax_params(d, params)
+    d = Discriminator(**kw, device="meta")
+    load_jax_params(d, params, device="cpu")
     rs = np.random.RandomState(9)
     x = (2.25 + rs.rand(4, 1, 16, 16)).astype(np.float32)
     c = rs.randn(4, 25).astype(np.float32)

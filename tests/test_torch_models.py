@@ -127,8 +127,8 @@ def encoder_pair():
     # Non-trivial BN statistics so the eval-mode normalization is exercised.
     state = jax.tree_util.tree_map(
         lambda a: jnp.asarray(rng.uniform(0.5, 1.5, a.shape).astype(np.float32)), state)
-    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="cpu")
-    load_jax_params(enc, params, state)
+    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="meta")
+    load_jax_params(enc, params, state, device="cpu")
     img = rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32)
     return jenc, params, state, enc, img
 
@@ -149,8 +149,8 @@ def generator_pair():
     cfg = tiny_gen_cfg()
     jg = JGen(**cfg)
     params = with_noise_strength(jg.init(jax.random.PRNGKey(8)))
-    g = TriPlaneGenerator(**cfg, device="cpu")
-    load_jax_params(g, params)
+    g = TriPlaneGenerator(**cfg, device="meta")
+    load_jax_params(g, params, device="cpu")
     return jg, params, g
 
 
@@ -185,8 +185,8 @@ def test_encoder_train_mode_matches_jax(encoder_pair):
     from gnerf_tpu_torch.utils.checkpoint import module_params
 
     jenc, params, state, _, _ = encoder_pair
-    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="cpu")
-    load_jax_params(enc, params, state)
+    enc = ResNeXt50Encoder(out_dim=24, layers=(1, 1, 1, 1), device="meta")
+    load_jax_params(enc, params, state, device="cpu")
     img = _smooth_photos(2, 64, seed=3)
     want, new_state = jenc.apply(params, state, jnp.asarray(img), train=True)
     got = enc.apply(t(img), train=True)
@@ -212,8 +212,8 @@ def test_discriminator_matches_jax(n, group, arch, cmap):
               mbstd_group_size=group, architecture=arch, cmap_dim=cmap)
     jd = jsg.Discriminator(**kw)
     params = jd.init(jax.random.PRNGKey(n))
-    d = stylegan2.Discriminator(**kw, device="cpu")
-    load_jax_params(d, params)
+    d = stylegan2.Discriminator(**kw, device="meta")
+    load_jax_params(d, params, device="cpu")
     rs = np.random.RandomState(n)
     img = (2.25 + rs.rand(n, 1, 16, 16) * 1.05).astype(np.float32)
     c = rs.randn(n, 25).astype(np.float32)

@@ -25,7 +25,7 @@ def test_mesh_layout_matches_jax():
     """Rank d * rays + r holds data shard d and ray shard r, as JAX's
     reshape(data, rays) lays out devices; data=None takes the rest; a mesh
     that does not cover the world raises JAX's message."""
-    results = run_ranks(W.mesh_case, WORLD, timeout=120)
+    results = run_ranks(W.mesh_case, WORLD, timeout=300)
     for name, (data, rays) in {"2x2": (2, 2), "rays2": (2, 2), "4x1": (4, 1),
                                "1x4": (1, 4)}.items():
         grid = np.asarray(jax_make_mesh(data=data, rays=rays,
@@ -79,7 +79,7 @@ def test_pmean_grads_order_matches_jax():
     that element on every rank, as JAX's pmean then nan_to_num does (here
     inside shard_map on a 4-device mesh). None gradients stay None."""
     grads = _pmean_inputs()
-    results = run_ranks(W.pmean_case, WORLD, grads, timeout=120)
+    results = run_ranks(W.pmean_case, WORLD, grads, timeout=300)
     mesh = jax_make_mesh(data=WORLD, devices=jax.devices()[:WORLD])
     for j in (0, 2):
         stacked = jnp.asarray(np.stack([g[j] for g in grads]))
@@ -96,14 +96,14 @@ def test_psum_moments_sums_the_ranks_triples():
     """[n, sum, sum_sq] triples add up over the ranks (training-stats sync)."""
     vals = np.concatenate([np.arange(3.0) + r for r in range(WORLD)])
     want = [vals.size, vals.sum(), np.square(vals).sum()]
-    for got in run_ranks(W.moments_case, WORLD, timeout=120):
+    for got in run_ranks(W.moments_case, WORLD, timeout=300):
         np.testing.assert_array_equal(got, want)
 
 
 def test_replica_consistency_check():
     """True while every rank holds the same tensors; once one rank changes
     one, every rank raises naming it."""
-    for first, second in run_ranks(W.replica_case, WORLD, timeout=120):
+    for first, second in run_ranks(W.replica_case, WORLD, timeout=300):
         assert first is True
         assert second == "replica divergence at b"
 
@@ -123,7 +123,7 @@ def _collective_inputs():
 @pytest.fixture(scope="module")
 def collectives():
     inputs = _collective_inputs()
-    return inputs, run_ranks(W.collectives_case, WORLD, inputs, timeout=120)
+    return inputs, run_ranks(W.collectives_case, WORLD, inputs, timeout=300)
 
 
 @pytest.mark.parametrize("name", list(W.collective_fns(None)))
@@ -159,7 +159,7 @@ def test_draw_is_the_ranks_part_of_the_world1_draw(data, rays):
     rows_rays = torch.rand((8, 8, 4), generator=gen)
     n, k = 8 // data, 8 // rays
     for rank, (got_rows, got_rays, got_local) in enumerate(
-            run_ranks(W.draw_case, WORLD, data, rays, timeout=120)):
+            run_ranks(W.draw_case, WORLD, data, rays, timeout=300)):
         d, r = divmod(rank, rays)
         np.testing.assert_array_equal(got_rows, W.to_np(rows[d * n:(d + 1) * n]))
         np.testing.assert_array_equal(got_rays, W.to_np(rows_rays[d * n:(d + 1) * n,

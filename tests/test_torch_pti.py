@@ -2,8 +2,7 @@
 
 From the same G, VGG, pivot ws and a two-image coaching batch, one
 `make_pti_step` (LPIPS + L1) and one with the locality regularizer (its z
-drawn from the JAX key as JAX draws it, handed to the port) give the JAX
-losses at rtol 1e-4 / atol 1e-5 and the JAX weights under the Adam-flip
+drawn by each package from the same step key) give the JAX losses at rtol 1e-4 / atol 1e-5 and the JAX weights under the Adam-flip
 rule (tests/_torch_eg3d.py): the SR module stays bitwise, every other G
 weight moves as in JAX. The locality case starts from a tuned G whose
 decoder differs from the original's: with the two equal (a first step) the
@@ -22,6 +21,7 @@ from _torch_port import one_torch_thread, t, to_np  # noqa: F401
 from _torch_pti import assert_g_matches, jax_setup, pivot_ws, port_networks, tiny_targets
 from gnerf_tpu.training import pti as JP
 from gnerf_tpu_torch.training import pti as P
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
 STEP_KEY = 10
@@ -57,13 +57,10 @@ def test_pti_step_matches_jax(locality):
 
     tg, tvgg = port_networks(params_g, params_vgg)
     state = P.init_pti_state(tg, tvgg, P.PTIConfig(**kw))
-    z = None
-    if locality:  # JAX's draw: k_reg, k_z = split(rng); z ~ N(k_z, (samples, z_dim))
+    if locality:
         load_jax_params(state.g.decoder, decoder)
-        z = torch.from_numpy(np.array(jax.random.normal(
-            jax.random.split(key)[1], (jcfg.latent_ball_num_of_samples, g.z_dim))))
     _, stats = P.make_pti_step(P.PTIConfig(**kw))(
-        state, {k: t(v) for k, v in batch.items()}, None, z=z)
+        state, {k: t(v) for k, v in batch.items()}, prng.PRNGKey(STEP_KEY))
 
     assert sorted(stats) == sorted(jstats)
     for k, v in jstats.items():
@@ -78,3 +75,21 @@ def test_pti_step_matches_jax(locality):
     moved = [not torch.equal(p, q) for (n, p), q in
              zip(state.g.named_parameters(), tg.parameters()) if not n.startswith("superres")]
     assert sum(moved) > len(moved) // 2
+
+
+def test_run_pti_matches_jax_from_seed():
+    """`run_pti` from a seed with the locality regularizer: each step's key
+    split from PRNGKey(seed) and its z drawn from it in both packages; the
+    per-step losses within rtol 1e-4 / atol 1e-5."""
+    g, params_g, vgg, params_vgg = jax_setup()
+    loss_image, loss_c = tiny_targets()
+    ws = pivot_ws(g, params_g)
+    kw = dict(lr=1e-3, neural_rendering_resolution=8, use_locality_reg=True,
+              latent_ball_num_of_samples=2)
+    _, want = JP.run_pti(g, params_g, vgg, params_vgg, jnp.asarray(ws), jnp.asarray(loss_image),
+                         jnp.asarray(loss_c), num_steps=3, cfg=JP.PTIConfig(**kw),
+                         rng=jax.random.PRNGKey(5))
+    tg, tvgg = port_networks(params_g, params_vgg)
+    _, got = P.run_pti(tg, tvgg, t(ws), t(loss_image), t(loss_c), num_steps=3,
+                       cfg=P.PTIConfig(**kw), seed=5)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

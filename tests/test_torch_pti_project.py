@@ -1,9 +1,9 @@
 """The port's w projector and PTI CLI (gnerf_tpu_torch.training.pti).
 
-`project_w` with its noise factor at 0 from the same start ws (LPIPS + L2)
-gives the JAX projector's loss history at rtol 1e-4 and its ws at rtol 1e-4
-/ atol 1e-5 (the w_avg draws, which differ between the packages, are
-unused then).
+`project_w` from the same seed (LPIPS + L2) gives the JAX projector's loss
+history at rtol 1e-4 and its ws at rtol 1e-4 / atol 1e-5: with its noise
+factor at 0 from the same start ws, and with the noise and the w_avg start,
+which draw from the seed's keys in both packages.
 `run_pti_cli` on a tiny snapshot writes `network-pti.npz` in the JAX
 layout: the JAX checkpoint reader loads it and its G_ema fills a JAX G's
 tree; the SR module is bitwise the input's and the rest of G moved."""
@@ -33,24 +33,38 @@ def test_project_w_matches_jax_without_noise():
     ws, hist = JP.project_w(g, params_g, vgg, params_vgg, jnp.asarray(target), jnp.asarray(c),
                             start_ws=jnp.asarray(start), rng=jax.random.PRNGKey(3), **kw)
     tg, tvgg = port_networks(params_g, params_vgg)
-    got, got_hist = P.project_w(tg, tvgg, t(target), t(c), start_ws=t(start), **kw)
+    got, got_hist = P.project_w(tg, tvgg, t(target), t(c), start_ws=t(start), seed=3, **kw)
     np.testing.assert_allclose(got_hist, hist, rtol=1e-4)
     assert got_hist[-1] < got_hist[0]
     np.testing.assert_allclose(to_np(got), np.asarray(ws), rtol=1e-4, atol=1e-5)
     assert got.shape == (2, tg.num_ws, tg.w_dim)
 
 
+@pytest.mark.parametrize("seed", [0, 4])
+def test_project_w_matches_jax_from_seed(seed):
+    """The w_avg start over 16 mapping draws and the noise of every step."""
+    g, params_g, vgg, params_vgg = jax_setup()
+    target, c = tiny_targets(n=2, seed=3)
+    kw = dict(num_steps=4, w_avg_samples=16, initial_lr=0.05, initial_noise_factor=0.5,
+              l2_lambda=1.0)
+    ws, hist = JP.project_w(g, params_g, vgg, params_vgg, jnp.asarray(target), jnp.asarray(c),
+                            rng=jax.random.PRNGKey(seed), **kw)
+    tg, tvgg = port_networks(params_g, params_vgg)
+    got, got_hist = P.project_w(tg, tvgg, t(target), t(c), seed=seed, **kw)
+    np.testing.assert_allclose(got_hist, hist, rtol=1e-4)
+    np.testing.assert_allclose(to_np(got), np.asarray(ws), rtol=1e-4, atol=1e-5)
+
+
 def _snapshot(tmp_path):
     """A tiny port snapshot (G_ema, a (1, 1, 1, 1) E with its BN state)."""
-    import torch
-
     from gnerf_tpu_torch.models import ResNeXt50Encoder
     from gnerf_tpu_torch.utils import checkpoint as ckpt
+    from gnerf_tpu_torch.utils import prng
 
     _, params_g, _, params_vgg = jax_setup()
     g, _ = port_networks(params_g, params_vgg)
     enc = ResNeXt50Encoder(out_dim=16, layers=(1, 1, 1, 1), device="cpu",
-                           generator=torch.Generator().manual_seed(2))
+                           key=prng.PRNGKey(2))
     path = str(tmp_path / "snap.npz")
     ckpt.save_checkpoint(path, {"G_ema": g, **ckpt.encoder_trees(enc)},
                          config={"generator": json.loads(json.dumps(TINY_GEN_CFG)),

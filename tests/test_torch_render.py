@@ -44,30 +44,28 @@ def test_camera_matches_jax():
 @pytest.mark.parametrize("sampler", ["gaussian_pose_sample", "uniform_pose_sample",
                                      "lookat_sample_origin"])
 def test_pose_samplers_match_jax(sampler):
-    """The rng-free path against JAX's to 1e-6; with stddev and a generator,
-    each matrix is the rng-free one at its drawn angles (h drawn first, then
-    v: normal, or uniform in +-stddev)."""
-    import torch
+    """The rng-free path against JAX's to 1e-6; with stddev and a key, the
+    drawn poses (h and v from split(key), normal or uniform in +-stddev)
+    against JAX's from the same key, to 1e-6."""
+    from gnerf_tpu_torch.utils import prng
 
     target = [[0.0, 0.0, 0.2]] if sampler == "lookat_sample_origin" else []
+    jtarget = [jnp.asarray(p) for p in target]
     jfn, fn = getattr(jcam, sampler), getattr(camera, sampler)
-    want = np.asarray(jfn(1.2, 1.4, *[jnp.asarray(p) for p in target], radius=2.7,
+    want = np.asarray(jfn(1.2, 1.4, *jtarget, radius=2.7,
                           batch_size=3, horizontal_stddev=0.3, vertical_stddev=0.2))
     got = to_np(fn(1.2, 1.4, *target, radius=2.7, batch_size=3, horizontal_stddev=0.3,
                    vertical_stddev=0.2))
     assert got.shape == (3, 4, 4)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
-    drawn = to_np(fn(1.2, 1.4, *target, 0.3, 0.2, radius=2.7, batch_size=5,
-                     rng=torch.Generator().manual_seed(7)))
-    gen = torch.Generator().manual_seed(7)
-    draw = ((lambda: torch.rand((5,), generator=gen) * 2 - 1) if sampler.startswith("uniform")
-            else (lambda: torch.randn((5,), generator=gen)))
-    hs, vs = draw() * 0.3 + 1.2, draw() * 0.2 + 1.4
-    assert np.abs(drawn - got[:1]).max() > 1e-3  # the draws moved the poses
-    for i in range(5):
-        one = to_np(fn(float(hs[i]), float(vs[i]), *target, radius=2.7))
-        np.testing.assert_allclose(drawn[i], one[0], rtol=1e-6, atol=1e-6)
+    for seed in (7, 2 ** 31 - 1):
+        drawn = to_np(fn(1.2, 1.4, *target, 0.3, 0.2, radius=2.7, batch_size=5,
+                         rng=prng.PRNGKey(seed)))
+        want = np.asarray(jfn(1.2, 1.4, *jtarget, 0.3, 0.2, radius=2.7, batch_size=5,
+                              rng=jax.random.PRNGKey(seed)))
+        assert np.abs(drawn - got[:1]).max() > 1e-3  # the draws moved the poses
+        np.testing.assert_allclose(drawn, want, rtol=0, atol=1e-6)
 
 
 def test_sample_rays_and_ray_limits_match_jax():

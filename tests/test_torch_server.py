@@ -48,10 +48,9 @@ def nets():
     params_g = with_noise_strength(jg.init(jax.random.PRNGKey(0)))
     jenc = JEncoder(out_dim=16, layers=ENC_LAYERS, groups_as_dense=False)
     params_e, state_e = jenc.init(jax.random.PRNGKey(1))
-    g = TriPlaneGenerator(**CFG, device="cpu")
-    load_jax_params(g, params_g)
-    enc = ResNeXt50Encoder(out_dim=16, layers=ENC_LAYERS, device="cpu")
-    load_jax_params(enc, params_e, state_e)
+    g = load_jax_params(TriPlaneGenerator(**CFG, device="meta"), params_g, device="cpu")
+    enc = load_jax_params(ResNeXt50Encoder(out_dim=16, layers=ENC_LAYERS, device="meta"),
+                          params_e, state_e, device="cpu")
     for net in (g, enc):
         net.requires_grad_(False).eval()
     return jg, params_g, jenc, params_e, state_e, g, enc
@@ -86,7 +85,7 @@ def test_service_encode_render_and_lru(service):
     orbit = s.render_orbit(a, frames=3)
     assert len(orbit) == 3 and orbit[0].shape == (32, 32, 3)
     assert s.render_frame(a, fov=18.837).shape == (32, 32, 3)
-    # A seed names the same identity every time, within the port.
+    # A seed names the same identity every time.
     np.testing.assert_array_equal(s.render_frame(s.encode_seed(0)), fa)
 
 
@@ -313,6 +312,58 @@ def test_frames_match_jax_service(nets, path):
     finally:
         svc.close()
         jsvc.close()
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_encode_seed_matches_jax_service(nets, seed):
+    """A seed names the same identity in both packages: z from PRNGKey(seed)
+    within 1e-6, then ws and planes within this file's tolerance."""
+    from gnerf_tpu_torch.utils import prng
+
+    np.testing.assert_allclose(
+        prng.normal(prng.PRNGKey(seed), (1, 16)).numpy(),
+        np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1, 16))), rtol=0, atol=1e-6)
+    jsvc = _jax_service(nets, microbatch=0)
+    svc = GNerfService(nets[5], nets[6], dtype=torch.float32, device="cpu", microbatch=0)
+    try:
+        jws = jsvc._identities[jsvc.encode_seed(seed)][0]
+        want = (jws, nets[0].backbone_planes(nets[1], jws, noise_mode="const"))
+        got = svc._identities[svc.encode_seed(seed)]
+        for g_, w in zip(got, want):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+    finally:
+        svc.close()
+        jsvc.close()
+
+
+def test_orbit_auto_ray_limits_over_two_replicas(nets):
+    """With 'auto' ray limits (ShapeNet's box, a far camera whose corner
+    rays miss it), each replica's part of a chunk takes the limits'
+    extremes over the whole chunk: the orbit over two replicas equals one
+    device's and is within +-1 of the JAX server's."""
+    jg, params_g, *_ = nets
+    rk = dict(CFG["rendering_kwargs"], ray_start="auto", ray_end="auto", box_warp=1.6,
+              avg_camera_radius=1.7, avg_camera_pivot=(0, 0, 0), white_back=True)
+    jsvc = jserver.GNerfService(JGen(**dict(CFG, rendering_kwargs=rk)), params_g,
+                                dtype=jnp.float32, microbatch=0)
+    g = TriPlaneGenerator(**dict(CFG, rendering_kwargs=rk), device="meta")
+    load_jax_params(g, params_g, device="cpu").requires_grad_(False).eval()
+    z = np.random.RandomState(8).randn(1, 16).astype(np.float32)
+    try:
+        want = np.stack(jsvc.render_orbit(jsvc._register(jnp.asarray(z)), frames=2, radius=16.0))
+        orbits = []
+        for devices in (["cpu"], ["cpu", "cpu"]):
+            svc = GNerfService(g, None, dtype=torch.float32, devices=devices, microbatch=0)
+            try:
+                orbits.append(np.stack(svc.render_orbit(svc._register(torch.from_numpy(z)),
+                                                        frames=2, radius=16.0)))
+            finally:
+                svc.close()
+    finally:
+        jsvc.close()
+    assert orbits[0].shape == want.shape == (2, 32, 32, 3) and orbits[0].std() > 0
+    np.testing.assert_array_equal(orbits[1], orbits[0])
+    assert np.abs(orbits[1].astype(int) - want.astype(int)).max() <= 1
 
 
 def test_load_service_from_jax_checkpoint(nets, tmp_path):

@@ -29,8 +29,8 @@ def generator_pair():
     cfg = tiny_gen_cfg()
     jg = JGen(**cfg)
     params = with_noise_strength(jg.init(jax.random.PRNGKey(11)))
-    g = TriPlaneGenerator(**cfg, device="cpu")
-    load_jax_params(g, params)
+    g = TriPlaneGenerator(**cfg, device="meta")
+    load_jax_params(g, params, device="cpu")
     g.requires_grad_(False)
     z = np.random.RandomState(12).randn(1, 32).astype(np.float32)
     ws = np.asarray(jg.mapping(params, jnp.asarray(z), jnp.zeros((1, 25))))

@@ -98,8 +98,8 @@ def tiny():
     """(JAX Generator, its params, the port's Generator with them, z)."""
     jg = J.Generator(**TINY)
     params = jg.init(jax.random.PRNGKey(0))
-    tg = T.Generator(**TINY, device="cpu")
-    load_jax_params(tg, params)
+    tg = T.Generator(**TINY, device="meta")
+    load_jax_params(tg, params, device="cpu")
     z = np.random.RandomState(1).randn(2, 16).astype(np.float32)
     return jg, params, tg, z
 

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from _torch_port import one_torch_thread  # noqa: F401
+from _torch_port import ENC_UNIFORM, assert_init_matches, one_torch_thread  # noqa: F401
 
 
 def _printed_options(text):
@@ -92,6 +92,54 @@ def tiny_networks(monkeypatch):
     monkeypatch.setattr(losses, "VGG16LPIPS", shrink(losses.VGG16LPIPS, resize_to=32))
 
 
+@pytest.mark.parametrize("objective", ["gnerf", "eg3d"])
+def test_cli_networks_match_jax_init_state(tiny_networks, objective):
+    """The CLI's networks from --seed are the JAX CLI's: G-NeRF's E, G, D
+    and random VGG from `init_train_state(..., PRNGKey(seed))`, EG3D's G and
+    dual D from `init_eg3d_state(..., PRNGKey(seed))`, at the tiny widths."""
+    import optax
+
+    import jax
+    from gnerf_tpu.models import Discriminator as JD
+    from gnerf_tpu.models import DualDiscriminator as JDD
+    from gnerf_tpu.models import ResNeXt50Encoder as JEnc
+    from gnerf_tpu.models import TriPlaneGenerator as JGen
+    from gnerf_tpu.models.triplane import DEFAULT_RENDERING_KWARGS
+    from gnerf_tpu.training import VGG16LPIPS as JVGG
+    from gnerf_tpu.training.eg3d_loss import init_eg3d_state as jinit_eg3d
+    from gnerf_tpu.training.train_loop import TrainConfig as JCfg
+    from gnerf_tpu.training.train_loop import init_train_state as jinit
+    from gnerf_tpu_torch.training import train
+    from gnerf_tpu_torch.training.train_loop import TrainConfig
+    from gnerf_tpu_torch.utils.checkpoint import flatten_tree
+
+    seed, rk = 3, dict(DEFAULT_RENDERING_KWARGS)
+    jg = JGen(z_dim=32, w_dim=32, rendering_kwargs=rk, plane_resolution=16, channel_base=512,
+              channel_max=32)
+    if objective == "gnerf":
+        cfg = TrainConfig(neural_rendering_resolution=32)
+        g, enc, disc, vgg, pretrained = train.gnerf_networks(seed, cfg, 32, 32, 512, rk,
+                                                             device="cpu")
+        want = jinit(jg, JEnc(out_dim=32, layers=(1, 1, 1, 1)),
+                     JD(c_dim=25, img_resolution=32, img_channels=1, channel_base=256,
+                        channel_max=32),
+                     JVGG(resize_to=32), JCfg(neural_rendering_resolution=32),
+                     jax.random.PRNGKey(seed))
+        assert not pretrained
+        assert_init_matches(enc, {**flatten_tree(want.params_e), **flatten_tree(want.state_e)},
+                            uniform=ENC_UNIFORM)
+        assert_init_matches(vgg, want.params_vgg)
+        pairs = [(g, want.params_g), (disc, want.params_d)]
+    else:
+        g, disc = train.eg3d_networks(seed, 32, 32, 512, rk, device="cpu")
+        want = jinit_eg3d(jg, JDD(c_dim=25, img_resolution=512, img_channels=3,
+                                  channel_base=256, channel_max=32),
+                          optax.adam(1e-3), optax.adam(1e-3), jax.random.PRNGKey(seed))
+        pairs = [(g, want["params_g"]), (disc, want["params_d"])]
+    for module, tree in pairs:
+        assert_init_matches(module, tree)
+
+
 def test_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_networks):
     from gnerf_tpu.utils import checkpoint as jckpt
     from gnerf_tpu_torch.training.train import run_training
@@ -157,8 +205,8 @@ def test_eg3d_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_netwo
     state_trees, state_cfg = load_checkpoint(os.path.join(run, "training-state-latest.npz"))
     assert state_cfg["aug_p_live"] == 0.0
     d_kw = dict(c_dim=25, img_resolution=128, img_channels=3, channel_base=256, channel_max=32)
-    d = DualDiscriminator(**d_kw, device="cpu")
-    load_jax_params(d, state_trees["train_state_torch"]["disc"])
+    d = DualDiscriminator(**d_kw, device="meta")
+    load_jax_params(d, state_trees["train_state_torch"]["disc"], device="cpu")
     rs = np.random.RandomState(0)
     img = {"image": rs.randn(2, 3, 128, 128).astype(np.float32),
            "image_raw": rs.randn(2, 3, 64, 64).astype(np.float32)}

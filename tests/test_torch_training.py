@@ -91,14 +91,14 @@ def jax_setup(train_gen):
 
 def port_state(jstate, train_gen, **cfg_overrides):
     """The port's TrainState holding the JAX state's parameters."""
-    g = TriPlaneGenerator(**TINY_G, rendering_kwargs=tiny_rendering_kwargs(), device="cpu")
-    load_jax_params(g, jstate.params_g)
-    enc = ResNeXt50Encoder(out_dim=32, layers=ENC_LAYERS, device="cpu")
-    load_jax_params(enc, jstate.params_e, jstate.state_e)
-    disc = Discriminator(**TINY_D, device="cpu")
-    load_jax_params(disc, jstate.params_d)
-    vgg = L.VGG16LPIPS(resize_to=32, device="cpu")
-    load_jax_params(vgg, jstate.params_vgg)
+    g = TriPlaneGenerator(**TINY_G, rendering_kwargs=tiny_rendering_kwargs(), device="meta")
+    load_jax_params(g, jstate.params_g, device="cpu")
+    enc = ResNeXt50Encoder(out_dim=32, layers=ENC_LAYERS, device="meta")
+    load_jax_params(enc, jstate.params_e, jstate.state_e, device="cpu")
+    disc = Discriminator(**TINY_D, device="meta")
+    load_jax_params(disc, jstate.params_d, device="cpu")
+    vgg = L.VGG16LPIPS(resize_to=32, device="meta")
+    load_jax_params(vgg, jstate.params_vgg, device="cpu")
     cfg = T.TrainConfig(batch_size=2, neural_rendering_resolution=8, train_gen=train_gen,
                         **cfg_overrides)
     return T.init_train_state(g, enc, disc, vgg, cfg), cfg

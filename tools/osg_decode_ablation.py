@@ -135,6 +135,7 @@ def main(argv=None) -> int:
     import torch
 
     from gnerf_tpu_torch.models import OSGDecoder
+    from gnerf_tpu_torch.utils import prng
 
     if not torch.cuda.is_available():
         raise SystemExit("osg_decode_ablation: needs a CUDA card")
@@ -146,7 +147,7 @@ def main(argv=None) -> int:
 
     m, c = 64 * 64 * 96, 32
     gen = torch.Generator().manual_seed(m + c)
-    dec = OSGDecoder(n_features=c, decoder_output_dim=32, generator=gen).cuda()
+    dec = OSGDecoder(n_features=c, decoder_output_dim=32, key=prng.PRNGKey(m + c)).cuda()
     w1, b1, w2, b2 = (w.detach() for w in dec.folded_weights(dtype))
     feats = torch.randn((1, 3, m, c), generator=gen).to("cuda", dtype)
     h, d = w2.shape
