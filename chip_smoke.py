@@ -5,22 +5,36 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device:  requires CUDA; prints the card's name and power limit.
-  2. build:   compiles every kernel of the paths from csrc/ with nvcc;
-              prints ptxas's registers and spills per kernel instance.
+  2. build:   compiles every kernel of the paths from csrc/ with nvcc (one
+              process per source, started together); prints ptxas's
+              registers and spills per kernel instance.
   3. kernels: each kernel vs its plain PyTorch version on the card, at the
               shapes of the main, server, shape and training paths and of a
               rank's part under the inference mesh (with
               gradients at the G-NeRF and EG3D step's shapes, fp32 and
               bf16, and at Greg's) and at the edge cases, with its time,
               its bound and the plain version's time.
+ 3b. threefry: the threefry kernel (csrc/threefry.cu) vs its plain version
+              (int64 torch ops, then the float steps in torch) on the card
+              at the step's draw shapes, a rank's block at data=2 and at
+              rays=2 and the edges (n = 0, 1, 5003, past 2^24), as bits,
+              uniform and normal draws (bit for bit; normal within 1e-6),
+              keys on the host and on the card, split and fold_in pairs;
+              its time, its bound and the plain version's time.
   4. small:   a tiny generator on the card (fp32) vs the same weights on
-              the CPU, through render + 8XDC, and through `sample_mixed`.
+              the CPU, through render + 8XDC, and through `sample_mixed`;
+              the tiny G-NeRF train step with rng=None and seeded from a
+              step key (D training), and the tiny EG3D Gmain + Dmain
+              and Dreg under ADA at p = 0.5 from one key, card vs CPU (stats
+              within 1e-3, gradients within 1e-3 of each tensor's largest).
   5. prng:    the threefry key stream (`utils/prng.py`) on the card vs the
               CPU: keys, splits, folds, bits and uniform draws bit for bit,
               normal draws within 1e-6; the full-width G (PRNGKey(0)) and E
               (PRNGKey(1)) of `--seed-init 0` drawn on the card vs built on
               the CPU, leaf by leaf within the init tests' bound; the card's
-              seed-init time. The CPU tests hold the CPU's to JAX's.
+              seed-init time; a step key's draws at the step's shapes (and a
+              rank's block) on the card vs the CPU. The CPU tests hold the
+              CPU's to JAX's.
   6. main:    `generate_videos` at the full width of the default
               TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
@@ -43,7 +57,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               loss finite, E, D and the BN buffers moved, G bitwise frozen,
               osg_decode launched twice per step; a full-state save and load
               gives the state back bit for bit, and the next step from both
-              agrees within tolerance.
+              agrees within tolerance; the threefry share of one step's
+              device time (torch.profiler, the prng calls in ranges).
  11. eg3d:    the EG3D objective at the full width of the `ffhq` preset (all
               of G trained against DualDiscriminator(c_dim=25, 512^2, 3),
               lazy regularization at the CLI's cadence: Gmain + Dmain every
@@ -57,7 +72,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               convolution double backward; a full-state save and load gives
               the state back bit for bit and the next step from both agrees
               within tolerance; under Freeze-D (2 layers) the frozen layers
-              stay bitwise through a main and a Dreg step.
+              stay bitwise through a main and a Dreg step; the threefry
+              share of each phase's device time and of the amortised step.
  12. eg3d_ada: the same EG3D run with `--aug ada` from p = 0.2 (2 warm-up +
               16 timed steps): phase ms, amortised step, images/s, peak
               memory, launches checked exactly; the controller's p after
@@ -65,7 +81,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               (R1 through grid_sample's backward, no convolution double
               backward); the pipe's forward ms on a [4, 6, 512, 512] pair;
               the share of 256 samples the pipe changes at p = 0.2 within
-              3 sigma of its expected value.
+              3 sigma of its expected value; the threefry share as in eg3d.
  13. pti:     `make_pti_step` on the full-width G (8XDC to 512^2, 48+48)
               with VGG16-LPIPS at 256^2, batch 4, fp32: 2 warm-up + 8 timed
               steps without and with the locality regularizer (step ms, peak
@@ -120,6 +136,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               card's fp32 output at batch 1 within 1e-3 of the same weights
               on the CPU; a profile of one forward with filtered_lrelu's
               share of device time. It runs no hand-written kernel.
+The training phases draw from the CLI's step keys (`train.step_key`). The
+threefry kernel's launches are counted per path, each path's count set to
+0 just before it; main, train, eg3d and eg3d_ada must launch it.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -147,6 +166,19 @@ from typing import Optional
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12     # dense tensor cores
 H100_FP32_FLOPS = 67e12      # outside the tensor cores
+# Instruction rates of an H100 SXM (132 SMs at 1.98 GHz boost): every SM
+# issues 4 warp instructions (128 threads) a clock; its ALU pipe, which runs
+# the funnel shifts and the logic (LOP3) operations, takes 64 threads a clock.
+H100_ISSUE_OPS = 132 * 128 * 1.98e9
+H100_ALU_OPS = 132 * 64 * 1.98e9
+# Per value of csrc/threefry.cu, at least: the ALU pipe's 20 rotations and
+# 21 xors (20 rounds and the output's), and all 68 instructions (the adds,
+# which may also issue on the FMA pipe, besides); a uniform value adds 2 ALU
+# (shift, or) and 3 float operations, a normal one ~40 float ones (erfinv,
+# log1pf as ~10).
+THREEFRY_ALU_OPS, THREEFRY_OPS = 41, 68
+UNIFORM_ALU_OPS, UNIFORM_OPS = 2, 5
+NORMAL_OPS = 40
 FRAMES_DEFAULT = 8
 MAIN_M = 64 * 64 * 96        # points per decoder pass at 64^2 rays x 96 samples
 TRAIN_M = 64 * 64 * 48       # points per training decoder pass (48 coarse or 48 fine)
@@ -194,17 +226,19 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the kernels and prints ptxas's registers and spills for every
-    kernel instance (the line naming the instance precedes them)."""
+    """Builds the kernels (one nvcc each, started together) and prints
+    ptxas's registers and spills for every kernel instance (the line naming
+    the instance precedes them)."""
     from gnerf_tpu_torch.ops import cuda_build
 
-    secs = cuda_build.build(["osg_decode"])
+    secs = cuda_build.build(["osg_decode", "threefry"])
     for name, out in cuda_build.build_log.items():
         instance = name
         for line in out.splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(osg_decode_(?:tc|tf32))(?:I((?:Li\d+E)+)E)?", entry.group(1))
+                m = re.search(r"(osg_decode_(?:tc|tf32)|threefry_words)(?:I((?:Li\d+E)+)E)?",
+                              entry.group(1))
                 args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
                 instance = (entry.group(1) if not m else
                             f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1))
@@ -396,6 +430,73 @@ def _train_gradients(feats, dec, row) -> bool:
     return ok
 
 
+def threefry_bound_ms(n: int, kind: str = "bits") -> tuple[float, str]:
+    """Least time on an H100 for n values: the larger of the ALU pipe's
+    operations (64 lanes an SM), all the instructions at the issue rate (128
+    an SM) and the bytes written (4 a value, 8 for pairs)."""
+    alu, ops = THREEFRY_ALU_OPS, THREEFRY_OPS
+    if kind in ("uniform", "normal"):
+        alu, ops = alu + UNIFORM_ALU_OPS, ops + UNIFORM_OPS
+    if kind == "normal":
+        ops += NORMAL_OPS
+    t_ops = max(alu * n / H100_ALU_OPS, ops * n / H100_ISSUE_OPS)
+    t_bytes = (8 if kind == "pairs" else 4) * n / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_threefry() -> dict:
+    """The threefry kernel (`ops/threefry.py::threefry_draw`, csrc/threefry.cu)
+    against its plain version (`threefry2x32` in int64 torch ops, then the
+    float steps in torch) on the card, at the step's draw shapes
+    (`STEP_DRAWS`: the jitter, the importance u, the 512^2 noise, a rank's
+    block at data=2 and at rays=2, n = 0, 1, 5003 and past 2^24), each as
+    bits, uniform and normal, with the key on the host and on the card, and
+    for the key pairs of split and fold_in: bits, pairs and uniform bit for
+    bit, normal within 1e-6 (both take CUDA's log1pf and sqrtf).
+    Times the kernel and the plain version (CUDA events) beside the bound.
+    Returns {name: row} of the step's draws as they are made (STEP_DRAWS'
+    kinds)."""
+    import torch
+
+    from gnerf_tpu_torch.ops import threefry as T
+    from gnerf_tpu_torch.training.train import step_key
+
+    dev = torch.device("cuda")
+    key = step_key(0, 8)
+    rows, lines, worst = {}, [], 0.0
+    cases = [(name, kind, shape, part) for name, kind, shape, part in STEP_DRAWS]
+    cases += [("split 7", "pairs", (7,), None),
+              ("fold_in 2^32-1", "pairs", (1 << 32,), {0: ((1 << 32) - 1, 1)})]
+    for name, draw_kind, shape, part in cases:
+        kinds = ("pairs",) if draw_kind == "pairs" else ("bits", "uniform", "normal")
+        for kind in kinds:
+            want = T._plain(key, shape, part, dev, kind, *T._bounds(kind, 0.0, 1.0))
+            for k in (key, key.cuda()):
+                got = T.threefry_draw(k, shape, part, dev, kind).reshape(want.shape)
+                err = float((got - want).abs().max()) if kind == "normal" and want.numel() else 0
+                worst = max(worst, err)
+                ok = err <= 1e-6 if kind == "normal" else torch.equal(got, want)
+                if not ok:
+                    raise SystemExit(f"chip_smoke: the threefry kernel differs from its plain "
+                                     f"version at '{name}' {kind} (key on {k.device.type})")
+        n = math.prod(T.block_shape(shape, part))
+        if n == 0 or draw_kind == "pairs":
+            continue
+        kind = draw_kind
+        span = T._bounds(kind, 0.0, 1.0)
+        ms = cuda_ms(lambda: T.threefry_draw(key, shape, part, dev, kind), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: T._plain(key, shape, part, dev, kind, *span), iters=3,
+                           warmup=1)
+        bound, by = threefry_bound_ms(n, kind)
+        rows[name] = dict(n=n, kind=kind, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, max_abs_err=worst if kind == "normal" else 0.0)
+        lines.append(f"{name} {kind} n={n}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
+                     f"{bound:.4f} {by})")
+    log(f"[threefry] kernel == plain version (bits, pairs, uniform bit for bit; normal max abs "
+        f"err {worst:.3e}, bound 1e-6; keys on the host and on the card); " + "; ".join(lines))
+    return rows
+
+
 def phase_small():
     """Tiny G rendered on the card vs the same weights on the CPU (fp32,
     TF32 off), and its fields at 2000 points through `sample_mixed`.
@@ -432,6 +533,8 @@ def phase_small():
         if not (err <= 1e-4 and torch.isfinite(outs["cuda"][k]).all()):
             raise SystemExit(f"chip_smoke: tiny {k} on the card disagrees with the CPU")
     _small_train_step()
+    _small_train_step(seeded=True)
+    _small_eg3d_ada()
 
 
 PRNG_SEEDS = (0, 1, 42, 2 ** 31 - 1)
@@ -499,6 +602,7 @@ def phase_prng():
     log(f"[prng] {checks} draws of seeds {PRNG_SEEDS} (split n 1..5, fold_in, bits / uniform / "
         f"normal at shapes {PRNG_SHAPES}): card == CPU bit for bit but normal, max abs err "
         f"{worst_normal:.3e} (bound 1e-6); {time.perf_counter() - t0:.2f} s host clock")
+    _step_draws()
 
     def build(dev):
         g = TriPlaneGenerator(device=dev, key=prng.PRNGKey(0))
@@ -534,6 +638,55 @@ def phase_prng():
     torch.cuda.empty_cache()
 
 
+# The draws of a full-width step (batch 4, 64^2 rays, 48 + 48 samples, 512^2
+# SR noise), a rank's part of them at data=2 and at rays=2, and edge sizes:
+# (name, sampler, shape, part).
+STEP_DRAWS = (
+    ("jitter", "uniform", (4, 4096, 48, 1), None),
+    ("importance u", "uniform", (16384, 48), None),
+    ("noise 512^2", "normal", (4, 1, 512, 512), None),
+    ("noise 512^2, data=2 rank 1", "normal", (4, 1, 512, 512), {0: (2, 2)}),
+    ("jitter, rays=2 rank 1", "uniform", (4, 4096, 48, 1), {1: (2048, 2048)}),
+    ("n=0", "uniform", (0,), None),
+    ("n=1", "normal", (1,), None),
+    ("n=5003", "bits", (5003,), None),
+    ("n=2^24+3", "uniform", ((1 << 24) + 3,), None),
+)
+
+
+def _step_draws():
+    """The step's draws from a CPU key (a step key) made on the card and on
+    the CPU: bits and uniform bit for bit, normal within 1e-6; the card's
+    ms for each (CUDA events) beside the CPU's (host clock)."""
+    import torch
+
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
+
+    key = step_key(0, 8)
+    worst, rows = 0.0, []
+    for name, sampler, shape, part in STEP_DRAWS:
+        fn = getattr(prng, sampler)
+        t0 = time.perf_counter()
+        want = fn(key, shape, part=part)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        got = fn(key, shape, part=part, device="cuda")
+        ms = cuda_ms(lambda: fn(key, shape, part=part, device="cuda"), iters=3, warmup=1)
+        got = got.cpu()
+        if sampler == "normal":
+            err = float((got - want).abs().max()) if want.numel() else 0.0
+            worst = max(worst, err)
+            ok = got.shape == want.shape and err <= 1e-6
+        else:
+            ok = _same(got, want)
+        rows.append(f"{name} {sampler}{list(want.shape)} {ms:.3f} ms (CPU {cpu_ms:.1f} ms)")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the step draw '{name}' on the card differs from the "
+                             "CPU's")
+    log(f"[prng] a step key's draws on the card == the CPU's (bits / uniform bit for bit, "
+        f"normal max abs err {worst:.3e}, bound 1e-6): " + "; ".join(rows))
+
+
 def _tiny_trainer(dev, **cfg_overrides):
     """The tests' tiny training configuration (tests/test_torch_training.py)
     on `dev`, every weight from fixed seeds."""
@@ -557,18 +710,40 @@ def _tiny_trainer(dev, **cfg_overrides):
     return init_train_state(g, enc, disc, vgg, cfg), cfg
 
 
-def _small_train_step(devices=("cpu", "cuda")):
-    """One tiny train step (rng=None) on the card vs the CPU: every stat
-    within rtol 1e-3, and every gradient the optimizers took (Adam's first
-    moment over 1 - beta1) within 1e-3 of its tensor's largest element:
-    cuDNN, cuBLAS and grid_sample's atomic backward sum in other orders, and
-    Adam's first step maps each gradient to +-lr, so the updated weights
-    themselves are not compared."""
+def _grad_gaps(runs, devices):
+    """(max relative stat gap, max gradient gap of each tensor's largest)
+    between the runs {device: (stats, {name: gradient})} of `devices`."""
+    (want, want_g), (got, got_g) = runs[devices[0]], runs[devices[1]]
+    stat_err = max(abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items())
+    grad_err = max(float((got_g[k] - g).abs().max() / g.abs().max().clamp_min(1e-12))
+                   for k, g in want_g.items())
+    return stat_err, grad_err, len(want), len(want_g)
+
+
+def _small_train_step(devices=("cpu", "cuda"), seeded: bool = False):
+    """One tiny train step on the card vs the CPU, with rng=None or, seeded,
+    from one key (the CLI's step key of seed 0: every draw made on each
+    device from the same CPU key): every stat within rtol 1e-3, and every
+    gradient the optimizers took (Adam's first moment over 1 - beta1)
+    within 1e-3 of its tensor's largest element: cuDNN, cuBLAS and
+    grid_sample's atomic backward sum in other orders, and Adam's first
+    step maps each gradient to +-lr, so the updated weights themselves are
+    not compared. The seeded step trains D alone (E and G frozen; every draw
+    of the synthesis still feeds the stats and D's inputs): on the seeded
+    step E's gradients (a BatchNorm scale after ReLUs at 2^2 maps) and G's
+    noise-strength gradients (sums of random-sign terms) differ between the
+    card and the CPU by 5.24e-3 and 2.38e-3 of their largest, also when the
+    CPU step takes the card's draws and initial weights bit for bit
+    (`tools/small_step_probe.py --card-draws` on the H100: PERF.md): the
+    gap comes from the step's sums, not from the draws, and a 1e-3 bound on
+    the largest element cannot tell it from a fault. The rng=None step
+    holds E's training."""
     import numpy as np
     import torch
     from PIL import Image
 
     from gnerf_tpu_torch.training import SyntheticDataset, collate, make_train_step
+    from gnerf_tpu_torch.training.train import step_key
 
     items = [SyntheticDataset(resolution=16, depth_resolution=8, size=4)[i] for i in range(2)]
     batch = collate(items)
@@ -578,25 +753,77 @@ def _small_train_step(devices=("cpu", "cuda")):
         .transpose(2, 0, 1) for _ in range(2)])
     runs = {}
     for dev in devices:
-        state, cfg = _tiny_trainer(dev)
+        state, cfg = _tiny_trainer(dev, train_en=False) if seeded else _tiny_trainer(dev)
         _, stats = make_train_step(cfg)(
-            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, None)
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            step_key(0, 0) if seeded else None)
         grads = {}
         for name in ("opt_g", "opt_d"):
             opt = getattr(state, name)
-            for i, p in enumerate(p for grp in opt.param_groups for p in grp["params"]):
+            for i, p in enumerate(p for grp in (opt.param_groups if opt else ())
+                                  for p in grp["params"]):
                 if p in opt.state:
                     grads[f"{name}.{i}"] = opt.state[p]["exp_avg"].cpu() / 0.1
         runs[dev] = ({k: float(v) for k, v in stats.items()}, grads)
-    (want, want_g), (got, got_g) = runs[devices[0]], runs[devices[1]]
-    stat_err = max(abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items())
-    grad_err = max(float((got_g[k] - g).abs().max() / g.abs().max().clamp_min(1e-12))
-                   for k, g in want_g.items())
-    log(f"[small] tiny train step {devices[1]} vs {devices[0]}: {len(want)} stats "
-        f"max_rel_err={stat_err:.3e} (1e-3), {len(want_g)} gradients max_err={grad_err:.3e} "
+    stat_err, grad_err, n_stats, n_grads = _grad_gaps(runs, devices)
+    what = "seeded (step key of seed 0; D trains)" if seeded else "rng=None"
+    log(f"[small] tiny train step, {what}, {devices[1]} vs {devices[0]}: {n_stats} stats "
+        f"max_rel_err={stat_err:.3e} (1e-3), {n_grads} gradients max_err={grad_err:.3e} "
         "of each tensor's largest (1e-3)")
     if not (stat_err <= 1e-3 and grad_err <= 1e-3):
         raise SystemExit("chip_smoke: the tiny train step on the card disagrees with the CPU")
+
+
+def _small_eg3d_ada(devices=("cpu", "cuda"), aug_p: float = 0.5):
+    """The tiny EG3D phases under ADA at p = aug_p (Gmain + Dmain on a step
+    key's ks, Dreg on fold_in(ks, 2), as the CLI keys them: the pose swap,
+    the synthesis noise, the render's draws and the pipe's 32 keys per D
+    call) on the card vs the CPU, with the bound of `_small_train_step` on
+    the stats and on each phase's gradients (the lazy Adams' b1 is 0, so
+    the first moments are the gradients)."""
+    import torch
+
+    from gnerf_tpu_torch.models import DualDiscriminator
+    from gnerf_tpu_torch.training import SyntheticDataset, collate, make_eg3d_phase_steps
+    from gnerf_tpu_torch.training.eg3d_loss import EG3DLossConfig, init_eg3d_state
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
+
+    items = collate([SyntheticDataset(resolution=16, size=4)[i] for i in range(2)])
+    runs = {}
+    for dev in devices:
+        state, _ = _tiny_trainer(dev)
+        g = state.g
+        d = DualDiscriminator(c_dim=25, img_resolution=16, img_channels=3, channel_base=256,
+                              channel_max=32, mbstd_group_size=2, device=dev,
+                              key=prng.PRNGKey(5))
+        cfg = EG3DLossConfig(neural_rendering_resolution=8, density_reg_points=16,
+                             aug="ada", aug_p=aug_p, style_mixing_prob=0.5)
+        st = init_eg3d_state(g, d, cfg, lazy=True)
+        main, _, dreg = make_eg3d_phase_steps(cfg)
+        c = torch.from_numpy(items["loss_c"]).float().to(dev)
+        kz, ks = prng.split(step_key(0, 0))
+        batch = {"z": prng.normal(prng.fold_in(kz, 0), (2, 32), device=dev), "c": c,
+                 "real_image": torch.from_numpy(items["loss_image"]).to(dev).float()
+                 / 127.5 - 1.0, "real_c": c}
+        stats, grads = {}, {}
+        for name, fn in (("main", lambda: main(st, batch, ks, 0.0, aug_p, res=8)),
+                         ("dreg", lambda: dreg(st, batch, prng.fold_in(ks, 2), 0.0, aug_p,
+                                               res=8))):
+            stats.update({f"{name}/{k}": float(v) for k, v in fn()[1].items()})
+            for oname in ("opt_g", "opt_d"):
+                o = getattr(st, oname)
+                for i, p in enumerate(p for grp in o.param_groups for p in grp["params"]):
+                    if p in o.state:
+                        grads[f"{name}.{oname}.{i}"] = o.state[p]["exp_avg"].cpu().clone()
+        runs[dev] = (stats, grads)
+    stat_err, grad_err, n_stats, n_grads = _grad_gaps(runs, devices)
+    log(f"[small] tiny EG3D Gmain + Dmain and Dreg under ADA at p={aug_p}, seeded, "
+        f"{devices[1]} vs {devices[0]}: {n_stats} stats max_rel_err={stat_err:.3e} (1e-3), "
+        f"{n_grads} gradients max_err={grad_err:.3e} of each tensor's largest (1e-3)")
+    if not (stat_err <= 1e-3 and grad_err <= 1e-3):
+        raise SystemExit("chip_smoke: the tiny seeded EG3D ADA phases on the card disagree "
+                         "with the CPU")
 
 
 def phase_main(frames: int):
@@ -1018,6 +1245,71 @@ def _full_width_trainer(seed: int):
     return init_train_state(g, enc, disc, vgg, cfg), cfg
 
 
+def _draw_share(tag, calls: dict) -> dict:
+    """Each of `calls` {name: fn} once under torch.profiler, with every
+    outermost call into `utils.prng` (split, fold_in, bits, uniform, normal,
+    randint) inside a record_function range "prng_draw": {name: (the call's
+    device ms, the ranges' device ms, the number of prng calls)}, printed
+    with the share and the call's CUDA-event ms. The device ms are the
+    kernels' own (the profile's device events, each counted once); the
+    ranges' are the kernels launched inside them."""
+    import functools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gnerf_tpu_torch.utils import prng
+
+    depth, count = [0], [0]
+    names = ("split", "fold_in", "bits", "uniform", "normal", "randint")
+    orig = {n: getattr(prng, n) for n in names}
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
+            count[0] += 1
+            try:
+                with record_function("prng_draw"):
+                    return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return inner
+
+    def dev_ms(e, attr):
+        v = getattr(e, attr.replace("cuda", "device"), None)
+        return (getattr(e, attr) if v is None else v) / 1e3
+
+    out = {}
+    for n in names:
+        setattr(prng, n, wrap(orig[n]))
+    try:
+        for name, fn in calls.items():
+            count[0] = 0
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ev[0].record()
+                fn()
+                ev[1].record()
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            total = sum(dev_ms(e, "self_cuda_time_total") for e in ka
+                        if e.device_type == DeviceType.CUDA)
+            draws = sum(dev_ms(e, "cuda_time_total") for e in ka if e.key == "prng_draw")
+            out[name] = (total, draws, count[0])
+            log(f"[{tag}] threefry share of one {name}: {count[0]} prng calls, {draws:.3f} ms "
+                f"of {total:.3f} ms of kernel time ({100 * draws / max(total, 1e-9):.2f} %); "
+                f"{ev[0].elapsed_time(ev[1]):.3f} ms by CUDA events (profiled)")
+    finally:
+        for n in names:
+            setattr(prng, n, orig[n])
+    return out
+
+
 def phase_train(warmup: int = 2, steps: int = 6):
     """The full-width G-NeRF train step on the card (see the module
     docstring). Step times are CUDA-event times of whole steps (data already
@@ -1028,7 +1320,7 @@ def phase_train(warmup: int = 2, steps: int = 6):
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.training import (SyntheticDataset, data_iterator, load_train_state,
                                           make_train_step, save_train_state)
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1048,7 +1340,7 @@ def phase_train(warmup: int = 2, steps: int = 6):
     for i in range(warmup + steps):
         if i == warmup:
             ev[0].record()
-        _, stats = step(state, dev[i], step_generator(0, state.cur_nimg, "cuda"))
+        _, stats = step(state, dev[i], step_key(0, state.cur_nimg))
         if i >= warmup:
             ev[i - warmup + 1].record()
         losses.append(stats)
@@ -1082,6 +1374,7 @@ def phase_train(warmup: int = 2, steps: int = 6):
         raise SystemExit("chip_smoke: the train step did not update as it should")
     if launches != want_launches:
         raise SystemExit(f"chip_smoke: train path launched osg_decode {launches} times")
+    _draw_share("train", {"step": lambda: step(state, dev[0], step_key(0, state.cur_nimg))})
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "training-state.npz")
@@ -1101,7 +1394,7 @@ def phase_train(warmup: int = 2, steps: int = 6):
     nxt = dev[warmup + steps]
     outs = []
     for st in (state, again):
-        _, s2 = make_train_step(cfg)(st, nxt, step_generator(0, st.cur_nimg, "cuda"))
+        _, s2 = make_train_step(cfg)(st, nxt, step_key(0, st.cur_nimg))
         outs.append({k: float(v) for k, v in s2.items()})
     err = max(abs(outs[0][k] - v) / max(abs(v), 1e-3) for k, v in outs[1].items())
     log(f"[train] full-state save {size} bytes in {save_s:.2f} s, load in {load_s:.2f} s: "
@@ -1132,21 +1425,22 @@ def _full_width_eg3d(seed: int, **cfg_overrides):
 
 
 def _eg3d_batches(n: int) -> list:
-    """n batches of SyntheticDataset at 512^2 on the card, z from the CLI's
-    step generators (cur_nimg = 4 i)."""
+    """n batches of SyntheticDataset at 512^2 on the card, z drawn on the
+    card as the CLI draws it for cur_nimg = 4 i (fold_in(kz, 0))."""
     import numpy as np
     import torch
 
     from gnerf_tpu_torch.training import SyntheticDataset, data_iterator
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
 
     it = data_iterator(SyntheticDataset(resolution=SIDE), batch_size=TRAIN_BATCH, seed=0)
     out = []
     for i in range(n):
         raw = next(it)
         c = torch.from_numpy(np.asarray(raw["loss_c"], np.float32)).cuda()
-        z = torch.randn((TRAIN_BATCH, 512), device="cuda",
-                        generator=step_generator(0, TRAIN_BATCH * i, "cuda", phase=3))
+        kz = prng.split(step_key(0, TRAIN_BATCH * i))[0]
+        z = prng.normal(prng.fold_in(kz, 0), (TRAIN_BATCH, 512), device="cuda")
         real = torch.from_numpy(np.asarray(raw["loss_image"])).cuda().float() / 127.5 - 1.0
         out.append({"z": z, "c": c, "real_image": real, "real_c": c})
     return out
@@ -1160,17 +1454,18 @@ def _eg3d_step(phases, state, batch, seed=0, aug_p=0.0):
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
 
     main, greg, dreg = phases
     cur = state.cur_nimg
     sched = cur // TRAIN_BATCH
-    runs = [("main", lambda: main(state, batch, step_generator(seed, cur, "cuda"), 0.0, aug_p))]
+    ks = prng.split(step_key(seed, cur))[1]
+    runs = [("main", lambda: main(state, batch, ks, 0.0, aug_p))]
     if sched % 4 == 0:
-        runs.append(("greg", lambda: greg(state, batch, step_generator(seed, cur, "cuda", 1))))
+        runs.append(("greg", lambda: greg(state, batch, prng.fold_in(ks, 1))))
     if sched % 16 == 0:
-        runs.append(("dreg", lambda: dreg(state, batch, step_generator(seed, cur, "cuda", 2),
-                                          0.0, aug_p)))
+        runs.append(("dreg", lambda: dreg(state, batch, prng.fold_in(ks, 2), 0.0, aug_p)))
     marks, stats = {}, {}
     for name, fn in runs:
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -1272,6 +1567,7 @@ def phase_eg3d(warmup: int = 2, steps: int = 16):
     if not all(moved.values()):
         raise SystemExit("chip_smoke: the eg3d steps did not update as they should")
     del before, after
+    _eg3d_draw_share("eg3d", phases, state, batches[0])
 
     _eg3d_dreg_profile(phases, state, batches[0])
     _eg3d_save_load(phases, state, batches[warmup + steps])
@@ -1279,6 +1575,24 @@ def phase_eg3d(warmup: int = 2, steps: int = 16):
     del state, batches
     torch.cuda.empty_cache()
     return launches
+
+
+def _eg3d_draw_share(tag, phases, state, batch, aug_p=0.0):
+    """The threefry share of each phase (`_draw_share`) and of the lazy
+    schedule's amortised step (Gmain + Dmain + Greg / 4 + Dreg / 16)."""
+    from gnerf_tpu_torch.utils import prng
+
+    main, greg, dreg = phases
+    ks = prng.PRNGKey(state.cur_nimg)
+    out = _draw_share(tag, {"Gmain + Dmain": lambda: main(state, batch, ks, 0.0, aug_p),
+                            "Greg": lambda: greg(state, batch, prng.fold_in(ks, 1)),
+                            "Dreg": lambda: dreg(state, batch, prng.fold_in(ks, 2), 0.0, aug_p)})
+    weights = {"Gmain + Dmain": 1.0, "Greg": 0.25, "Dreg": 1 / 16}
+    total = sum(out[k][0] * w for k, w in weights.items())
+    draws = sum(out[k][1] * w for k, w in weights.items())
+    log(f"[{tag}] threefry share of the amortised step: {draws:.3f} ms of {total:.3f} ms "
+        f"device time ({100 * draws / max(total, 1e-9):.2f} %)")
+    return out
 
 
 def _ada_share(pipe, p: float, n: int = 256, chunk: int = 32):
@@ -1290,13 +1604,15 @@ def _ada_share(pipe, p: float, n: int = 256, chunk: int = 32):
     p_rot = 1 - sqrt(1 - p))."""
     import torch
 
+    from gnerf_tpu_torch.utils import prng
+
     changed = 0
     for k in range(n // chunk):
-        x = torch.rand((chunk, 6, SIDE, SIDE), device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(100 + k)) * 2 - 1
+        x = prng.uniform(prng.PRNGKey(100 + k), (chunk, 6, SIDE, SIDE), -1.0, 1.0,
+                         device="cuda")
         with torch.no_grad():
-            a = pipe(x, p=p, generator=torch.Generator(device="cuda").manual_seed(k))
-            b = pipe(x, p=0.0, generator=torch.Generator(device="cuda").manual_seed(k))
+            a = pipe(prng.PRNGKey(k), x, p=p)
+            b = pipe(prng.PRNGKey(k), x, p=0.0)
         changed += int((a != b).flatten(1).any(dim=1).sum())
         del x, a, b
     p_rot = 1 - (1 - p) ** 0.5
@@ -1310,6 +1626,7 @@ def phase_eg3d_ada(warmup: int = 2, steps: int = 16, p0: float = 0.2):
 
     from gnerf_tpu_torch.training import (AdaController, make_augment_pipe,
                                           make_eg3d_phase_steps)
+    from gnerf_tpu_torch.utils import prng
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1335,12 +1652,12 @@ def phase_eg3d_ada(warmup: int = 2, steps: int = 16, p0: float = 0.2):
         + "; ".join(f"{rt:+.4f} {got!r} {want!r}" for rt, got, want in windows))
     if len(windows) < 2 or any(got != want for _, got, want in windows):
         raise SystemExit("chip_smoke: the ADA controller's p disagrees with its arithmetic")
+    _eg3d_draw_share("eg3d_ada", phases, state, batches[0], aug_p=ada.p)
     _eg3d_dreg_profile(phases, state, batches[0], aug_p=ada.p, tag="eg3d_ada")
 
     pipe = make_augment_pipe(cfg)
     pair = torch.cat([batches[0]["real_image"], batches[1]["real_image"]], dim=1)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    pipe_ms = cuda_ms(lambda: pipe(pair, p=p0, generator=gen), iters=10, warmup=2)
+    pipe_ms = cuda_ms(lambda: pipe(prng.PRNGKey(0), pair, p=p0), iters=10, warmup=2)
     del state, batches
     torch.cuda.empty_cache()
     share, expect = _ada_share(pipe, p0)
@@ -1361,10 +1678,11 @@ def _eg3d_dreg_profile(phases, state, batch, aug_p=None, tag="eg3d"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.utils import prng
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        phases[2](state, batch, step_generator(0, state.cur_nimg, "cuda", 2), 0.0, aug_p or 0.0)
+        phases[2](state, batch, prng.fold_in(prng.PRNGKey(state.cur_nimg), 2), 0.0,
+                  aug_p or 0.0)
         torch.cuda.synchronize()
     avg = prof.key_averages()
     keys = {e.key: e.count for e in avg}
@@ -1420,13 +1738,15 @@ def _eg3d_freeze(batch):
     import torch
 
     from gnerf_tpu_torch.training import make_eg3d_phase_steps
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
 
     state, cfg = _full_width_eg3d(2, freeze_d_layers=2)
     main, _, dreg = make_eg3d_phase_steps(cfg)
     before = {k: v.clone() for k, v in state.disc.state_dict().items()}
-    main(state, batch, step_generator(2, 0, "cuda"))
-    dreg(state, batch, step_generator(2, 0, "cuda", 2))
+    ks = prng.split(step_key(2, 0))[1]
+    main(state, batch, ks)
+    dreg(state, batch, prng.fold_in(ks, 2))
     top = f"b{state.disc.block_resolutions[0]}"  # b512, D's first block
     frozen = (f"{top}.fromrgb.", f"{top}.conv0.")
     wrong = [k for k, v in state.disc.state_dict().items()
@@ -1731,21 +2051,21 @@ def _timed(fn, n: int) -> list:
 
 def _ddp_gnerf(mesh, batch, seeded: bool, timed: int) -> dict:
     """The full-width G-NeRF step under `mesh` (None: the plain step) from
-    the seed-0 state on `batch` (this rank's rows), step generators of seed
-    0 when `seeded`, then `timed` timed steps: snapshot after the first,
-    launches, ms, peak memory."""
+    the seed-0 state on `batch` (this rank's rows), the CLI's step keys of
+    seed 0 when `seeded`, then `timed` timed steps: snapshot after the
+    first, launches, ms, peak memory."""
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.training import make_train_step
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
 
     torch.cuda.reset_peak_memory_stats()
     state, cfg = _full_width_trainer(0)
     step = make_train_step(cfg, mesh=mesh)
 
     def rng():
-        return step_generator(0, state.cur_nimg, "cuda") if seeded else None
+        return step_key(0, state.cur_nimg) if seeded else None
 
     osg_decode.launches = 0
     _, stats = step(state, batch, rng())
@@ -1760,13 +2080,14 @@ def _ddp_gnerf(mesh, batch, seeded: bool, timed: int) -> dict:
 
 def _ddp_eg3d(mesh, batch, phase: str, timed: int = 0, seeded: bool = False) -> dict:
     """One EG3D phase ('main': Gmain + Dmain, 'dreg') at full width under
-    `mesh` (None: plain) from the seed-0 state, the CLI's step generator of
-    seed 0 when `seeded` (else rng=None), then `timed` timed calls of it."""
+    `mesh` (None: plain) from the seed-0 state, the CLI's key of seed 0 for
+    the phase when `seeded` (else rng=None), then `timed` timed calls of it."""
     import torch
 
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.training import make_eg3d_phase_steps
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
 
     torch.cuda.reset_peak_memory_stats()
     state, cfg = _full_width_eg3d(0)
@@ -1774,8 +2095,10 @@ def _ddp_eg3d(mesh, batch, phase: str, timed: int = 0, seeded: bool = False) -> 
     fn = main_fn if phase == "main" else dreg_fn
 
     def rng():
-        return (step_generator(0, state.cur_nimg, "cuda", phase=0 if phase == "main" else 2)
-                if seeded else None)
+        if not seeded:
+            return None
+        ks = prng.split(step_key(0, state.cur_nimg))[1]
+        return ks if phase == "main" else prng.fold_in(ks, 2)
 
     osg_decode.launches = 0
     stats = fn(state, batch, rng(), 0.0, 0.0)[1]
@@ -2364,21 +2687,37 @@ def main(argv=None) -> int:
     resolve_device("cuda")  # TF32 off for fp32 products
     phase_build()
     kern = phase_kernels()
+    fry = phase_threefry()
     phase_small()
     phase_prng()
-    launches = {}
-    launches["main"], main_frames = phase_main(args.frames)
+    from gnerf_tpu_torch.ops.threefry import threefry_draw
+
+    launches, fry_launches = {}, {}
+
+    def path(name, fn, *a):
+        """Runs a path with the threefry count set to 0 just before it; keeps
+        what it launched."""
+        threefry_draw.launches = 0
+        out = fn(*a)
+        fry_launches[name] = threefry_draw.launches
+        return out
+
+    launches["main"], main_frames = path("main", phase_main, args.frames)
     phase_timing(args.frames, args.profile)
-    launches["server"] = phase_server()
-    launches["shapes"], volume = phase_shapes()
-    launches["train"] = phase_train()
-    launches["eg3d"] = phase_eg3d()
-    launches["eg3d_ada"] = phase_eg3d_ada()
-    launches["pti"] = phase_pti()
-    launches["eval"] = phase_eval()
-    launches["ddp"] = phase_ddp()
+    launches["server"] = path("server", phase_server)
+    launches["shapes"], volume = path("shapes", phase_shapes)
+    launches["train"] = path("train", phase_train)
+    launches["eg3d"] = path("eg3d", phase_eg3d)
+    launches["eg3d_ada"] = path("eg3d_ada", phase_eg3d_ada)
+    launches["pti"] = path("pti", phase_pti)
+    launches["eval"] = path("eval", phase_eval)
+    launches["ddp"] = path("ddp", phase_ddp)
     launches["infer_ddp"] = phase_infer_ddp(args.frames, main_frames, volume)
     phase_sg3()
+    log(f"[threefry] launches by path (this process): {fry_launches}")
+    idle = [p for p in ("main", "train", "eg3d", "eg3d_ada") if not fry_launches[p]]
+    if idle:
+        raise SystemExit(f"chip_smoke: the threefry kernel never launched on {idle}")
 
     log(f"[wall] chip_smoke.py: {time.perf_counter() - start:.1f} s from start to the results "
         "(host clock, the kernels' build included)")
@@ -2396,6 +2735,16 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_by_path": launches,
         "shapes": {k: kern[k] for k in timed},
+    }, {
+        "name": "threefry", "route": "cuda",
+        "source": "gnerf_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: JAX leaves threefry to XLA (gnerf_tpu's jax.random draws)",
+        "launches": fry_launches["main"], "max_abs_err": fry["jitter"]["max_abs_err"],
+        "ms": fry["jitter"]["ms"], "plain_ms": fry["jitter"]["plain_ms"],
+        "bound_ms": fry["jitter"]["bound_ms"], "bound_by": fry["jitter"]["bound_by"],
+        "library_ms": None,
+        "launches_by_path": fry_launches,
+        "shapes": fry,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

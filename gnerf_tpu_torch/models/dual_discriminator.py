@@ -7,7 +7,7 @@ port's `Discriminator` trunk (6 input channels for the dual forms), so its
 parameter names are the JAX trees' and `load_jax_params` takes them
 unchanged, and a `key` gives the JAX `init`'s parameters. `raw_fade` of
 `DummyDualDiscriminator` is an explicit argument, and `disc_c_noise` draws
-from an explicit `torch.Generator`. Constructed on CUDA unless `device`
+from the call's key, as the JAX `apply` draws it. Constructed on CUDA unless `device`
 names another device.
 """
 
@@ -20,6 +20,7 @@ import torch
 from ..ops.interpolate import interpolate_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..parallel.sharding import draw, global_rows
+from ..utils import prng
 from .stylegan2 import Discriminator
 
 
@@ -61,7 +62,7 @@ class SingleDiscriminator(Discriminator):
 class DualDiscriminator(Discriminator):
     """EG3D dual discrimination: concat(image, resized image_raw) -> a D over
     2x the channels. With `disc_c_noise` > 0 the labels get Gaussian noise
-    scaled by their batch standard deviation, drawn from `rng`."""
+    scaled by their batch standard deviation, drawn from the key `rng`."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
                  channel_base: int = 32768, channel_max: int = 512,
@@ -75,13 +76,13 @@ class DualDiscriminator(Discriminator):
         self.filter_mode = filter_mode
 
     def forward(self, img: Mapping[str, torch.Tensor], c: Optional[torch.Tensor] = None,
-                rng: Optional[torch.Generator] = None,
+                rng: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         x = torch.cat([img["image"], _resized_raw(img, self.filter_mode)], dim=1)
         if self.c_dim > 0 and self.disc_c_noise > 0:
             if rng is None:
-                raise ValueError("disc_c_noise needs an explicit torch.Generator (rng)")
-            noise = draw(torch.randn, c.shape, rng, device=c.device, dtype=c.dtype)
+                raise ValueError("disc_c_noise needs a key (rng)")
+            noise = draw(prng.normal, rng, c.shape, device=c.device)
             c = c + noise * global_rows(c).std(dim=0, correction=0) * self.disc_c_noise
         return super().forward(x, c, dtype=dtype)
 

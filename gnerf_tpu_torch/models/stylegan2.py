@@ -9,7 +9,8 @@ blocks in bf16 while the ToRGB skip accumulates in fp32, as in the JAX
 package. Every constructor takes a threefry `key` (`utils.prng`) and splits
 it as the JAX `init` does, so a key gives JAX's parameters; they are made on
 the key's device (nothing is drawn on `meta`). `noise_mode="random"` draws
-from an explicit `torch.Generator`. Every op is plain PyTorch, so the
+from the call's key (`rng`), split per block and layer as the JAX `apply`
+splits it, so a key gives JAX's noise. Every op is plain PyTorch, so the
 discriminator is twice differentiable, as the R1 penalty needs.
 """
 
@@ -201,16 +202,16 @@ class SynthesisLayer(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise_mode: str = "random",
-                gain: float = 1.0, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                gain: float = 1.0, rng: Optional[torch.Tensor] = None) -> torch.Tensor:
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"unknown noise_mode {noise_mode!r}")
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == "random":
             if rng is None:
-                raise ValueError("noise_mode='random' needs an explicit torch.Generator (rng)")
-            noise = draw(torch.randn, (x.shape[0], 1, self.resolution, self.resolution),
-                         rng, device=x.device) * self.noise_strength
+                raise ValueError("noise_mode='random' needs a key (rng)")
+            noise = draw(prng.normal, rng, (x.shape[0], 1, self.resolution, self.resolution),
+                         device=x.device) * self.noise_strength
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
@@ -280,23 +281,28 @@ class SynthesisBlock(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 ws: torch.Tensor, noise_mode: str = "random",
-                rng: Optional[torch.Generator] = None,
+                rng: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32):
-        """ws: [N, num_conv + num_torgb, w_dim]. Returns (x, img)."""
+        """ws: [N, num_conv + num_torgb, w_dim]. Returns (x, img). `rng`
+        splits in two: conv0 takes the first key and conv1 the second (the
+        4x4 block's lone conv1 the first), as in the JAX package (only
+        random noise draws from them)."""
         w_iter = iter(ws.unbind(dim=1))
+        random = rng is not None and noise_mode == "random"
+        k0, k1 = prng.split(rng) if random else (None, None)
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].expand(ws.shape[0], *self.const.shape)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=rng)
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=k0)
         elif self.architecture == "resnet":
             x = x.to(dtype)
             y = self.skip(x, gain=math.sqrt(0.5))
-            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=rng)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, gain=math.sqrt(0.5), rng=rng)
+            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=k0)
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, gain=math.sqrt(0.5), rng=k1)
             x = y + x
         else:
             x = x.to(dtype)
-            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=rng)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=rng)
+            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=k0)
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=k1)
         if img is not None and self.up == 2:
             img = upsample2d(img, self.resample_filter)
         if self.num_torgb:
@@ -327,15 +333,18 @@ class SynthesisNetwork(nn.Module):
             self.num_ws += block.num_conv + (block.num_torgb if res == img_resolution else 0)
 
     def forward(self, ws: torch.Tensor, noise_mode: str = "random",
-                rng: Optional[torch.Generator] = None,
+                rng: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """`rng` splits into one key per block (for random noise)."""
         ws = ws.float()
         x = img = None
         w_idx = 0
-        for res in self.block_resolutions:
+        n = len(self.block_resolutions)
+        keys = prng.split(rng, n) if rng is not None and noise_mode == "random" else [None] * n
+        for res, key in zip(self.block_resolutions, keys):
             block = getattr(self, f"b{res}")
             cur_ws = ws[:, w_idx: w_idx + block.num_conv + block.num_torgb]
-            x, img = block(x, img, cur_ws, noise_mode=noise_mode, rng=rng, dtype=dtype)
+            x, img = block(x, img, cur_ws, noise_mode=noise_mode, rng=key, dtype=dtype)
             w_idx += block.num_conv
         return img
 

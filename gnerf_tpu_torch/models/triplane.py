@@ -5,7 +5,9 @@ Port of `gnerf_tpu/models/triplane.py`: StyleGAN2 backbone emitting a
 superresolution module (8XDC by default). As in the JAX package the plane
 cache is the explicit split `backbone_planes()` (once per identity) /
 `render_planes()` (once per frame); `sample_mixed()` / `sample()` evaluate
-the fields at arbitrary points.
+the fields at arbitrary points. A call's key (`rng`, `utils.prng`) splits
+as the JAX package splits it: `synthesis` into the backbone's and the
+render's, `render_planes` into the rays' and the superresolution's.
 """
 
 from __future__ import annotations
@@ -171,8 +173,9 @@ class TriPlaneGenerator(nn.Module):
         cam2world = c[:, :16].reshape(-1, 4, 4)
         intrinsics = c[:, 16:25].reshape(-1, 3, 3)
         ray_origins, ray_dirs = sample_rays(cam2world, intrinsics, res)
+        k_render, k_sr = prng.split(rng) if rng is not None else (None, None)
         feature_samples, depth_samples, _ = render_rays(
-            planes, self.decoder, ray_origins, ray_dirs, opts, rng=rng)
+            planes, self.decoder, ray_origins, ray_dirs, opts, rng=k_render)
         n = feature_samples.shape[0]
         feature_image = feature_samples.permute(0, 2, 1).reshape(n, -1, res, res)
         depth_image = depth_samples.permute(0, 2, 1).reshape(n, 1, res, res)
@@ -181,24 +184,26 @@ class TriPlaneGenerator(nn.Module):
         sr_noise = opts.get("superresolution_noise_mode", "none")
         sr_noise = sr_noise if sr_noise in ("random", "const") else "none"
         sr_image, rgb_image = self.superresolution(
-            feature_image[:, :3], feature_image, ws, noise_mode=sr_noise, rng=rng, dtype=dtype)
+            feature_image[:, :3], feature_image, ws, noise_mode=sr_noise, rng=k_sr, dtype=dtype)
         return {"image": sr_image, "image_raw": rgb_image, "image_depth": depth_image}
 
     def synthesis(self, ws, c, neural_rendering_resolution=None, noise_mode="const",
                   rng=None, dtype=torch.float32,
                   rendering_kwargs=None) -> dict[str, torch.Tensor]:
         """Full synthesis: backbone -> render -> SR."""
-        planes = self.backbone_planes(ws, noise_mode=noise_mode, rng=rng, dtype=dtype)
+        k_bb, k_rest = prng.split(rng) if rng is not None else (None, None)
+        planes = self.backbone_planes(ws, noise_mode=noise_mode, rng=k_bb, dtype=dtype)
         return self.render_planes(planes, c, ws,
                                   neural_rendering_resolution=neural_rendering_resolution,
-                                  noise_mode=noise_mode, rng=rng, dtype=dtype,
+                                  noise_mode=noise_mode, rng=k_rest, dtype=dtype,
                                   rendering_kwargs=rendering_kwargs)
 
     def sample_mixed(self, coordinates, directions, ws, noise_mode="const", rng=None,
                      dtype=torch.float32) -> dict[str, torch.Tensor]:
         """sigma and rgb features at arbitrary points [N, M, 3] given ws (the
-        backbone runs again; the shape sweep caches its planes instead)."""
-        planes = self.backbone_planes(ws, noise_mode=noise_mode, rng=rng, dtype=dtype)
+        backbone runs again; the shape sweep caches its planes instead).
+        `rng` reaches the density noise only, as in the JAX package."""
+        planes = self.backbone_planes(ws, noise_mode=noise_mode, dtype=dtype)
         return run_model(planes, self.decoder, coordinates, directions,
                          self.rendering_kwargs, rng)
 

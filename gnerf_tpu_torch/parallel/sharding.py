@@ -7,9 +7,9 @@ models read the active mesh (`mesh.use_mesh`) instead.
 
 Data shard d holds rows d*n ... (d+1)*n - 1 of the global batch, the
 contiguous layout of JAX's P('data') sharding; ray shard r of R rays holds
-rays r*R/k ... (r+1)*R/k - 1. A random draw is the world-1 draw of the
-global array, cut to this rank's rows (and rays): a step does not depend
-on the number of ranks. The draws are small next to the step.
+rays r*R/k ... (r+1)*R/k - 1. A random draw is this rank's block of the
+world-1 draw of the global array, its rows (and rays), computed alone from
+their counters: a step does not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -62,30 +62,24 @@ def global_rows(x: torch.Tensor) -> torch.Tensor:
     return all_gather(x, mesh.data_group)
 
 
-def draw(sampler: Callable, shape, generator: Optional[torch.Generator], *,
-         ray_mesh: Optional[Mesh] = None, ray_dim: Optional[int] = None,
-         **kwargs) -> torch.Tensor:
-    """`sampler(shape, generator=generator, **kwargs)` (torch.rand, randn)
-    for this rank's part of the draw: dimension 0 is the batch, split over
-    the active mesh's data axis, and `ray_dim` (when `ray_mesh` shards the
-    render's rays) is split over its ray axis. The full draw is made and
-    cut, so each rank's values are those of the world-1 draw."""
+def draw(sampler: Callable, key: torch.Tensor, shape, *, ray_mesh: Optional[Mesh] = None,
+         ray_dim: Optional[int] = None, **kwargs) -> torch.Tensor:
+    """This rank's part of the draw `sampler(key, global shape, **kwargs)`
+    (`prng.uniform`, `normal`): dimension 0 of `shape` is this rank's rows,
+    split over the active mesh's data axis, and `ray_dim` (when `ray_mesh`
+    shards the render's rays) its rays, split over the ray axis. Only the
+    rank's counters are computed (`prng`'s `part`): each value is that of
+    the world-1 draw at the same position."""
     mesh = active_mesh()
-    shape = tuple(shape)
-    data = mesh.data if mesh is not None and shape else 1
-    rays = ray_mesh.rays if ray_mesh is not None and ray_dim is not None else 1
-    if data == 1 and rays == 1:
-        return sampler(shape, generator=generator, **kwargs)
-    full = list(shape)
-    full[0] *= data
-    if rays > 1:
-        full[ray_dim] *= rays
-    out = sampler(tuple(full), generator=generator, **kwargs)
-    if data > 1:
-        out = out.narrow(0, mesh.data_rank * shape[0], shape[0])
-    if rays > 1:
-        out = out.narrow(ray_dim, ray_mesh.ray_rank * shape[ray_dim], shape[ray_dim])
-    return out.contiguous()
+    shape = tuple(int(s) for s in shape)
+    full, part = list(shape), {}
+    if mesh is not None and mesh.data > 1 and shape:
+        full[0] *= mesh.data
+        part[0] = (mesh.data_rank * shape[0], shape[0])
+    if ray_mesh is not None and ray_dim is not None and ray_mesh.rays > 1:
+        full[ray_dim] *= ray_mesh.rays
+        part[ray_dim] = (ray_mesh.ray_rank * shape[ray_dim], shape[ray_dim])
+    return sampler(key, tuple(full), part=part or None, **kwargs)
 
 
 def data_mean(x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Port of `gnerf_tpu/render/importance.py`. The comparison-count searchsorted
 and one-hot gathers of the TPU version are `torch.searchsorted(right=True)`
-and `torch.gather` here (same values). Randomness comes from an explicit
-`torch.Generator`; `rng=None` is the deterministic path inference takes.
+and `torch.gather` here (same values). Randomness comes from a key
+(`utils.prng`), drawn as the JAX package draws it; `rng=None` is the
+deterministic path inference takes.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from typing import Optional
 import torch
 
 from ..parallel.sharding import draw
+from ..utils import prng
 from .math_utils import linspace_batched
 
 
 def sample_stratified(
-    rng: Optional[torch.Generator],
+    rng: Optional[torch.Tensor],
     ray_origins: torch.Tensor,
     ray_start,
     ray_end,
@@ -34,7 +36,7 @@ def sample_stratified(
     dev = ray_origins.device
 
     def jitter(shape):
-        return draw(torch.rand, shape, rng, ray_mesh=ray_mesh, ray_dim=1, device=dev)
+        return draw(prng.uniform, rng, shape, ray_mesh=ray_mesh, ray_dim=1, device=dev)
 
     if disparity_space_sampling:
         depths = torch.linspace(0.0, 1.0, s, device=dev).reshape(1, 1, s, 1).expand(n, r, s, 1)
@@ -64,7 +66,7 @@ def smooth_weights(weights: torch.Tensor) -> torch.Tensor:
 
 
 def sample_pdf(
-    rng: Optional[torch.Generator],
+    rng: Optional[torch.Tensor],
     bins: torch.Tensor,
     weights: torch.Tensor,
     n_importance: int,
@@ -85,7 +87,7 @@ def sample_pdf(
         u = torch.linspace(0.0, 1.0, n_importance, device=weights.device)
         u = u.expand(n_rays, n_importance).contiguous()
     elif u is None:
-        u = torch.rand((n_rays, n_importance), generator=rng, device=weights.device)
+        u = prng.uniform(rng, (n_rays, n_importance), device=weights.device)
 
     inds = torch.searchsorted(cdf, u, right=True)
     below = torch.clamp_min(inds - 1, 0)
@@ -102,7 +104,7 @@ def sample_pdf(
 
 @torch.no_grad()
 def sample_importance(
-    rng: Optional[torch.Generator],
+    rng: Optional[torch.Tensor],
     z_vals: torch.Tensor,
     weights: torch.Tensor,
     n_importance: int,
@@ -118,7 +120,7 @@ def sample_importance(
     z_mid = (z_flat[:, :-1] + z_flat[:, 1:]) / 2.0
     u = None
     if rng is not None and not det:
-        u = draw(torch.rand, (n, r, n_importance), rng, ray_mesh=ray_mesh, ray_dim=1,
+        u = draw(prng.uniform, rng, (n, r, n_importance), ray_mesh=ray_mesh, ray_dim=1,
                  device=z_vals.device).reshape(n * r, n_importance)
     out = sample_pdf(rng, z_mid, w[:, 1:-1], n_importance, det=det, u=u)
     return out.reshape(n, r, n_importance, 1)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..parallel.collectives import all_gather, reduce_max
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw
+from ..utils import prng
 from . import math_utils
 from .importance import sample_importance, sample_stratified
 from .ray_marcher import march_rays
@@ -67,7 +68,7 @@ def sample_from_planes(plane_features: torch.Tensor, coordinates: torch.Tensor,
 
 def run_model(plane_features: torch.Tensor, decoder: Decoder,
               sample_coordinates: torch.Tensor, sample_directions: torch.Tensor,
-              options: Mapping[str, Any], rng: Optional[torch.Generator] = None
+              options: Mapping[str, Any], rng: Optional[torch.Tensor] = None
               ) -> dict[str, torch.Tensor]:
     """Tri-plane lookup + decoder at arbitrary 3D points [N, M, 3].
 
@@ -84,7 +85,7 @@ def run_model(plane_features: torch.Tensor, decoder: Decoder,
     noise = options.get("density_noise", 0)
     if noise > 0 and rng is not None:
         sigma = out["sigma"]
-        out["sigma"] = sigma + draw(torch.randn, sigma.shape, rng,
+        out["sigma"] = sigma + draw(prng.normal, rng, sigma.shape,
                                     ray_mesh=options.get("ray_sharding"), ray_dim=1,
                                     device=sigma.device) * noise
     return out
@@ -124,11 +125,14 @@ def _extremes(ray_start: torch.Tensor, is_valid: torch.Tensor) -> torch.Tensor:
 
 def render_rays(plane_features: torch.Tensor, decoder: Decoder,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
-                options: Mapping[str, Any], rng: Optional[torch.Generator] = None
+                options: Mapping[str, Any], rng: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full two-pass render of rays [N, R, 3] ->
     (features [N, R, C_out], depth [N, R, 1], weight_sum [N, R, 1]).
-    rng=None gives fully deterministic sampling. With 'auto' ray limits,
+    `rng` splits in four, as in the JAX package: the stratified jitter, the
+    coarse pass's density noise, the importance samples and the fine
+    pass's density noise; None gives fully deterministic sampling. With
+    'auto' ray limits,
     `options["auto_extremes"]` (from `auto_ray_extremes`) names a larger
     batch whose part these rays are."""
     if options["ray_start"] == options["ray_end"] == "auto":
@@ -175,25 +179,27 @@ def render_rays(plane_features: torch.Tensor, decoder: Decoder,
 def _render_shard(plane_features, decoder, ray_origins, ray_directions, ray_start, ray_end,
                   options, rng, ray_mesh):
     """`render_rays` past the ray limits, on this rank's rays."""
+    keys = prng.split(rng, 4) if rng is not None else [None] * 4
     depths_coarse = sample_stratified(
-        rng, ray_origins, ray_start, ray_end, options["depth_resolution"],
+        keys[0], ray_origins, ray_start, ray_end, options["depth_resolution"],
         options.get("disparity_space_sampling", False), ray_mesh=ray_mesh)
     n, r, _, _ = depths_coarse.shape
 
-    def eval_points(depths):
+    def eval_points(depths, key):
         s = depths.shape[2]
         pts = (ray_origins[:, :, None, :] + depths * ray_directions[:, :, None, :]).reshape(n, -1, 3)
         dirs = ray_directions[:, :, None, :].expand(n, r, s, 3).reshape(n, -1, 3)
-        out = run_model(plane_features, decoder, pts, dirs, options, rng)
+        out = run_model(plane_features, decoder, pts, dirs, options, key)
         return out["rgb"].reshape(n, r, s, -1), out["sigma"].reshape(n, r, s, 1)
 
-    colors_coarse, densities_coarse = eval_points(depths_coarse)
+    colors_coarse, densities_coarse = eval_points(depths_coarse, keys[1])
 
     n_imp = options["depth_resolution_importance"]
     if n_imp > 0:
         _, _, weights = march_rays(colors_coarse, densities_coarse, depths_coarse, options)
-        depths_fine = sample_importance(rng, depths_coarse, weights, n_imp, ray_mesh=ray_mesh)
-        colors_fine, densities_fine = eval_points(depths_fine)
+        depths_fine = sample_importance(keys[2], depths_coarse, weights, n_imp,
+                                        ray_mesh=ray_mesh)
+        colors_fine, densities_fine = eval_points(depths_fine, keys[3])
         all_depths, all_colors, all_densities = unify_samples(
             depths_coarse, colors_coarse, densities_coarse,
             depths_fine, colors_fine, densities_fine)

@@ -19,17 +19,17 @@ Every FIR convolution goes through `ops/upfirdn2d.py::conv2d`, so R1
 differentiates through the pipe without PyTorch's convolution double
 backward.
 
-Draws come from an explicit `torch.Generator` on the images' device (not
-JAX's threefry, so the draws differ from the JAX package's); the steps that
-follow the draws are split out (`_execute_geometric`, `_execute_color`,
-`_execute_imgfilter_gains`) so they can be fed the JAX package's matrices.
-`debug_percentile` gives the reference's deterministic debugging mode.
+Draws come from a key (`utils.prng`), split into 32 keys taken in the JAX
+package's order (imgfilter splits its own), so a key gives JAX's draws; the
+steps that follow the draws are split out (`_execute_geometric`,
+`_execute_color`, `_execute_imgfilter_gains`). `debug_percentile` gives the
+reference's deterministic debugging mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ..ops.upfirdn2d import conv2d, downsample2d, setup_filter, upsample2d
 from ..parallel.sharding import draw
+from ..utils import prng
 
 # Wavelet low-pass filters (public coefficients; only the ones used).
 WAVELETS = {
@@ -94,6 +95,15 @@ def _rotate3d_axis(v: np.ndarray, theta):
     ])
 
 
+def _f32(*factors: float) -> float:
+    """The product of `factors` in float32, rounded after each product, as
+    JAX computes a gate's probability from its traced p."""
+    out = np.float32(1)
+    for f in factors:
+        out = np.float32(out * np.float32(f))
+    return float(out)
+
+
 def _erfinv(x: float) -> float:
     return float(torch.erfinv(torch.tensor(x, dtype=torch.float64)))
 
@@ -111,6 +121,20 @@ def _filter_bank() -> np.ndarray:
         fbank = np.stack([np.convolve(row, hz_lo2) for row in fbank])
         fbank[i, (fbank.shape[1] - hz_hi2.size) // 2:(fbank.shape[1] + hz_hi2.size) // 2] += hz_hi2
     return fbank.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device) -> dict:
+    """The pipe's constant tensors on `device`, made once: each copy from
+    the host waits for the card, and the host's work after it (the draws)
+    would then hold the card idle."""
+    v = np.asarray([1, 1, 1, 0]) / np.sqrt(3)
+    return dict(
+        v=v, vv=torch.tensor(np.outer(v, v), dtype=torch.float32, device=device),
+        sym6=setup_filter(WAVELETS["sym6"], device=device),
+        expected_power=torch.tensor(np.array([10, 1, 1, 1]) / 13, dtype=torch.float32,
+                                    device=device),
+        fbank=torch.from_numpy(_filter_bank()).to(device))
 
 
 class _Warp(torch.autograd.Function):
@@ -226,24 +250,25 @@ class AugmentPipe:
         return any(x > 0 for x in (self.brightness, self.contrast, self.lumaflip,
                                    self.hue, self.saturation))
 
-    def __call__(self, images: torch.Tensor, p: float = 1.0,
-                 generator: Optional[torch.Generator] = None,
+    def __call__(self, rng: torch.Tensor, images: torch.Tensor, p: float = 1.0,
                  debug_percentile: Optional[float] = None) -> torch.Tensor:
-        """Augment a batch [N, C, H, W]; `p` is the ADA strength. Under a
-        mesh each draw is this rank's rows of the global batch's draw."""
+        """Augment a batch [N, C, H, W] with the draws of the key `rng`; `p`
+        is the ADA strength. Under a mesh each draw is this rank's rows of
+        the global batch's draw."""
         N, C, H, W = images.shape
         dev = images.device
         f32 = dict(dtype=torch.float32, device=dev)
+        keys = iter(prng.split(rng, 32))
 
         def uniform(*shape):
-            return draw(torch.rand, (N,) + shape, generator, **f32)
+            return draw(prng.uniform, next(keys), (N,) + shape, device=dev)
 
         def normal(*shape):
-            return draw(torch.randn, (N,) + shape, generator, **f32)
+            return draw(prng.normal, next(keys), (N,) + shape, device=dev)
 
         def gate(value, fallback, prob):
             u = uniform(*(1,) * (value.dim() - 1))
-            return torch.where(u < prob * p, value, fallback)
+            return torch.where(u < _f32(prob, p), value, fallback)
 
         dp = debug_percentile
 
@@ -276,7 +301,9 @@ class AugmentPipe:
             if dp is not None:
                 s = full(s, 2 ** (_erfinv(dp * 2 - 1) * self.scale_std))
             G_inv = G_inv @ _scale2d(1 / s, 1 / s)
-        p_rot = 1 - math.sqrt(max(1 - self.rotate * p, 0.0))
+        # In float32, as JAX computes it from its traced p.
+        p_rot = float(1 - np.sqrt(np.maximum(1 - np.float32(_f32(self.rotate, p)),
+                                             np.float32(0))))
         if self.rotate > 0:
             theta = (uniform() * 2 - 1) * np.pi * self.rotate_max
             theta = torch.where(uniform() < p_rot, theta, torch.zeros_like(theta))
@@ -307,8 +334,7 @@ class AugmentPipe:
 
         # ----- Color (C: color_in -> color_out, homogeneous 4x4) -----------
         Cmat = torch.eye(4, **f32).expand(N, 4, 4)
-        v = np.asarray([1, 1, 1, 0]) / np.sqrt(3)
-        vv = torch.tensor(np.outer(v, v), **f32)
+        v, vv = _constants(dev)["v"], _constants(dev)["vv"]
         if self.brightness > 0:
             b = normal() * self.brightness_std
             b = gate(b, torch.zeros_like(b), self.brightness)
@@ -345,7 +371,7 @@ class AugmentPipe:
 
         # ----- Image-space filtering ---------------------------------------
         if self.imgfilter > 0:
-            images = self._execute_imgfilter(images, p, dp, uniform, normal)
+            images = self._execute_imgfilter(next(keys), images, p, dp)
 
         # ----- Corruptions --------------------------------------------------
         if self.noise > 0:
@@ -353,7 +379,7 @@ class AugmentPipe:
             sigma = gate(sigma, torch.zeros_like(sigma), self.noise)
             if dp is not None:
                 sigma = full(sigma, _erfinv(dp) * self.noise_std)
-            noise = draw(torch.randn, images.shape, generator, **f32)
+            noise = draw(prng.normal, next(keys), images.shape, device=dev)
             images = images + (noise * sigma).to(images.dtype)
         if self.cutout > 0:
             size = torch.full((N, 2, 1, 1, 1), self.cutout_size, **f32)
@@ -378,7 +404,7 @@ class AugmentPipe:
         more than bf16's 8 bits) and cast back."""
         N, C, H, W = images.shape
         dev = images.device
-        hz = setup_filter(WAVELETS["sym6"], device=dev)
+        hz = _constants(dev)["sym6"]
         hz_pad = hz.shape[0] // 4
         m = int(np.ceil(self.pad_fraction * max(H, W))) + hz_pad * 2
         images = reflect_pad(images, m)
@@ -429,16 +455,19 @@ class AugmentPipe:
             raise ValueError("images must have 1, 3 or 6 channels")
         return flat.reshape(N, C, H, W)
 
-    def _execute_imgfilter(self, images, p, dp, uniform, normal):
-        """Draw the per-band gains, then filter."""
-        N = images.shape[0]
+    def _execute_imgfilter(self, rng, images, p, dp):
+        """Draw the per-band gains from `rng`'s split (a normal and a
+        uniform key per band), then filter."""
+        N, dev = images.shape[0], images.device
         num_bands = len(self.imgfilter_bands)
-        expected_power = torch.tensor(np.array([10, 1, 1, 1]) / 13, dtype=torch.float32,
-                                      device=images.device)
-        g = torch.ones((N, num_bands), dtype=torch.float32, device=images.device)
+        keys = prng.split(rng, num_bands * 2)
+        expected_power = _constants(dev)["expected_power"]
+        g = torch.ones((N, num_bands), dtype=torch.float32, device=dev)
         for i, band_strength in enumerate(self.imgfilter_bands):
-            t_i = torch.exp2(normal() * self.imgfilter_std)
-            t_i = torch.where(uniform() < self.imgfilter * p * band_strength, t_i,
+            t_i = torch.exp2(draw(prng.normal, keys[2 * i], (N,), device=dev)
+                             * self.imgfilter_std)
+            u = draw(prng.uniform, keys[2 * i + 1], (N,), device=dev)
+            t_i = torch.where(u < _f32(self.imgfilter, p, band_strength), t_i,
                               torch.ones_like(t_i))
             if dp is not None:
                 t_i = (torch.full_like(t_i, 2 ** (_erfinv(dp * 2 - 1) * self.imgfilter_std))
@@ -453,7 +482,7 @@ class AugmentPipe:
         """Filter each image with the bank's rows mixed by its gains g
         [N, 4]: a separable FIR on the reflect-padded image."""
         N, C, H, W = images.shape
-        fbank = torch.from_numpy(_filter_bank()).to(images.device)
+        fbank = _constants(images.device)["fbank"]
         if len(self.imgfilter_bands) != fbank.shape[0]:
             raise ValueError(f"imgfilter_bands needs {fbank.shape[0]} entries")
         hz_prime = g.float() @ fbank  # [N, taps]

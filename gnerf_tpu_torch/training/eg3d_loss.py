@@ -25,11 +25,12 @@ trainable set; the D phase regenerates its fakes from the updated G under
 `torch.no_grad()`.
 
 Every random draw of a step (the swap, style mixing, synthesis noise, the
-render's jitter and importance samples, the density points) comes from the
-step's `torch.Generator`; each D call's augmentation draws from a generator
-of its own, seeded from the step generator's seed and the call's stream
-(`_aug_generator`). `rng=None` gives constant noise and deterministic
-sampling, and the remaining draws then come from torch's default generator.
+render's jitter and importance samples, the density points, each D call's
+augmentation) comes from the step's key (`utils.prng`, kept on the CPU),
+split in the JAX package's order, so a key gives JAX's draws. `rng=None`
+gives constant noise and deterministic sampling; it is meant for steps
+whose remaining draws do not matter (no pose swap or a certain one, no
+style mixing, no augmentation), and draws those from fixed keys.
 
 Given a `parallel.Mesh`, each step is the JAX package's global-batch step:
 each rank holds its rows of the batch, every draw is its part of the
@@ -56,6 +57,7 @@ from ..ops.upfirdn2d import filter2d
 from ..parallel.collectives import pmean_grads
 from ..parallel.mesh import Mesh, active_mesh, use_mesh
 from ..parallel.sharding import data_mean, draw, global_rows, local_rows, mean_stats
+from ..utils import prng
 from ..utils.misc import ema_update
 from .train_loop import checkpointed, ray_overrides
 
@@ -220,28 +222,35 @@ def swapping_prob_schedule(cur_nimg: float, cfg: EG3DLossConfig) -> Optional[flo
 # Pieces of the loss
 
 
-def swapped_conditioning(rng: Optional[torch.Generator], c: torch.Tensor,
+def swapped_conditioning(rng: torch.Tensor, c: torch.Tensor,
                          swapping_prob: Optional[float]) -> torch.Tensor:
     """G's conditioning: each label replaced by its batch neighbour's
     (a roll by one over the global batch) with probability `swapping_prob`;
     None -> zeros."""
     if swapping_prob is None:
         return torch.zeros_like(c)
-    pick = draw(torch.rand, (c.shape[0], 1), rng, device=c.device) < swapping_prob
+    pick = draw(prng.uniform, rng, (c.shape[0], 1), device=c.device) < _f32(swapping_prob)
     return torch.where(pick, local_rows(torch.roll(global_rows(c), 1, dims=0)), c)
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32, as the JAX package holds its traced scalars."""
+    return float(np.float32(x))
+
+
 def apply_style_mixing(mapping: Callable, ws: torch.Tensor, z_dim: int, c_cond: torch.Tensor,
-                       rng: Optional[torch.Generator], prob: float) -> torch.Tensor:
+                       rng: torch.Tensor, prob: float) -> torch.Tensor:
     """With probability `prob`, ws[:, cutoff:] becomes the mapping of a fresh
     z, at one cutoff for the batch drawn uniformly from [1, num_ws). Index 0
-    is never mixed. The draws stay on the device (no host round trip)."""
+    is never mixed. `rng` splits into the cutoff's, the coin's and z's keys;
+    the draws stay on the device (no host round trip)."""
     if prob <= 0:
         return ws
     num_ws, dev = ws.shape[1], ws.device
-    cutoff = torch.randint(1, num_ws, (), generator=rng, device=dev)
-    cutoff = torch.where(torch.rand((), generator=rng, device=dev) < prob, cutoff, num_ws)
-    z2 = draw(torch.randn, (ws.shape[0], z_dim), rng, device=dev, dtype=ws.dtype)
+    k_cut, k_apply, k_z = prng.split(rng, 3)
+    cutoff = prng.randint(k_cut, (), 1, num_ws, device=dev)
+    cutoff = torch.where(prng.uniform(k_apply, (), device=dev) < prob, cutoff, num_ws)
+    z2 = draw(prng.normal, k_z, (ws.shape[0], z_dim), device=dev).to(ws.dtype)
     keep = torch.arange(num_ws, device=dev)[None, :, None] < cutoff
     return torch.where(keep, ws, mapping(z2, c_cond))
 
@@ -255,17 +264,19 @@ def blur_image(img: torch.Tensor, blur_sigma: float, blur_size: int) -> torch.Te
     return filter2d(img, f / f.sum())
 
 
-def density_reg_points(n: int, cfg: EG3DLossConfig, rng: Optional[torch.Generator],
+def density_reg_points(n: int, cfg: EG3DLossConfig, rng: torch.Tensor,
                        device) -> tuple[torch.Tensor, torch.Tensor]:
     """The density regularizer's draws: (coordinates [n, 2P, 3], directions):
     P uniform points in [-1, 1]^3, then the same points nudged by
-    N(0, density_reg_p_dist); directions are standard normal."""
+    N(0, density_reg_p_dist); directions are standard normal. `rng` splits
+    in three, one key each."""
+    k1, k2, k3 = prng.split(rng, 3)
     p = cfg.density_reg_points
-    initial = draw(torch.rand, (n, p, 3), rng, device=device) * 2 - 1
-    perturbed = initial + draw(torch.randn, initial.shape, rng,
+    initial = draw(prng.uniform, k1, (n, p, 3), device=device) * 2 - 1
+    perturbed = initial + draw(prng.normal, k2, initial.shape,
                                device=device) * cfg.density_reg_p_dist
     coords = torch.cat([initial, perturbed], dim=1)
-    return coords, draw(torch.randn, coords.shape, rng, device=device)
+    return coords, draw(prng.normal, k3, coords.shape, device=device)
 
 
 def density_tv(g: TriPlaneGenerator, ws: torch.Tensor, coords: torch.Tensor,
@@ -278,7 +289,7 @@ def density_tv(g: TriPlaneGenerator, ws: torch.Tensor, coords: torch.Tensor,
 
 
 def density_regularization(g: TriPlaneGenerator, ws: torch.Tensor,
-                           rng: Optional[torch.Generator], cfg: EG3DLossConfig) -> torch.Tensor:
+                           rng: torch.Tensor, cfg: EG3DLossConfig) -> torch.Tensor:
     coords, dirs = density_reg_points(ws.shape[0], cfg, rng, ws.device)
     return density_tv(g, ws, coords, dirs, cfg)
 
@@ -376,60 +387,52 @@ def _finish_main(state: EG3DState, n: int) -> None:
     state.cur_nimg += n
 
 
-# The augmentation streams of a step's D calls: G's loss, D's loss on the
-# fakes and on the reals, R1 (JAX splits k_aug, k_aug_f, k_aug_r, k_aug_r1).
-AUG_G, AUG_FAKE, AUG_REAL, AUG_R1 = 1, 2, 3, 4
-
-
-def _aug_generator(rng: Optional[torch.Generator], stream: int) -> Optional[torch.Generator]:
-    """The augment pipe's generator for one D call of a step: seeded from
-    the step generator's seed and `stream`, so the draws do not depend on
-    how much G drew before them, and a step's calls draw independently.
-    None (torch's default generator) when the step has none."""
-    if rng is None:
-        return None
-    words = np.random.SeedSequence([rng.initial_seed(), stream]).generate_state(2, np.uint32)
-    return torch.Generator(device=rng.device).manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
+# The key of a step called with rng=None: its swap, style mixing, density
+# points and augmentation draw from it, while G's synthesis gets no key.
+_NO_KEY = prng.PRNGKey(0)
 
 
 def _make_runners(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None):
     """The G and D forwards the steps compose from."""
     pipe = make_augment_pipe(cfg)
 
-    def run_g(g: TriPlaneGenerator, z, c, rng, cur_nimg, res):
-        c_cond = swapped_conditioning(rng, c, swapping_prob_schedule(cur_nimg, cfg))
+    def run_g(g: TriPlaneGenerator, z, c, rng, cur_nimg, res, noise: bool = True):
+        """G's images and ws; `rng` splits into the swap's, the style
+        mixing's and the synthesis's keys. `noise` False: constant noise and
+        deterministic sampling."""
+        k_swap, k_mix, k_noise = prng.split(rng, 3)
+        c_cond = swapped_conditioning(k_swap, c, swapping_prob_schedule(cur_nimg, cfg))
         mapping = g.backbone.mapping
         ws = mapping(z, c_cond)
-        ws = apply_style_mixing(mapping, ws, g.z_dim, c_cond, rng, cfg.style_mixing_prob)
-        noise_mode = "random" if rng is not None else "const"
+        ws = apply_style_mixing(mapping, ws, g.z_dim, c_cond, k_mix, cfg.style_mixing_prob)
+        noise_mode, k_noise = ("random", k_noise) if noise else ("const", None)
 
         def synth(ws_, c_):
             out = g.synthesis(ws_, c_, neural_rendering_resolution=res, noise_mode=noise_mode,
-                              rng=rng, dtype=cfg.dtype, rendering_kwargs=rendering_overrides)
+                              rng=k_noise, dtype=cfg.dtype,
+                              rendering_kwargs=rendering_overrides)
             return out["image"], out["image_raw"]
 
         if cfg.remat_synthesis and torch.is_grad_enabled():
-            image, image_raw = checkpointed(synth, rng, ws, c)
+            image, image_raw = checkpointed(synth, ws, c)
         else:
             image, image_raw = synth(ws, c)
         # D and the losses take fp32 whatever the synthesis dtype.
         return {"image": image.float(), "image_raw": image_raw.float()}, ws
 
-    def run_d(disc, img, c, blur_sigma=0.0, blur_size: int = 0, *,
-              rng: Optional[torch.Generator] = None, stream: int = 0, aug_p: float = 0.0):
+    def run_d(disc, img, c, rng, blur_sigma=0.0, blur_size: int = 0, aug_p: float = 0.0):
         """D's logits, after the blur and, with a pipe, the augmentation at
-        strength `aug_p` from the step generator `rng`'s stream `stream`:
-        the raw image upsampled to full size, both augmented by the same
-        per-sample transform as one 6-channel batch in cfg.dtype, the raw
-        half resized back to its own size."""
+        strength `aug_p` from the key `rng`: the raw image upsampled to full
+        size, both augmented by the same per-sample transform as one
+        6-channel batch in cfg.dtype, the raw half resized back to its own
+        size."""
         if blur_size > 0:
             img = dict(img, image=blur_image(img["image"], blur_sigma, blur_size))
         if pipe is not None:
             full, res = img["image"].shape[-1], img["image_raw"].shape[-1]
             raw_up = interpolate_bilinear(img["image_raw"], full, full, antialias=True)
             pair = torch.cat([img["image"], raw_up], dim=1).to(cfg.dtype)
-            pair = pipe(pair, p=aug_p, generator=_aug_generator(rng, stream))
+            pair = pipe(rng, pair, p=aug_p)
             img = {"image": pair[:, :3],
                    "image_raw": interpolate_bilinear(pair[:, 3:], res, res, antialias=True)}
         return disc.apply(img, c, dtype=cfg.dtype)
@@ -437,43 +440,43 @@ def _make_runners(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = Non
     return run_g, run_d
 
 
-def _r1(run_d, disc, real_img, real_raw, real_c, blur_sigma, blur_size, cur_nimg, cfg, *,
-        rng: Optional[torch.Generator] = None, aug_p: float = 0.0):
+def _r1(run_d, disc, real_img, real_raw, real_c, blur_sigma, blur_size, cur_nimg, cfg,
+        k_aug: Optional[torch.Tensor] = None, aug_p: float = 0.0):
     """Mean (gamma / 2) * R1 through both D inputs, taken at the pre-blur,
     pre-augmentation image and the raw image, with a graph for D's weight
-    gradient."""
+    gradient; the augmentation draws from `k_aug` (needed with a pipe)."""
     img = real_img.detach().requires_grad_(True)
     raw = real_raw.detach().requires_grad_(True)
-    logits = run_d(disc, {"image": img, "image_raw": raw}, real_c, blur_sigma, blur_size,
-                   rng=rng, stream=AUG_R1, aug_p=aug_p)
+    logits = run_d(disc, {"image": img, "image_raw": raw}, real_c, k_aug, blur_sigma, blur_size,
+                   aug_p)
     g_img, g_raw = torch.autograd.grad(logits.sum(), [img, raw], create_graph=True)
     r1 = g_img.square().sum(dim=(1, 2, 3)) + g_raw.square().sum(dim=(1, 2, 3))
     return (r1 * (r1_gamma_schedule(cur_nimg, cfg) / 2)).mean()
 
 
-def _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res, aug_p=0.0):
+def _d_main(run_g, run_d, state, batch, keys, noise, blur_sigma, blur_size, res, aug_p=0.0):
     """D's logistic loss on fakes regenerated from the (updated) G without
-    a graph, and on the reals: (loss, logits on the reals, stats)."""
+    a graph, and on the reals: (loss, the reals' raw image, stats). `keys`:
+    G's, and the augmentation's on the fakes and on the reals."""
+    k_gen, k_aug_f, k_aug_r = keys
     with torch.no_grad():
-        gen_img, _ = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
-    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size,
-                       rng=rng, stream=AUG_FAKE, aug_p=aug_p)
+        gen_img, _ = run_g(state.g, batch["z"], batch["c"], k_gen, state.cur_nimg, res, noise)
+    gen_logits = run_d(state.disc, gen_img, batch["c"], k_aug_f, blur_sigma, blur_size, aug_p)
     real_img = batch["real_image"]
     real_raw = interpolate_bilinear(real_img, res, res, antialias=True)
     real_logits = run_d(state.disc, {"image": real_img, "image_raw": real_raw},
-                        batch["real_c"], blur_sigma, blur_size, rng=rng, stream=AUG_REAL,
-                        aug_p=aug_p)
+                        batch["real_c"], k_aug_r, blur_sigma, blur_size, aug_p)
     loss = F.softplus(gen_logits).mean() + F.softplus(-real_logits).mean()
     stats = {"Loss/D/loss": loss.detach(), "Loss/scores/real": real_logits.mean().detach(),
              "Loss/signs/real": torch.sign(real_logits).mean().detach()}
     return loss, real_raw, stats
 
 
-def _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size, res, aug_p=0.0):
+def _g_main(run_g, run_d, state, batch, k_g, k_aug, noise, blur_sigma, blur_size, res,
+            aug_p=0.0):
     """G's non-saturating loss: (loss, ws, stats)."""
-    gen_img, ws = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
-    gen_logits = run_d(state.disc, gen_img, batch["c"], blur_sigma, blur_size,
-                       rng=rng, stream=AUG_G, aug_p=aug_p)
+    gen_img, ws = run_g(state.g, batch["z"], batch["c"], k_g, state.cur_nimg, res, noise)
+    gen_logits = run_d(state.disc, gen_img, batch["c"], k_aug, blur_sigma, blur_size, aug_p)
     loss = F.softplus(-gen_logits).mean()
     stats = {"Loss/G/gan_loss": loss.detach(), "Loss/scores/fake": gen_logits.mean().detach()}
     return loss, ws, stats
@@ -503,29 +506,36 @@ def make_eg3d_train_step(cfg: EG3DLossConfig, rendering_overrides: Optional[dict
     come from `blur_sigma_schedule` / `blur_kernel_size`, `aug_p` is the
     augmentation strength (unused under aug='noaug'), `res` comes from
     `neural_resolution_schedule` (None: the initial resolution). State from
-    `init_eg3d_state(..., lazy=False)`. Under `mesh` the batch holds this
-    rank's rows of the global batch and every rank passes a generator in
-    the same state."""
+    `init_eg3d_state(..., lazy=False)`. `rng` is the step's key, split as
+    the JAX step splits it (G's side into G, the density points and the
+    augmentation; D's into G, the fakes', the reals' and R1's
+    augmentation). Under `mesh` the batch holds this rank's rows of the
+    global batch and every rank passes the same key."""
     run_g, run_d = _make_runners(cfg, ray_overrides(rendering_overrides, mesh))
 
-    def train_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
+    def train_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None,
                    blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
                    res: Optional[int] = None):
         res = res or cfg.neural_rendering_resolution
-        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
-                                    res, aug_p)
+        noise = rng is not None
+        k_g, k_d = prng.split(rng if noise else _NO_KEY)
+        k_gen, k_reg, k_aug = prng.split(k_g, 3)
+        k_gen_d, k_aug_f, k_aug_r, k_aug_r1 = prng.split(k_d, 4)
+        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, k_gen, k_aug, noise, blur_sigma,
+                                    blur_size, res, aug_p)
         if cfg.density_reg > 0:
-            tv = density_regularization(state.g, ws, rng, cfg)
+            tv = density_regularization(state.g, ws, k_reg, cfg)
             loss_g = loss_g + tv
             stats["Loss/G/density_reg"] = tv.detach()
         _adam_step(state.opt_g, loss_g)
         _update_w_avg(state.g, ws[:, 0].detach())
         del ws
 
-        loss_d, real_raw, d_stats = _d_main(run_g, run_d, state, batch, rng, blur_sigma,
+        loss_d, real_raw, d_stats = _d_main(run_g, run_d, state, batch,
+                                            (k_gen_d, k_aug_f, k_aug_r), noise, blur_sigma,
                                             blur_size, res, aug_p)
         loss_dr1 = _r1(run_d, state.disc, batch["real_image"], real_raw, batch["real_c"],
-                       blur_sigma, blur_size, state.cur_nimg, cfg, rng=rng, aug_p=aug_p)
+                       blur_sigma, blur_size, state.cur_nimg, cfg, k_aug_r1, aug_p)
         d_stats["Loss/D/reg"] = loss_dr1.detach()
         loss_d = loss_d + loss_dr1
         _adam_step(state.opt_d, loss_d)
@@ -550,21 +560,28 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
       greg_step(state, batch, rng=None)
       dreg_step(state, batch, rng=None, blur_sigma=0.0, aug_p=0.0, *, blur_size=0, res=None)
 
-    `mesh` as for `make_eg3d_train_step`.
+    The keys split as the JAX phases split them: main into G's side (G and
+    the augmentation) and D's (G, the fakes' and the reals' augmentation);
+    Greg into the swap's and the density points'; Dreg's key is R1's
+    augmentation. The CLI gives Greg fold_in(key, 1) and Dreg fold_in(key, 2)
+    of the step's key. `mesh` as for `make_eg3d_train_step`.
     """
     run_g, run_d = _make_runners(cfg, ray_overrides(rendering_overrides, mesh))
 
-    def main_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
+    def main_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None,
                   blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
                   res: Optional[int] = None):
         res = res or cfg.neural_rendering_resolution
-        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
-                                    res, aug_p)
+        noise = rng is not None
+        k_g, k_d = prng.split(rng if noise else _NO_KEY)
+        k_gen, k_aug = prng.split(k_g)
+        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, k_gen, k_aug, noise, blur_sigma,
+                                    blur_size, res, aug_p)
         _adam_step(state.opt_g, loss_g)
         _update_w_avg(state.g, ws[:, 0].detach())
         del ws
-        loss_d, _, d_stats = _d_main(run_g, run_d, state, batch, rng, blur_sigma, blur_size,
-                                     res, aug_p)
+        loss_d, _, d_stats = _d_main(run_g, run_d, state, batch, prng.split(k_d, 3), noise,
+                                     blur_sigma, blur_size, res, aug_p)
         _adam_step(state.opt_d, loss_d)
         _finish_main(state, int(batch["z"].shape[0]))
         stats.update(d_stats)
@@ -576,20 +593,21 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
     if cfg.density_reg > 0:
         gain_g = float(max(cfg.g_reg_interval, 1))
 
-        def greg_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None):
+        def greg_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None):
             """Fresh mapping under the swapped conditioning, no synthesis:
             the density TV at random points, times the lazy gain."""
-            c_cond = swapped_conditioning(rng, batch["c"],
+            k_swap, k_reg = prng.split(_NO_KEY if rng is None else rng)
+            c_cond = swapped_conditioning(k_swap, batch["c"],
                                           swapping_prob_schedule(state.cur_nimg, cfg))
             ws = state.g.backbone.mapping(batch["z"], c_cond)
-            tv = density_regularization(state.g, ws, rng, cfg)
+            tv = density_regularization(state.g, ws, k_reg, cfg)
             _adam_step(state.opt_g, tv * gain_g)
             return state, {"Loss/G/density_reg": tv.detach()}
 
     if cfg.r1_gamma > 0:
         gain_d = float(max(cfg.d_reg_interval, 1))
 
-        def dreg_step(state: EG3DState, batch, rng: Optional[torch.Generator] = None,
+        def dreg_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None,
                       blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
                       res: Optional[int] = None):
             """R1 through both dual-discrimination inputs (and the pipe),
@@ -597,7 +615,8 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
             res = res or cfg.neural_rendering_resolution
             real_raw = interpolate_bilinear(batch["real_image"], res, res, antialias=True)
             loss = _r1(run_d, state.disc, batch["real_image"], real_raw, batch["real_c"],
-                       blur_sigma, blur_size, state.cur_nimg, cfg, rng=rng, aug_p=aug_p)
+                       blur_sigma, blur_size, state.cur_nimg, cfg,
+                       _NO_KEY if rng is None else rng, aug_p)
             _adam_step(state.opt_d, loss * gain_d)
             return state, {"Loss/D/reg": loss.detach()}
 

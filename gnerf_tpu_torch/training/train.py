@@ -141,16 +141,13 @@ def pick_run_dir(outdir: str, desc: str) -> str:
     return run_dir
 
 
-def step_generator(seed: int, cur_nimg: int, device: torch.device,
-                   phase: int = 0) -> torch.Generator:
-    """The step's generator, a pure function of (seed, cur_nimg): a resumed
-    run continues the stream instead of replaying it from step 0. `phase` > 0
-    gives a stream of its own to a phase of the same step (the EG3D loop's
-    Greg is 1 and Dreg 2, as the JAX loop folds 1 and 2 into the step key)."""
-    entropy = [seed + 1, cur_nimg] + ([phase] if phase else [])
-    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(
-        (int(words[0]) << 31) ^ int(words[1]))
+def step_key(seed: int, cur_nimg: int) -> torch.Tensor:
+    """The step's key, on the CPU: fold_in(PRNGKey(seed + 1), cur_nimg), as
+    the JAX loops key their steps, so a resumed run continues the stream
+    instead of replaying it from step 0."""
+    from ..utils import prng
+
+    return prng.fold_in(prng.PRNGKey(seed + 1), cur_nimg)
 
 
 def check_fade_sr_compat(g, cfg, img_resolution: int) -> None:
@@ -237,8 +234,12 @@ def _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode, density
 
 def _resume(state, path, disc):
     """Load a full-state checkpoint of the port, or a network snapshot of
-    either package (G_ema into G and G_ema; E with its BN state; D).
-    Returns the best SSIM the full state recorded, else None."""
+    either package as the JAX CLI resumes one: G_ema into G and G_ema, E's
+    parameters (its BN statistics stay at init) and D, each leaf that the
+    snapshot has at the same shape (`checkpoint.copy_params`: the others
+    keep their init values, so an EG3D snapshot, whose D is the dual D,
+    starts G-NeRF training). Returns the best SSIM the full state recorded,
+    else None."""
     from ..utils import checkpoint as ckpt_lib
     from .train_loop import load_train_state
 
@@ -250,13 +251,12 @@ def _resume(state, path, disc):
         raise ValueError(f"{path} is a JAX full-state checkpoint (optax leaves by index); "
                          "resume the port from a network snapshot instead")
     if "G_ema" in trees:
-        ckpt_lib.load_jax_params(state.g, trees["G_ema"])
-        ckpt_lib.load_jax_params(state.g_ema, trees["G_ema"])
+        ckpt_lib.copy_params(state.g, trees["G_ema"])
+        ckpt_lib.copy_params(state.g_ema, trees["G_ema"])
     if "E" in trees:
-        state_e = trees.get("E_state") or ckpt_lib.default_bn_state(state.enc)
-        ckpt_lib.load_jax_params(state.enc, trees["E"], state_e)
+        ckpt_lib.copy_params(state.enc, trees["E"], keys=ckpt_lib.encoder_trees(state.enc)["E"])
     if "D" in trees and disc is not None:
-        ckpt_lib.load_jax_params(disc, trees["D"])
+        ckpt_lib.copy_params(disc, trees["D"])
     return None
 
 
@@ -535,8 +535,7 @@ def _train(run_dir, options, cfg, rendering_kwargs, img_resolution, dataset_name
     try:
         with _stop_on_signals() as stop_requested:
             while cur_nimg < total_nimg and not _any_rank(stop_requested["flag"], mesh, device):
-                rng = step_generator(seed, cur_nimg, device)
-                _, stats = train_step(state, to_device(pending), rng)
+                _, stats = train_step(state, to_device(pending), step_key(seed, cur_nimg))
                 pending = next(batches)
                 cur_nimg = state.cur_nimg
                 for name, value in stats.items():
@@ -635,7 +634,11 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     """EG3D adversarial pretraining (z, c) -> image at the JAX loop's
     cadence: Gmain + Dmain every step, Greg when sched_idx = cur_nimg //
     batch is a multiple of g_reg_interval, Dreg when it is one of
-    d_reg_interval, on the step's generator and its phases 1 and 2. Under
+    d_reg_interval. The step's key splits into z's and the phases' (kz, ks);
+    z is normal(fold_in(kz, 0)) at the global batch, each rank keeping its
+    rows (the JAX single-process mesh run, whose process index is 0);
+    Gmain + Dmain run on ks, Greg on fold_in(ks, 1), Dreg on fold_in(ks, 2).
+    Under
     `--aug ada` the controller averages 'Loss/signs/real' over each window
     of ada_interval steps and moves p with `ada_update_p` (a resumed run
     starts a fresh window, as the JAX loop does). Each tick writes
@@ -644,6 +647,7 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     (`aug_p_live`) in its config; `--resume` restores both."""
     from ..parallel import local_rows, put_replicated
     from ..utils import checkpoint as ckpt_lib
+    from ..utils import prng
     from ..utils.stats import Collector
     from .eg3d_loss import (AdaController, blur_kernel_size, blur_sigma_schedule,
                             init_eg3d_state, make_eg3d_phase_steps, make_eg3d_train_step,
@@ -700,11 +704,12 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     try:
         with _stop_on_signals() as stop_requested:
             while cur_nimg < total_nimg and not _any_rank(stop_requested["flag"], mesh, device):
-                rng = step_generator(seed, cur_nimg, device)
+                kz, ks = prng.split(step_key(seed, cur_nimg))
                 c = torch.from_numpy(np.asarray(pending["loss_c"], np.float32)).to(device)
                 real = torch.from_numpy(np.asarray(pending["loss_image"])).to(device)
                 # z for the global batch, as world 1 draws it; this rank's rows.
-                z = local_rows(torch.randn((batch, g.z_dim), generator=rng, device=device), mesh)
+                z = local_rows(prng.normal(prng.fold_in(kz, 0), (batch, g.z_dim), device=device),
+                               mesh)
                 gan_batch = {"z": z, "c": c, "real_image": real.float() / 127.5 - 1.0,
                              "real_c": c}
                 pending = next(batches)
@@ -713,15 +718,13 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
                 sigma = max(sigma, 1e-8)
                 res = neural_resolution_schedule(cur_nimg, cfg)
                 sched_idx = cur_nimg // batch
-                _, stats = main_fn(state, gan_batch, rng, sigma, cur_aug_p, blur_size=size,
+                _, stats = main_fn(state, gan_batch, ks, sigma, cur_aug_p, blur_size=size,
                                    res=res)
                 if greg_fn is not None and sched_idx % max(cfg.g_reg_interval, 1) == 0:
-                    stats.update(greg_fn(state, gan_batch,
-                                         step_generator(seed, cur_nimg, device, phase=1))[1])
+                    stats.update(greg_fn(state, gan_batch, prng.fold_in(ks, 1))[1])
                 if dreg_fn is not None and sched_idx % max(cfg.d_reg_interval, 1) == 0:
-                    stats.update(dreg_fn(state, gan_batch,
-                                         step_generator(seed, cur_nimg, device, phase=2),
-                                         sigma, cur_aug_p, blur_size=size, res=res)[1])
+                    stats.update(dreg_fn(state, gan_batch, prng.fold_in(ks, 2), sigma, cur_aug_p,
+                                         blur_size=size, res=res)[1])
                 cur_nimg = state.cur_nimg
                 for name, value in stats.items():
                     collector.report(name, value)

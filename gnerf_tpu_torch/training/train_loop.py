@@ -46,6 +46,7 @@ from ..parallel.collectives import pmean_grads
 from ..parallel.mesh import Mesh, active_mesh, use_mesh
 from ..parallel.sharding import data_sum, mean_stats
 from ..utils import checkpoint as ckpt_lib
+from ..utils import prng
 from ..utils.misc import ema_update
 from . import losses as L
 
@@ -133,32 +134,17 @@ def init_train_state(g: TriPlaneGenerator, enc: ResNeXt50Encoder,
     return TrainState(g=g, g_ema=g_ema, enc=enc, disc=disc, vgg=vgg, opt_g=opt_g, opt_d=opt_d)
 
 
-def checkpointed(fn: Callable, rng: Optional[torch.Generator], *args):
-    """`fn(*args)` under `torch.utils.checkpoint`, with the random draws of
-    its recompute equal to those of its forward.
-
-    Checkpointing restores only the default CPU / CUDA RNG states, not an
-    explicit generator: a recompute that draws from `rng` would take new
-    jitter and importance depths and give wrong gradients. So the body puts
-    `rng` back to its state at the forward before it draws, and after the
-    recompute returns the generator to where it was. The recompute runs
-    under the forward's mesh: on CUDA the autograd engine runs it on a
-    thread of its own, which does not see the step's `use_mesh`."""
+def checkpointed(fn: Callable, *args):
+    """`fn(*args)` under `torch.utils.checkpoint`, recomputed in the backward
+    pass under the forward's mesh: on CUDA the autograd engine runs the
+    recompute on a thread of its own, which does not see the step's
+    `use_mesh`. The step's draws come from keys among `args` (or closed
+    over), so the recompute draws what the forward drew."""
     mesh = active_mesh()
-    start = rng.get_state() if rng is not None else None
-    calls = [0]
 
     def body(*a):
-        calls[0] += 1
         with use_mesh(mesh):
-            if rng is None or calls[0] == 1:
-                return fn(*a)
-            now = rng.get_state()
-            rng.set_state(start)
-            try:
-                return fn(*a)
-            finally:
-                rng.set_state(now)
+            return fn(*a)
 
     return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
 
@@ -177,11 +163,12 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
 
     `batch` holds the collated dataset tensors on G's device (uint8 images,
     fp32 labels, depths and factor): under `mesh`, this rank's rows of the
-    global batch. `rng` is the step's generator on that device, for the
-    synthesis noise, the stratified jitter and the importance samples; None
-    gives deterministic sampling (constant noise, no jitter, evenly spaced
-    importance samples). Under a mesh every rank passes a generator in the
-    same state and draws its part of the global draw."""
+    global batch. `rng` is the step's key (`utils.prng`, best kept on the
+    CPU), split as the JAX step splits it: the first half is the synthesis
+    noise, the stratified jitter and the importance samples, the second is
+    unused, as there. None gives deterministic sampling (constant noise, no
+    jitter, evenly spaced importance samples). Under a mesh every rank
+    passes the same key and draws its part of the global draw."""
     res = cfg.neural_rendering_resolution
     rendering_overrides = ray_overrides(rendering_overrides, mesh)
     data = mesh.data if mesh is not None else 1
@@ -203,7 +190,7 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         with torch.no_grad():
             emb_t = embed(torch.cat([to_vgg_res(real_raw, vgg), to_vgg_res(real_full, vgg)]))
         fak = torch.cat([to_vgg_res(fake_raw, vgg), to_vgg_res(fake_full, vgg)])
-        emb_f = checkpointed(embed, None, fak) if cfg.remat_lpips else embed(fak)
+        emb_f = checkpointed(embed, fak) if cfg.remat_lpips else embed(fak)
         d = (emb_t - emb_f).float().square().sum(dim=1)
         return d.chunk(2)
 
@@ -220,14 +207,16 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         loss_c = batch["loss_c"].float()
         ws = g.mapping(z, loss_c)
         noise_mode = "random" if rng is not None else "const"
+        k_noise = prng.split(rng)[0] if rng is not None else None
 
         def synth(ws_, c_):
             out = g.synthesis(ws_, c_, neural_rendering_resolution=res, noise_mode=noise_mode,
-                              rng=rng, dtype=cfg.dtype, rendering_kwargs=rendering_overrides)
+                              rng=k_noise, dtype=cfg.dtype,
+                              rendering_kwargs=rendering_overrides)
             return out["image"], out["image_raw"], out["image_depth"]
 
         if cfg.remat_synthesis:
-            image, image_raw, depth = checkpointed(synth, rng, ws, loss_c)
+            image, image_raw, depth = checkpointed(synth, ws, loss_c)
         else:
             image, image_raw, depth = synth(ws, loss_c)
 
@@ -287,11 +276,11 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         opt.step()
         opt.zero_grad(set_to_none=True)
 
-    def train_step(state: TrainState, batch, rng: Optional[torch.Generator] = None):
+    def train_step(state: TrainState, batch, rng: Optional[torch.Tensor] = None):
         with use_mesh(mesh):
             return step(state, batch, rng)
 
-    def step(state: TrainState, batch, rng: Optional[torch.Generator]):
+    def step(state: TrainState, batch, rng: Optional[torch.Tensor]):
         g_params = [p for grp in state.opt_g.param_groups for p in grp["params"]] \
             if state.opt_g is not None else []
         total, stats, depth_fake = g_loss(state, batch, rng)

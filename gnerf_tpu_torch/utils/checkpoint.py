@@ -147,3 +147,26 @@ def load_jax_params(module: nn.Module, *trees: Any, device=None) -> nn.Module:
         with torch.no_grad():
             state[tk].copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
     return module
+
+
+def copy_params(module: nn.Module, tree: Any, keys: Optional[Any] = None,
+                verbose: bool = True) -> nn.Module:
+    """The JAX package's shape-tolerant resume copy (`copy_params`), in
+    place: every entry of `module`'s state (or of its `keys`, `/`-joined)
+    that `tree` holds with the same shape is taken from it; any other keeps
+    its value, with a printed line. Entries of `tree` the module lacks are
+    ignored. `load_jax_params` is the strict load."""
+    src = flatten_tree(tree)
+    state = module.state_dict()
+    wanted = {k.replace(".", SEP): k for k in state}
+    for jk in (wanted if keys is None else keys):
+        dst = state[wanted[jk]]
+        if jk in src and tuple(src[jk].shape) == tuple(dst.shape):
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(np.array(src[jk], dtype=np.float32)))
+        elif verbose and jk in src:
+            print(f"copy_params: shape mismatch at {jk}: "
+                  f"{tuple(src[jk].shape)} vs {tuple(dst.shape)}, keeping dst")
+        elif verbose:
+            print(f"copy_params: {jk} missing in src, keeping dst")
+    return module

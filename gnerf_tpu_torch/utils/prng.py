@@ -4,8 +4,9 @@ the same weights and draws in both packages.
 The JAX package draws from threefry2x32 keys in the partitionable form
 (`jax_threefry_partitionable`, JAX's default since 0.5): element i of a
 draw is threefry2x32(key, (hi32(i), lo32(i))) with i the flat index, so a
-draw depends only on its key and its shape. This module computes the same
-words with torch integer ops:
+draw depends only on its key and its shape. This module draws from those
+words (`ops/threefry.py`: the hand-written kernel for a draw on CUDA, int64
+torch ops for one on the CPU):
 
 - `PRNGKey(seed)` is [0, seed mod 2^32], as JAX's 32-bit mode gives it;
 - `split(key, n)[i]` is threefry2x32(key, (0, i));
@@ -15,25 +16,33 @@ words with torch integer ops:
   away, scales to [minval, maxval) and clamps below at minval;
 - `normal` is sqrt(2) * erfinv(uniform(-1 + ulp, 1)) with XLA's
   single-precision erfinv polynomial (within an ulp or two of JAX's: its
-  log1p differs from torch's in the last place).
+  log1p differs from torch's in the last place);
+- `randint` is jax's modulus-based draw from two bit draws of a split key.
 
 A key is an int64 tensor of two words, each in [0, 2^32): torch's uint32
-lacks most operators. Every word is computed on the key's device, so a key
-on CUDA draws there and a key on `meta` draws nothing (the draw's shape
-only: the load paths build their modules so).
+lacks most operators. A draw is computed on `device`, by default the key's:
+a key on CUDA draws there, a key on `meta` draws nothing (the draw's shape
+only: the load paths build their modules so), and a key on the CPU may draw
+on any device (its words go to the kernel as scalars, so the training steps
+keep their keys on the host and split them there without waiting for the
+card).
+
+`part` asks for a block of a draw: {dim: (start, size)} names, for some
+dimensions of the draw's `shape`, the slice to compute; every draw of a
+block is the draw of the whole at the same position, since element i
+depends only on the key and i. A rank computes its part of a sharded draw
+so (`parallel.sharding.draw`).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Union
 
 import numpy as np
 import torch
 
-_MASK = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = 0x1BD11BDA
+from ..ops.threefry import MASK as _MASK
+from ..ops.threefry import Part, host_pairs, threefry_draw
 
 Shape = Union[int, Sequence[int]]
 
@@ -55,48 +64,15 @@ def PRNGKey(seed, device=None) -> torch.Tensor:
     return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """a * b + c rounded once to float32, as XLA contracts it: the float64
-    product of two floats is exact, and so is the sum while the operands'
-    exponents lie within 29 bits of each other (every use here)."""
-    b = b.double() if isinstance(b, torch.Tensor) else b
-    c = c.double() if isinstance(c, torch.Tensor) else c
-    return (a.double() * b + c).float()
-
-
-def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
-    """The Threefry-2x32 block cipher (20 rounds) of the counter words
-    (x0, x1) under `key`: JAX's `threefry2x32_p`, word for word. x0 and x1
-    are int64 tensors of one shape, overwritten; returns them."""
-    k0, k1 = key[0], key[1]
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0.add_(ks[0]).bitwise_and_(_MASK)
-    x1.add_(ks[1]).bitwise_and_(_MASK)
-    t = torch.empty_like(x1)
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(_MASK)
-            torch.bitwise_left_shift(x1, r, out=t).bitwise_and_(_MASK)
-            x1.bitwise_right_shift_(32 - r).bitwise_or_(t).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
-        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
-    return x0, x1
-
-
 def _shape(shape: Shape) -> tuple:
     return (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(int(s) for s in shape)
 
 
-def _counters(key: torch.Tensor, n: int):
-    """(hi32(i), lo32(i)) for the flat indices i < n."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
-    return i >> 32, i & _MASK
-
-
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`num` new keys, [num, 2]."""
-    x0, x1 = threefry2x32(key, *_counters(key, num))
-    return torch.stack([x0, x1], dim=1)
+    if key.device.type == "cpu":
+        return host_pairs(*key.tolist(), range(num))
+    return threefry_draw(key, (num,), kind="pairs").to(torch.int64) & _MASK
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
@@ -104,50 +80,78 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     data = int(data)
     if not 0 <= data <= _MASK:
         raise OverflowError(f"fold_in data {data} does not fit in 32 unsigned bits")
-    x0, x1 = threefry2x32(key, torch.zeros((), dtype=torch.int64, device=key.device),
-                          torch.full((), data, dtype=torch.int64, device=key.device))
-    return torch.stack([x0, x1])
+    if key.device.type == "cpu":
+        return host_pairs(*key.tolist(), (data,))[0]
+    words = threefry_draw(key, (data + 1,), part={0: (data, 1)}, kind="pairs")
+    return words[0].to(torch.int64) & _MASK
 
 
-def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """Random 32-bit words of `shape` (int64 in [0, 2^32))."""
-    shape = _shape(shape)
-    x0, x1 = threefry2x32(key, *_counters(key, math.prod(shape)))
-    return (x0 ^ x1).reshape(shape)
+def bits(key: torch.Tensor, shape: Shape, part: Part = None, device=None) -> torch.Tensor:
+    """Random 32-bit words of `shape` (int64 in [0, 2^32)), or of its block
+    `part`, on `device` (default: the key's)."""
+    return threefry_draw(key, _shape(shape), part, device).to(torch.int64) & _MASK
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, part: Part = None, device=None) -> torch.Tensor:
     """float32 draws in [minval, maxval)."""
-    mantissa = (bits(key, shape) >> 9) | 0x3F800000
-    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    return threefry_draw(key, _shape(shape), part, device, "uniform", minval, maxval)
 
 
-# XLA's single-precision erfinv (`ErfInv32`, after Giles): a degree-8
-# polynomial in w - 2.5 for w = -log1p(-x^2) < 5, in sqrt(w) - 3 beyond.
-_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
-                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
-                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+def _int32_bound(v, name: str):
+    """A randint bound as jax's 32-bit mode reads it: (value, dtype's
+    (min, max)). A Python int outside int32 is an OverflowError; a numpy
+    scalar keeps its type, but 64-bit types wrap to their 32-bit ones."""
+    if isinstance(v, (bool, np.bool_)) or not isinstance(v, (int, np.integer)):
+        raise TypeError(f"randint {name} must be an integer; got {v!r}")
+    if not isinstance(v, np.integer):
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise OverflowError(f"randint {name} {v} does not fit in int32")
+        return int(v), (-2 ** 31, 2 ** 31 - 1)
+    dtype = np.dtype({np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32}.get(
+        v.dtype, v.dtype))
+    info = np.iinfo(dtype)
+    return int(np.asarray(v).astype(dtype)), (int(info.min), int(info.max))
 
 
-def _erfinv(x: torch.Tensor) -> torch.Tensor:
-    w = -torch.log1p(-x * x)
-    small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
-    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
-    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
-        # c + p * w with one rounding (XLA contracts it to an FMA)
-        p = p.double().mul_(w).add_(torch.where(small, a, b)).float()
-    return p * x
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """a * b mod 2^32 for words in [0, 2^32), without int64 overflow."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & _MASK) << 16
+    return (lo + hi) & _MASK
 
 
-_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+def randint(key: torch.Tensor, shape: Shape, minval, maxval, part: Part = None,
+            device=None) -> torch.Tensor:
+    """int32 draws in [minval, maxval) (scalar integer bounds), as
+    `jax.random.randint` gives them with 64-bit types off: the bounds
+    clipped to int32, span = maxval - minval as an unsigned word (1 when
+    maxval <= minval, one more when maxval lies past int32), and
+    minval + (hi % span * (2^32 % span) + lo % span) % span in uint32
+    arithmetic, hi and lo the bits of the two keys of split(key)."""
+    lo_v, lo_range = _int32_bound(minval, "minval")
+    hi_v, hi_range = _int32_bound(maxval, "maxval")
+    out_of_range = hi_v > min(2 ** 31 - 1, hi_range[1])
+    lo_v = min(max(lo_v, -2 ** 31), 2 ** 31 - 1)
+    hi_v = min(max(hi_v, -2 ** 31), 2 ** 31 - 1)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _MASK
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape, part, device), bits(k2, shape, part, device)
+    if span == 0:  # XLA's x % 0 is x: the offset is the low word alone
+        offset = lower
+    else:
+        mult = (2 ** 16 % span) ** 2 & _MASK
+        mult %= span
+        offset = ((_mul32(higher % span, mult) + lower % span) & _MASK) % span
+    out = (lo_v + offset) & _MASK
+    return (out - ((out >> 31) << 32)).to(torch.int32)
 
 
-def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Shape = (), part: Part = None,
+           device=None) -> torch.Tensor:
     """Standard normal float32 draws."""
-    return math.sqrt(2) * _erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+    return threefry_draw(key, _shape(shape), part, device, "normal")

@@ -122,10 +122,10 @@ def draw_case(rank, world, data, rays):
     """This rank's part of a batch draw and of a batch x rays draw under the
     (data, rays) mesh, and its rows of a global tensor."""
     mesh = make_mesh(data=data, rays=rays)
-    gen = torch.Generator().manual_seed(5)
     with use_mesh(mesh):
-        rows = draw(torch.randn, (8 // data, 3), gen)
-        rows_rays = draw(torch.rand, (8 // data, 8 // rays, 4), gen, ray_mesh=mesh, ray_dim=1)
+        rows = draw(prng.normal, prng.PRNGKey(5), (8 // data, 3))
+        rows_rays = draw(prng.uniform, prng.PRNGKey(6), (8 // data, 8 // rays, 4),
+                         ray_mesh=mesh, ray_dim=1)
     return to_np(rows), to_np(rows_rays), to_np(local_rows(torch.arange(8.0), mesh))
 
 
@@ -231,13 +231,13 @@ def toy_decoder(feats, dirs):
 
 
 def render_rays_seeded(planes, origins, dirs, options):
-    """render_rays with toy_decoder on a seed-7 generator: (rgb, depth,
+    """render_rays with toy_decoder on the key PRNGKey(7): (rgb, depth,
     weight sum, d(sum rgb^2 + sum depth)/d planes)."""
     from gnerf_tpu_torch.render.renderer import render_rays
 
     planes = planes.clone().requires_grad_(True)
     rgb, depth, wsum = render_rays(planes, toy_decoder, origins, dirs, options,
-                                   torch.Generator().manual_seed(7))
+                                   prng.PRNGKey(7))
     (gp,) = torch.autograd.grad(rgb.square().sum() + depth.sum(), planes)
     return tuple(to_np(t) for t in (rgb, depth, wsum, gp))
 
@@ -335,9 +335,9 @@ def _result(rank, state, stats, mesh):
 def gnerf_case(rank, world, spec_path, batch, scenarios):
     """One G-NeRF step per scenario {name: (data, rays, seeded)}, each from
     the spec's state, on this rank's rows of the global batch; seeded steps
-    take step_generator(0, 0)."""
+    take step_key(0, 0)."""
     from gnerf_tpu_torch.training import train_loop as T
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
 
     spec = torch.load(spec_path, weights_only=False)
     out = {}
@@ -346,7 +346,7 @@ def gnerf_case(rank, world, spec_path, batch, scenarios):
         mesh = make_mesh(data=data, rays=rays)
         step = T.make_train_step(cfg, mesh=mesh)
         local = {k: local_rows(torch.from_numpy(np.asarray(v)), mesh) for k, v in batch.items()}
-        _, stats = step(state, local, step_generator(0, 0, "cpu") if seeded else None)
+        _, stats = step(state, local, step_key(0, 0) if seeded else None)
         out[name] = _result(rank, state, stats, mesh)
     return out
 
@@ -378,13 +378,13 @@ def eg3d_case(rank, world, spec_path, batch, scenarios, density_points=None):
 def run_eg3d_phases(state, cfg, steps, batch, phases, seeded, aug_p):
     """Yields the stats of each phase of `phases` in turn (see eg3d_case),
     the blur at the schedule's value for the state's cur_nimg; a seeded
-    phase i draws from step_generator(0, 0, phase=i)."""
+    phase i draws from fold_in(step_key(0, 0), i)."""
     from gnerf_tpu_torch.training import eg3d_loss as E
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
 
     main, greg, dreg = steps
     for i, phase in enumerate(phases):
-        rng = step_generator(0, 0, "cpu", phase=i) if seeded else None
+        rng = prng.fold_in(step_key(0, 0), i) if seeded else None
         sigma = E.blur_sigma_schedule(state.cur_nimg, cfg)
         size = E.blur_kernel_size(sigma)
         if phase == "m":

@@ -1,11 +1,13 @@
 """Shared set-up of the EG3D parity tests (tests/test_torch_eg3d_step.py,
 tests/test_torch_eg3d_phases.py; tests/test_torch_eg3d.py takes the JAX
-density points): the tiny G of tests/test_torch_training.py
-with its JAX key withheld from the synthesis, a tiny dual D, one batch of
-the JAX SyntheticDataset, and the comparison of the port's state with the
-JAX state after Adam steps.
+density points; the seeded phases of tests/test_torch_seeded_eg3d.py and
+test_torch_seeded_ada.py at the end): the tiny G of
+tests/test_torch_training.py with its JAX key withheld from the synthesis,
+a tiny dual D, one batch of the JAX SyntheticDataset, and the comparison of
+the port's state with the JAX state after Adam steps.
 
-The draws of a JAX step are taken out of play: the synthesis gets no key
+In the unseeded tests the draws of a JAX step are taken out of play: the
+synthesis gets no key
 (constant noise, deterministic sampling: the port's rng=None), the swap
 probability is exactly 1 (gpc_reg_fade_kimg 1e9 keeps it there in float32
 after the first step), style mixing is off, and the density regularizer's
@@ -68,7 +70,7 @@ def port_state(jstate, lazy, **cfg_overrides):
     load_jax_params(g, jstate["params_g"], device="cpu")
     d = DualDiscriminator(**TINY_D, device="meta")
     load_jax_params(d, jstate["params_d"], device="cpu")
-    cfg = E.EG3DLossConfig(**CFG, **cfg_overrides)
+    cfg = E.EG3DLossConfig(**{**CFG, **cfg_overrides})
     return E.init_eg3d_state(g, d, cfg, lazy=lazy), cfg
 
 
@@ -118,7 +120,7 @@ class AdamLog:
         opt = getattr(self.state, opt_name)
         lr = opt.param_groups[0]["lr"]
         for p in (p for grp in opt.param_groups for p in grp["params"]):
-            self.grads.setdefault(id(p), []).append(to_np(opt.state[p]["exp_avg"]))
+            self.grads.setdefault(id(p), []).append(to_np(opt.state[p]["exp_avg"]).copy())
             self.lr_sum[id(p)] = self.lr_sum.get(id(p), 0.0) + lr
 
 
@@ -163,3 +165,75 @@ def assert_stats_match(stats, jstats):
     assert sorted(stats) == sorted(jstats)
     for k, v in jstats.items():
         np.testing.assert_allclose(float(stats[k]), float(v), **TOL, err_msg=k)
+
+
+# The seeded phases (tests/test_torch_seeded_eg3d.py, test_torch_seeded_ada.py):
+# JAX's G with its noise on, the swap at probability 0.75 (cur_nimg 500 of a
+# 1 kimg fade), style mixing at 0.5, the blur at sigma 0.5; every draw from
+# the phase's key in both packages, as the CLI keys them: Gmain + Dmain on
+# the step key, Greg on fold_in(key, 1), Dreg on fold_in(key, 2).
+SEEDED_NIMG = 500
+SEEDED_CFG = dict(CFG, gpc_reg_fade_kimg=1.0, style_mixing_prob=0.5)
+
+
+def seeded_jax_phases(phases, **cfg_overrides):
+    """(initial JAX state, [(state, stats) after each phase of `phases`],
+    the step key) from the real JAX G with noisy layers."""
+    import functools
+
+    g = JGen(**TINY_G, rendering_kwargs=tiny_rendering_kwargs())
+    disc = JDual(**TINY_D)
+    jcfg = JE.EG3DLossConfig(**SEEDED_CFG, remat_synthesis=False, **cfg_overrides)
+    main, greg, dreg, opt_g, opt_d = JE.make_eg3d_phase_steps(g, disc, jcfg)
+    state = JE.init_eg3d_state(g, disc, opt_g, opt_d, jax.random.PRNGKey(0))
+    from _torch_port import with_noise_strength
+
+    noisy = with_noise_strength(jax.tree_util.tree_map(np.asarray, state["params_g"]))
+    state = dict(state, params_g=noisy, params_g_ema=noisy,
+                 cur_nimg=jnp.asarray(SEEDED_NIMG, jnp.int32))
+    batch = jnp_batch(tiny_batch())
+    key = jax.random.fold_in(jax.random.PRNGKey(1), SEEDED_NIMG)
+    sigma = JE.blur_sigma_schedule(SEEDED_NIMG, jcfg)
+    size = JE.blur_kernel_size(sigma)
+    aug_p = jcfg.aug_p
+    out, s = [], state
+    for phase in phases:
+        if phase == "main":
+            s, st = jax.jit(functools.partial(main, blur_size=size, res=8))(
+                s, batch, key, sigma, aug_p)
+        elif phase == "greg":
+            s, st = jax.jit(greg)(s, batch, jax.random.fold_in(key, 1))
+        else:
+            s, st = jax.jit(functools.partial(dreg, blur_size=size, res=8))(
+                s, batch, jax.random.fold_in(key, 2), sigma, aug_p)
+        out.append((s, st))
+    return state, out, sigma, size
+
+
+def check_seeded_phases(jax_run, phases, **cfg_overrides):
+    """The port's phases from the JAX run's state and the same keys: every
+    stat and the state after each phase (assert_state_matches)."""
+    from gnerf_tpu_torch.utils import prng
+
+    jstate0, results, sigma, size = jax_run
+    state, cfg = port_state(jstate0, lazy=True, **SEEDED_CFG, **cfg_overrides)
+    state.cur_nimg = SEEDED_NIMG
+    main, greg, dreg = E.make_eg3d_phase_steps(cfg)
+    batch = torch_batch(tiny_batch())
+    key = prng.fold_in(prng.PRNGKey(1), SEEDED_NIMG)
+    log = AdamLog(state)
+    for phase, (jnew, jstats) in zip(phases, results):
+        if phase == "main":
+            _, stats = main(state, batch, key, sigma, cfg.aug_p, blur_size=size, res=8)
+            log.record("opt_g")
+            log.record("opt_d")
+        elif phase == "greg":
+            _, stats = greg(state, batch, prng.fold_in(key, 1))
+            log.record("opt_g")
+        else:
+            _, stats = dreg(state, batch, prng.fold_in(key, 2), sigma, cfg.aug_p,
+                            blur_size=size, res=8)
+            log.record("opt_d")
+        assert_stats_match(stats, jstats)
+        assert state.cur_nimg == int(jnew["cur_nimg"])
+        assert_state_matches(jnew, state, log)

@@ -1,13 +1,12 @@
 """The port's ADA pipe (gnerf_tpu_torch.training.augment) vs the JAX one.
 
-The two packages draw differently (torch generators vs threefry), so the
-parity rests on what follows the draws: the filter bank, the geometric step
-fed the same inverse transforms, the colour step fed the same matrices,
-each augmentation alone under `debug_percentile` (deterministic in both),
-the bgc pipe at p = 0 (every gate off, the resampling chain still runs) and
-the reflect padding where the pad is wider than the image. The draws
-themselves are checked by their rate: the share of samples a
-brightness-only pipe changes."""
+What follows the draws: the filter bank, the geometric step fed the same
+inverse transforms, the colour step fed the same matrices, each
+augmentation alone under `debug_percentile` (deterministic in both), the
+bgc pipe at p = 0 (every gate off, the resampling chain still runs) and the
+reflect padding where the pad is wider than the image. The draws are
+checked by their rate (the share of samples a brightness-only pipe
+changes) and, key for key against JAX's, in tests/test_torch_draws.py."""
 
 import dataclasses
 
@@ -23,6 +22,7 @@ from gnerf_tpu.training import augment as JA
 from gnerf_tpu.training import eg3d_loss as JE
 from gnerf_tpu_torch.training import augment as A
 from gnerf_tpu_torch.training import eg3d_loss as E
+from gnerf_tpu_torch.utils import prng
 
 WARP_TOL = dict(rtol=1e-4, atol=1e-4)
 COLOR_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -101,7 +101,7 @@ def test_each_augmentation_alone_matches_jax_under_debug_percentile(name, dp):
     x = _img(n=2, c=3, h=16, w=16, seed=3)
     want = JA.AugmentPipe(**{name: 1.0})(jax.random.PRNGKey(0), jnp.asarray(x), p=1.0,
                                          debug_percentile=dp)
-    got = A.AugmentPipe(**{name: 1.0})(t(x), p=1.0, debug_percentile=dp)
+    got = A.AugmentPipe(**{name: 1.0})(prng.PRNGKey(0), t(x), p=1.0, debug_percentile=dp)
     tol = COLOR_TOL if name in COLOR + ("cutout",) else WARP_TOL
     np.testing.assert_allclose(to_np(got), np.asarray(want), **tol)
     assert not np.allclose(to_np(got), x, atol=1e-3)
@@ -116,7 +116,7 @@ def test_bgc_pipe_at_p0_matches_jax():
     jpipe = JE.make_augment_pipe(JE.EG3DLossConfig(aug="ada"))
     want = np.asarray(dataclasses.replace(jpipe, warp_cell_pack=False)(
         jax.random.PRNGKey(0), jnp.asarray(x), p=0.0))
-    got = to_np(E.make_augment_pipe(cfg)(t(x), p=0.0, generator=torch.Generator().manual_seed(0)))
+    got = to_np(E.make_augment_pipe(cfg)(prng.PRNGKey(0), t(x), p=0.0))
     np.testing.assert_allclose(got, want, **WARP_TOL)
     assert not np.array_equal(got, x)
 
@@ -126,7 +126,7 @@ def test_brightness_gate_rate():
     4,096 samples the share lies within 3 sigma of p."""
     n, p = 4096, 0.3
     x = torch.zeros((n, 3, 2, 2))
-    y = A.AugmentPipe(brightness=1.0)(x, p=p, generator=torch.Generator().manual_seed(7))
+    y = A.AugmentPipe(brightness=1.0)(prng.PRNGKey(7), x, p=p)
     share = float((y != x).flatten(1).any(dim=1).float().mean())
     assert abs(share - p) <= 3 * np.sqrt(p * (1 - p) / n), share
 

@@ -7,9 +7,10 @@ batch of 8: at data=4 each rank holds 2 rows, so every minibatch-std group
 rolls labels across ranks. Gmain + Dmain, Greg (with JAX's density points,
 each rank taking its rows) and Dreg run at data=4 from one init; Gmain +
 Dmain at (data=2, rays=2); with rng=None, as tests/_torch_eg3d.py takes
-JAX's draws out of play. ADA at p = 0.5 (Gmain + Dmain, then Dreg, on the
-step generators) runs on 2 ranks against the port's own world 1: the pipe's
-draws are not JAX's (ROADMAP.md Queue 3). Tolerances and the Adam rule are
+JAX's draws out of play. ADA at p = 0.5 (Gmain + Dmain, then Dreg, on
+keys: each rank draws its rows of every world-1 draw) runs on 2 ranks
+against the port's own world 1 (tests/test_torch_seeded_ada.py holds the
+seeded ADA phases to JAX's). Tolerances and the Adam rule are
 tests/_torch_ddp.py's.
 """
 

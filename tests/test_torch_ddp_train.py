@@ -8,8 +8,8 @@ The JAX step is jitted with the batch sharded over 'data' and the state
 replicated, as the JAX CLI runs it, and equals the JAX step on one device.
 The port runs the step at data=4 and at (data=2, rays=2), where each ray
 rank renders half the rays; with rng=None against JAX, and with the step
-generator against the port's world 1, so that the draws are the world-1
-draws cut to each rank. Tolerance rtol 1e-4 / atol 1e-5 against JAX,
+key against the port's world 1, so that each rank draws its block of the
+world-1 draws. Tolerance rtol 1e-4 / atol 1e-5 against JAX,
 atol 1e-5 between worlds, gradients within 3e-2 of each tensor's largest;
 trained weights under the Adam-flip rule (tests/_torch_ddp.py).
 """
@@ -38,7 +38,7 @@ from gnerf_tpu.training import train_loop as JT
 from gnerf_tpu.utils.checkpoint import flatten_tree
 from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
 from gnerf_tpu_torch.training import losses as L
-from gnerf_tpu_torch.training.train import step_generator
+from gnerf_tpu_torch.training.train import step_key
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 from test_torch_training import (ENC_LAYERS, TINY_D, TINY_G, JGenNoRng, smooth_photos,
                                  tiny_rendering_kwargs)
@@ -110,7 +110,7 @@ def runs(tmp_path_factory):
         state, pcfg = W.build_gnerf(spec)
         _, stats = T.make_train_step(pcfg)(
             state, {k: torch.from_numpy(v[rows]) for k, v in batch.items()},
-            step_generator(0, 0, "cpu") if seeded else None)
+            step_key(0, 0) if seeded else None)
         world1[key] = dict(snapshot=W.state_snapshot(state), cur_nimg=state.cur_nimg,
                            stats={k: float(v) for k, v in stats.items()})
     ranks = run_ranks(W.gnerf_case, 4, path, batch, SCENARIOS, timeout=400)
@@ -163,7 +163,7 @@ def test_step_matches_jax_sharded_step(runs, scenario):
 @pytest.mark.parametrize("scenario", ["dp", "dp_sp", "dp_sp_rng"])
 def test_step_matches_port_world1(runs, scenario):
     """The same steps against the port's own world-1 step on the 8 rows
-    (seeded: the generator's draws for the global batch, cut to each rank's
+    (seeded: each rank's block of the key's draws for the global batch, its
     rows and rays): stats, the averaged gradients (Adam's first moments)
     and the state."""
     want = runs["world1"][scenario.endswith("_rng")]

@@ -2,7 +2,7 @@
 vs gnerf_tpu.models.dual_discriminator: `filtered_resizing` in its four
 modes, the logits of the Single, Dual and Dummy discriminators, R1 through
 both inputs of the dual D (with the EG3D blur) and its weight gradient, and
-`disc_c_noise` drawn from an explicit generator. fp32 on the CPU, JAX
+`disc_c_noise` drawn from a key. fp32 on the CPU, JAX
 parameters bridged with `load_jax_params`, numpy-seeded inputs. Tolerance
 rtol 1e-4 / atol 1e-5 unless a case says otherwise."""
 
@@ -20,6 +20,7 @@ from gnerf_tpu.training import eg3d_loss as JE
 from gnerf_tpu_torch.models import dual_discriminator as dd
 from gnerf_tpu_torch.ops.upfirdn2d import setup_filter
 from gnerf_tpu_torch.training import eg3d_loss as E
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -95,20 +96,15 @@ def test_dual_discriminator_has_six_input_channels():
 
 def test_disc_c_noise_from_explicit_generator():
     """With disc_c_noise > 0 the labels get N(0, 1) * their batch std
-    (ddof 0) * disc_c_noise from the given generator: the same generator
-    gives the same logits, equal to the JAX D's on the noised labels; no
-    generator raises."""
+    (ddof 0) * disc_c_noise from the given key, as the JAX D draws it: the
+    same key gives the JAX D's logits, another key others; no key raises."""
     jd, params, d = _pair("dual", disc_c_noise=0.5)
     img, c = _inputs(seed=4, n=4)
-    a = d.apply(_t(img), t(c), rng=torch.Generator().manual_seed(3))
-    b = d.apply(_t(img), t(c), rng=torch.Generator().manual_seed(3))
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
-    other = d.apply(_t(img), t(c), rng=torch.Generator().manual_seed(4))
-    assert not torch.allclose(a, other)
-    noise = torch.randn((4, 25), generator=torch.Generator().manual_seed(3)).numpy()
-    c_noised = c + noise * c.std(axis=0) * 0.5
-    want = jdd.DualDiscriminator(**KW).apply(params, _j(img), jnp.asarray(c_noised))
+    a = d.apply(_t(img), t(c), rng=prng.PRNGKey(3))
+    want = jd.apply(params, _j(img), jnp.asarray(c), rng=jax.random.PRNGKey(3))
     np.testing.assert_allclose(to_np(a), np.asarray(want), **TOL)
+    other = d.apply(_t(img), t(c), rng=prng.PRNGKey(4))
+    assert not torch.allclose(a, other)
     with pytest.raises(ValueError, match="disc_c_noise"):
         d.apply(_t(img), t(c))
 
@@ -145,7 +141,7 @@ def test_r1_through_both_inputs_matches_jax():
     want_loss, want_gi, want_gr = jax.jit(lambda p: jax_r1(p, True))(params)
     xi, xr = t(img["image"]).requires_grad_(), t(img["image_raw"]).requires_grad_()
     gi, gr = torch.autograd.grad(
-        run_d(d, {"image": xi, "image_raw": xr}, t(c), BLUR_SIGMA, size).sum(), [xi, xr])
+        run_d(d, {"image": xi, "image_raw": xr}, t(c), None, BLUR_SIGMA, size).sum(), [xi, xr])
     for got, want in ((gi, want_gi), (gr, want_gr)):
         want = np.asarray(want)
         np.testing.assert_allclose(to_np(got), want, rtol=1e-4, atol=1e-6 * np.abs(want).max())

@@ -21,6 +21,7 @@ from gnerf_tpu.training.train import check_fade_sr_compat as jcheck_fade_sr_comp
 from gnerf_tpu_torch.models import DualDiscriminator, TriPlaneGenerator
 from gnerf_tpu_torch.training import eg3d_loss as E
 from gnerf_tpu_torch.training.train import check_fade_sr_compat
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -82,12 +83,12 @@ def test_swapped_conditioning():
     """Probability 1 rolls the labels by one, None gives zeros, 0 keeps
     them; in between each row is either itself or its neighbour's."""
     c = np.random.RandomState(1).randn(6, 25).astype(np.float32)
-    key = jax.random.PRNGKey(0)
-    np.testing.assert_array_equal(to_np(E.swapped_conditioning(None, t(c), 1.0)),
+    key, tkey = jax.random.PRNGKey(0), prng.PRNGKey(0)
+    np.testing.assert_array_equal(to_np(E.swapped_conditioning(tkey, t(c), 1.0)),
                                   np.asarray(JE.swapped_conditioning(key, jnp.asarray(c), 1.0)))
-    np.testing.assert_array_equal(to_np(E.swapped_conditioning(None, t(c), None)), 0.0)
-    np.testing.assert_array_equal(to_np(E.swapped_conditioning(None, t(c), 0.0)), c)
-    mixed = to_np(E.swapped_conditioning(torch.Generator().manual_seed(2), t(c), 0.5))
+    np.testing.assert_array_equal(to_np(E.swapped_conditioning(tkey, t(c), None)), 0.0)
+    np.testing.assert_array_equal(to_np(E.swapped_conditioning(tkey, t(c), 0.0)), c)
+    mixed = to_np(E.swapped_conditioning(prng.PRNGKey(2), t(c), 0.5))
     rolled = np.roll(c, 1, axis=0)
     rows = [np.array_equal(m, a) or np.array_equal(m, b) for m, a, b in zip(mixed, c, rolled)]
     assert all(rows)
@@ -117,16 +118,17 @@ def _pair_g(seed=0, **cfg_overrides):
 def test_style_mixing():
     """prob 0 is the identity; prob 1 keeps index 0 and replaces a suffix
     of ws, from one cutoff for the whole batch, with the mapping of a fresh
-    z (the JAX package's semantics; the draws are the port's)."""
+    z (the JAX package's semantics; tests/test_torch_draws.py holds the
+    draws to JAX's)."""
     g = TriPlaneGenerator(**_tiny_g(), device="cpu")
     z = torch.randn(3, 16, generator=torch.Generator().manual_seed(1))
     c = torch.zeros(3, 25)
     mapping = g.backbone.mapping
     ws = mapping(z, c)
-    same = E.apply_style_mixing(mapping, ws, 16, c, torch.Generator().manual_seed(2), 0.0)
+    same = E.apply_style_mixing(mapping, ws, 16, c, prng.PRNGKey(2), 0.0)
     assert same is ws
     for seed in range(4):
-        mixed = E.apply_style_mixing(mapping, ws, 16, c, torch.Generator().manual_seed(seed), 1.0)
+        mixed = E.apply_style_mixing(mapping, ws, 16, c, prng.PRNGKey(seed), 1.0)
         diff = (mixed != ws).any(dim=2)  # [N, num_ws]
         assert not diff[:, 0].any() and (diff == diff[0]).all()
         cut = int(diff[0].float().argmax())
@@ -231,8 +233,9 @@ def test_density_tv_on_jax_points_matches_jax():
     np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
     want_gw = np.asarray(want_gw)
     np.testing.assert_allclose(to_np(gw), want_gw, rtol=1e-4, atol=1e-6 * np.abs(want_gw).max())
-    # The port's own draws: the same shapes, the perturbation at its scale.
-    c2, d2 = E.density_reg_points(2, cfg, torch.Generator().manual_seed(0), "cpu")
+    # The port's own draws of another key: the same shapes, the
+    # perturbation at its scale.
+    c2, d2 = E.density_reg_points(2, cfg, prng.PRNGKey(1), "cpu")
     assert c2.shape == (2, 128, 3) and d2.shape == (2, 128, 3)
     assert float(c2[:, :64].abs().max()) <= 1.0
     assert 0.02 < float((c2[:, 64:] - c2[:, :64]).std()) < 0.08

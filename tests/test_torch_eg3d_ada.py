@@ -7,7 +7,7 @@ chain is deterministic, so Gmain + Dmain and Dreg (R1 through the pipe and
 D's double backward) are held to the JAX phases from the same parameters
 and batch with the blur on, at rtol 1e-4 / atol 1e-5 under the Adam-flip
 rule (tests/_torch_eg3d.py takes the JAX draws out of play). The pipe's own
-draws come from generators seeded by the step generator and a stream."""
+draws at p = 0.5 from the step's key are tests/test_torch_seeded_ada.py's."""
 
 import functools
 
@@ -20,7 +20,7 @@ from _torch_eg3d import (AdamLog, assert_state_matches, assert_stats_match, jax_
 from _torch_port import one_torch_thread  # noqa: F401
 from gnerf_tpu.training import eg3d_loss as JE
 from gnerf_tpu_torch.training import eg3d_loss as E
-from gnerf_tpu_torch.training.train import step_generator
+from gnerf_tpu_torch.utils import prng
 
 DREG_KEY = 3
 
@@ -69,25 +69,9 @@ def test_ada_phases_at_p0_match_jax(jax_ada_phases):
     assert_state_matches(phases[1][0], state, log)
 
 
-def test_aug_streams_come_from_the_step_seed():
-    """A D call's augmentation generator depends only on the step
-    generator's seed and the call's stream: not on what the step drew
-    before it; the streams of one step differ."""
-    def draws(rng, stream):
-        return torch.rand(8, generator=E._aug_generator(rng, stream))
-
-    rng = step_generator(0, 4, "cpu")
-    first = draws(rng, E.AUG_REAL)
-    torch.randn(100, generator=rng)  # G's draws in between
-    assert torch.equal(draws(rng, E.AUG_REAL), first)
-    assert not torch.equal(draws(rng, E.AUG_FAKE), first)
-    assert not torch.equal(draws(step_generator(0, 8, "cpu"), E.AUG_REAL), first)
-    assert E._aug_generator(None, E.AUG_R1) is None
-
-
 def test_ada_pipe_changes_what_d_sees_at_p1(jax_ada_phases):
-    """With p = 1 the D logits of the same images move, and the same step
-    generator gives the same logits twice."""
+    """With p = 1 the D logits of the same images move, and the same key
+    gives the same logits twice."""
     _, jstate0, _ = jax_ada_phases
     state, cfg = port_state(jstate0, lazy=True, aug="ada")
     _, run_d = E._make_runners(cfg)
@@ -97,8 +81,8 @@ def test_ada_pipe_changes_what_d_sees_at_p1(jax_ada_phases):
 
     def logits(p, nimg=0):
         with torch.no_grad():
-            return run_d(state.disc, img, batch["real_c"], rng=step_generator(0, nimg, "cpu"),
-                         stream=E.AUG_REAL, aug_p=p)
+            return run_d(state.disc, img, batch["real_c"], prng.fold_in(prng.PRNGKey(1), nimg),
+                         aug_p=p)
 
     assert torch.equal(logits(1.0), logits(1.0))
     assert not torch.allclose(logits(1.0), logits(0.0), rtol=1e-3, atol=1e-4)
@@ -115,8 +99,7 @@ def test_r1_through_the_pipe_runs_no_convolution_double_backward(jax_ada_phases)
     state, cfg = port_state(jstate0, lazy=True, aug="ada")
     _, _, dreg = E.make_eg3d_phase_steps(cfg)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _, stats = dreg(state, torch_batch(tiny_batch()), step_generator(0, 0, "cpu", 2), 0.0,
-                        1.0, res=8)
+        _, stats = dreg(state, torch_batch(tiny_batch()), prng.PRNGKey(2), 0.0, 1.0, res=8)
     keys = {e.key for e in prof.key_averages()}
     assert "aten::grid_sampler_2d_backward" in keys
     assert "aten::_convolution_double_backward" not in keys

@@ -11,13 +11,13 @@ import functools
 
 import jax
 import pytest
-import torch
 
 from _torch_eg3d import (AdamLog, assert_state_matches, assert_stats_match, jax_networks,
                          jnp_batch, port_state, tiny_batch, torch_batch, use_jax_points)
 from _torch_port import one_torch_thread  # noqa: F401
 from gnerf_tpu.training import eg3d_loss as JE
 from gnerf_tpu_torch.training import eg3d_loss as E
+from gnerf_tpu_torch.utils import prng
 
 GREG_KEY, DREG_KEY = 2, 3
 
@@ -97,8 +97,8 @@ def test_frozen_d_layers_stay_bitwise(jax_phases):
     main, greg, dreg = E.make_eg3d_phase_steps(cfg)
     batch = torch_batch(tiny_batch())
     before = {k: v.clone() for k, v in state.disc.state_dict().items()}
-    main(state, batch, torch.Generator().manual_seed(0))
-    greg(state, batch, torch.Generator().manual_seed(1))
+    main(state, batch, prng.PRNGKey(0))
+    greg(state, batch, prng.PRNGKey(1))
     dreg(state, batch, None)
     after = state.disc.state_dict()
     for k, v in after.items():

@@ -16,6 +16,7 @@ from jax.sharding import PartitionSpec as P
 import _torch_ddp_workers as W
 from _torch_dist import run_ranks
 from _torch_port import one_torch_thread  # noqa: F401
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu.parallel import DATA_AXIS, make_mesh as jax_make_mesh, pmean_grads as jax_pmean
 
 WORLD = 4
@@ -154,9 +155,8 @@ def test_draw_is_the_ranks_part_of_the_world1_draw(data, rays):
     """Under a (data, rays) mesh each rank's draw is its rows (and rays) of
     the draw one process makes for the global batch, in the same order; its
     rows of a global tensor are rows d*n ... (d+1)*n - 1."""
-    gen = torch.Generator().manual_seed(5)
-    rows = torch.randn((8, 3), generator=gen)
-    rows_rays = torch.rand((8, 8, 4), generator=gen)
+    rows = prng.normal(prng.PRNGKey(5), (8, 3))
+    rows_rays = prng.uniform(prng.PRNGKey(6), (8, 8, 4))
     n, k = 8 // data, 8 // rays
     for rank, (got_rows, got_rays, got_local) in enumerate(
             run_ranks(W.draw_case, WORLD, data, rays, timeout=300)):
@@ -165,3 +165,32 @@ def test_draw_is_the_ranks_part_of_the_world1_draw(data, rays):
         np.testing.assert_array_equal(got_rays, W.to_np(rows_rays[d * n:(d + 1) * n,
                                                                   r * k:(r + 1) * k]))
         np.testing.assert_array_equal(got_local, np.arange(8.0)[d * n:(d + 1) * n])
+
+
+@pytest.mark.parametrize("data,rays,rank", [(2, 1, 0), (2, 1, 1), (1, 2, 0), (1, 2, 1)])
+def test_draw_computes_only_the_ranks_counters(monkeypatch, data, rays, rank):
+    """At data=2 and at rays=2 `draw` runs threefry on this rank's counters
+    alone (its rows, its rays) and gives the world-1 draw's block bit for
+    bit."""
+    from gnerf_tpu_torch.ops import threefry as T
+    from gnerf_tpu_torch.parallel.mesh import Mesh, use_mesh
+    from gnerf_tpu_torch.parallel.sharding import draw
+
+    mesh = Mesh(data=data, rays=rays, data_rank=rank if data > 1 else 0,
+                ray_rank=rank if rays > 1 else 0, data_group=None, ray_group=None, group=None)
+    sizes = []
+    threefry = T.threefry2x32
+
+    def counting(key, x0, x1):
+        sizes.append(x0.numel())
+        return threefry(key, x0, x1)
+
+    monkeypatch.setattr(T, "threefry2x32", counting)
+    key = prng.PRNGKey(9)
+    n, k = 8 // data, 6 // rays
+    with use_mesh(mesh):
+        got = draw(prng.uniform, key, (n, k, 5), ray_mesh=mesh, ray_dim=1)
+    assert sizes == [n * k * 5]
+    whole = prng.uniform(key, (8, 6, 5))
+    d, r = mesh.data_rank, mesh.ray_rank
+    assert torch.equal(got, whole[d * n:(d + 1) * n, r * k:(r + 1) * k])

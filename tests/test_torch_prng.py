@@ -1,7 +1,8 @@
 """`gnerf_tpu_torch.utils.prng` vs `jax.random` (threefry2x32, partitionable):
-keys, splits, folds, bits and uniform draws bit for bit; normal draws within
-1e-6 absolute (XLA's erfinv polynomial, whose log1p may differ from torch's
-in the last place)."""
+keys, splits, folds, bits, uniform and randint draws bit for bit; normal
+draws within 1e-6 absolute (XLA's erfinv polynomial, whose log1p may differ
+from torch's in the last place); a block of a draw (`part`) is the whole
+draw's block."""
 
 import numpy as np
 import pytest
@@ -46,7 +47,7 @@ def test_prngkey_refuses_what_jax_refuses(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_split_matches_jax(seed):
-    for n in range(1, 6):
+    for n in (*range(1, 6), 8, 9, 32):
         np.testing.assert_array_equal(prng.split(prng.PRNGKey(seed), n).numpy(),
                                       _np(jax.random.split(jax.random.PRNGKey(seed), n)))
     np.testing.assert_array_equal(prng.split(prng.PRNGKey(seed)).numpy(),
@@ -112,3 +113,58 @@ def test_meta_key_draws_shapes_only():
         out = fn(key, (3, 4))
         assert out.is_meta and tuple(out.shape) == (3, 4)
     assert prng.split(key, 3).is_meta
+
+
+# randint bounds: spans of 1 (equal and reversed bounds), negative bounds,
+# the full int32 range, numpy bounds past int32 (int64 wraps to int32,
+# uint32 past int32 max takes one more), a span that wraps to 0, and the
+# EG3D style-mixing cutoff (1, num_ws).
+RANDINT_BOUNDS = [(0, 1), (5, 5), (5, 3), (-10, 10), (-7, -2), (-2 ** 31, 2 ** 31 - 1),
+                  (np.int64(-2 ** 40), np.int64(2 ** 40 + 9)), (np.int64(3), np.int64(2 ** 33)),
+                  (np.uint32(3), np.uint32(2 ** 32 - 1)), (-2 ** 31, np.uint32(2 ** 32 - 1)),
+                  (np.int16(-5), np.int16(300)), (1, 14), (1, 18)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", RANDINT_BOUNDS, ids=repr)
+@pytest.mark.parametrize("shape", [(), (1,), (7, 3), (5003,)], ids=str)
+def test_randint_matches_jax_bitwise(seed, lo, hi, shape):
+    got = prng.randint(prng.PRNGKey(seed), shape, lo, hi)
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape, lo, hi))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 2 ** 31), (-2 ** 31 - 1, 0), (0, 2 ** 40)])
+def test_randint_refuses_python_bounds_past_int32_as_jax_does(lo, hi):
+    with pytest.raises(OverflowError):
+        jax.random.randint(jax.random.PRNGKey(0), (), lo, hi)
+    with pytest.raises(OverflowError):
+        prng.randint(prng.PRNGKey(0), (), lo, hi)
+
+
+@pytest.mark.parametrize("fn", [prng.bits, prng.uniform, prng.normal])
+@pytest.mark.parametrize("shape,part", [
+    ((8, 5), {0: (4, 4)}), ((4, 6, 3, 1), {1: (3, 3)}), ((4, 6, 3, 1), {0: (2, 2), 1: (0, 3)}),
+    ((16, 12), {0: (3, 1), 1: (11, 1)}), ((5,), {0: (5, 0)}), ((2, 3), {})])
+def test_part_is_the_block_of_the_whole_draw(fn, shape, part):
+    """A block's draws are the whole draw's at the block's positions, bit for
+    bit: the rank's part of a sharded draw."""
+    key = prng.PRNGKey(11)
+    whole = fn(key, shape)
+    index = tuple(slice(part[d][0], part[d][0] + part[d][1]) if d in part else slice(None)
+                  for d in range(len(shape)))
+    got = fn(key, shape, part=part)
+    assert got.shape == whole[index].shape
+    assert torch.equal(got, whole[index])
+
+
+def test_cpu_key_draws_on_another_device():
+    """A key on the CPU draws on the device it is given (meta here: the
+    shape only), its words handed over as scalars."""
+    key = prng.PRNGKey(2)
+    out = prng.normal(key, (3, 4), device="meta")
+    assert out.is_meta and tuple(out.shape) == (3, 4)
+    with pytest.raises(ValueError, match="not inside"):
+        prng.bits(key, (4,), part={0: (3, 2)})
+

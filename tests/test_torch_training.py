@@ -33,7 +33,8 @@ from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder, TriPlaneGene
 from gnerf_tpu_torch.training import dataset as tds
 from gnerf_tpu_torch.training import losses as L
 from gnerf_tpu_torch.training import train_loop as T
-from gnerf_tpu_torch.training.train import step_generator
+from gnerf_tpu_torch.training.train import step_key
+from gnerf_tpu_torch.utils import prng
 from gnerf_tpu_torch.utils.checkpoint import flatten_tree, load_jax_params, module_params
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -232,7 +233,7 @@ def jax_init_state():
 def _after_one_step(jstate, rng_seed, **cfg_overrides):
     state, cfg = port_state(jstate, True, **cfg_overrides)
     step = T.make_train_step(cfg)
-    step(state, torch_batch(tiny_batch()), torch.Generator().manual_seed(rng_seed))
+    step(state, torch_batch(tiny_batch()), prng.PRNGKey(rng_seed))
     return state
 
 
@@ -250,40 +251,15 @@ def _state_tensors(state):
 
 @pytest.mark.parametrize("what", ["synthesis", "lpips"])
 def test_remat_gives_the_same_step(jax_init_state, what):
-    """With an rng (random noise, jittered and importance samples), the step
+    """With a key (random noise, jittered and importance samples), the step
     with the synthesis or the fakes' VGG pass rematerialised equals the
-    step without: the recompute redraws the forward's random numbers."""
+    step without, bit for bit: the recompute draws from the forward's keys,
+    so it redraws the forward's random numbers."""
     plain = _state_tensors(_after_one_step(jax_init_state, 11))
     remat = _state_tensors(_after_one_step(jax_init_state, 11, **{f"remat_{what}": True}))
     assert plain.keys() == remat.keys()
     for k in plain:
         torch.testing.assert_close(remat[k], plain[k], rtol=0, atol=0, msg=k)
-
-
-def test_checkpoint_alone_would_redraw(jax_init_state):
-    """Why `checkpointed` restores the generator: torch.utils.checkpoint by
-    itself recomputes the synthesis with new random draws, and the encoder
-    gradients come out different."""
-    from torch.utils.checkpoint import checkpoint
-
-    def grads(wrap):
-        state, cfg = port_state(jax_init_state, False)
-        ws = state.g.mapping(torch.zeros(2, 32), torch.zeros(2, 25)).detach().requires_grad_()
-        c = torch.from_numpy(tiny_batch()["loss_c"])
-        rng = torch.Generator().manual_seed(5)
-
-        def synth(ws_, c_):
-            return state.g.synthesis(ws_, c_, noise_mode="random", rng=rng)["image_raw"]
-
-        out = wrap(synth, rng, ws, c)
-        (gw,) = torch.autograd.grad(out.square().sum(), ws)
-        return gw
-
-    plain = grads(lambda f, rng, *a: f(*a))
-    fixed = grads(T.checkpointed)
-    naive = grads(lambda f, rng, *a: checkpoint(f, *a, use_reentrant=False))
-    torch.testing.assert_close(fixed, plain, rtol=0, atol=0)
-    assert not torch.allclose(naive, plain, rtol=1e-3, atol=1e-6)
 
 
 def test_resume_is_bit_identical(jax_init_state, tmp_path):
@@ -292,7 +268,7 @@ def test_resume_is_bit_identical(jax_init_state, tmp_path):
     batches = [torch_batch(tiny_batch(0)), torch_batch(tiny_batch(2))]
 
     def run(state, cfg, i):
-        T.make_train_step(cfg)(state, batches[i], step_generator(0, state.cur_nimg, "cpu"))
+        T.make_train_step(cfg)(state, batches[i], step_key(0, state.cur_nimg))
 
     a, cfg = port_state(jax_init_state, True)
     run(a, cfg, 0)
@@ -334,9 +310,36 @@ def test_port_snapshot_loads_in_jax(jax_init_state, tmp_path):
                                   to_np(state.enc.bn1.var))
 
 
+def _jax_resume(jstate, path):
+    """The JAX CLI's resume from a network snapshot
+    (`gnerf_tpu/training/train.py:893-912`) on a JAX TrainState."""
+    trees, _ = jckpt.load_checkpoint(path)
+    if "G_ema" in trees:
+        jstate = jstate.replace(
+            params_g=jckpt.copy_params(trees["G_ema"], jstate.params_g),
+            params_g_ema=jckpt.copy_params(trees["G_ema"], jstate.params_g_ema))
+    if "E" in trees:
+        jstate = jstate.replace(params_e=jckpt.copy_params(trees["E"], jstate.params_e))
+    if "D" in trees:
+        jstate = jstate.replace(params_d=jckpt.copy_params(trees["D"], jstate.params_d))
+    return jstate
+
+
+def _assert_resumed_as_jax(state, jstate):
+    for module, trees in ((state.g, [jstate.params_g]), (state.g_ema, [jstate.params_g_ema]),
+                          (state.enc, [jstate.params_e, jstate.state_e]),
+                          (state.disc, [jstate.params_d])):
+        got = module_params(module)
+        want = {k: v for tree in trees for k, v in flatten_tree(tree).items()}
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+
+
 def test_jax_snapshot_resumes_port(jax_init_state, tmp_path):
     """A JAX-written snapshot (G_ema, E, E_state, D) starts the port's
-    trainer and loads in the port's gen_videos.load_networks."""
+    trainer as it starts the JAX one (E's BN statistics stay at init), and
+    loads in the port's gen_videos.load_networks with its E_state."""
     from gnerf_tpu_torch.infer.gen_videos import load_networks
     from gnerf_tpu_torch.training.train import _resume
 
@@ -348,17 +351,49 @@ def test_jax_snapshot_resumes_port(jax_init_state, tmp_path):
                                            "encoder": {"layers": list(ENC_LAYERS)}})
     state, _ = _fresh_port(seed=4)
     assert _resume(state, path, state.disc) is None
-    for module, trees in ((state.g, [jstate.params_g_ema]), (state.g_ema, [jstate.params_g_ema]),
-                          (state.enc, [jstate.params_e, jstate.state_e]),
-                          (state.disc, [jstate.params_d])):
-        got = module_params(module)
-        for tree in trees:
-            for k, v in flatten_tree(tree).items():
-                np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+    g, enc, disc, vgg, _ = jax_setup(True)
+    fresh = JT.init_train_state(g, enc, disc, vgg,
+                                JT.TrainConfig(batch_size=2, neural_rendering_resolution=8),
+                                jax.random.PRNGKey(4))
+    _assert_resumed_as_jax(state, _jax_resume(fresh, path))
+    np.testing.assert_array_equal(to_np(state.enc.bn1.var), np.ones(64, np.float32))
     g, enc = load_networks(path, device="cpu", double_sampling=False)
     np.testing.assert_array_equal(to_np(g.decoder.fc0.weight),
                                   np.asarray(jstate.params_g_ema["decoder"]["fc0"]["weight"]))
     np.testing.assert_array_equal(to_np(enc.bn1.mean), np.full(64, 0.75, np.float32))
+
+
+def test_eg3d_snapshot_resumes_gnerf_as_jax_does(jax_init_state, tmp_path, capsys):
+    """A snapshot whose D is another network (the EG3D dual D) and whose
+    E_state is not at init, resumed into G-NeRF training by the port's
+    `_resume` and by the JAX CLI's code from the same fresh state: the same
+    state (every D leaf the snapshot lacks or holds at another shape keeps
+    its init value, E's BN statistics stay at init) and the same
+    copy_params lines."""
+    from gnerf_tpu.models.dual_discriminator import DualDiscriminator as JDual
+    from gnerf_tpu_torch.training.train import _resume
+
+    dual = JDual(c_dim=25, img_resolution=16, img_channels=3, channel_base=256, channel_max=64)
+    path = str(tmp_path / "eg3d_snap.npz")
+    jckpt.save_checkpoint(path, {
+        "G_ema": jax_init_state.params_g_ema, "G": jax_init_state.params_g,
+        "E": jax_init_state.params_e,
+        "E_state": jax.tree_util.tree_map(lambda a: jnp.full_like(a, 0.75),
+                                          jax_init_state.state_e),
+        "D": dual.init(jax.random.PRNGKey(8))})
+    g, enc, disc, vgg, _ = jax_setup(True)
+    fresh = JT.init_train_state(g, enc, disc, vgg,
+                                JT.TrainConfig(batch_size=2, neural_rendering_resolution=8),
+                                jax.random.PRNGKey(4))
+    capsys.readouterr()
+    want = _jax_resume(fresh, path)
+    want_lines = set(capsys.readouterr().out.splitlines())
+    state, _ = _fresh_port(seed=4)
+    assert _resume(state, path, state.disc) is None
+    got_lines = set(capsys.readouterr().out.splitlines())
+    assert got_lines == want_lines and any("shape mismatch" in x for x in got_lines)
+    assert any("missing in src" in x for x in got_lines)
+    _assert_resumed_as_jax(state, want)
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ def _split(state, cfg, batch, rng):
 
     from gnerf_tpu_torch.ops.interpolate import interpolate_bilinear
     from gnerf_tpu_torch.training import losses as L
+    from gnerf_tpu_torch.utils import prng
     from gnerf_tpu_torch.utils.misc import ema_update, nan_to_num
 
     g, enc, disc, vgg = state.g, state.enc, state.disc, state.vgg
@@ -75,10 +76,11 @@ def _split(state, cfg, batch, rng):
     c = batch["loss_c"].float()
     ws = g.mapping(z, c)
     mark("mapping")
-    planes = g.backbone_planes(ws, noise_mode="random", rng=rng)
+    k_bb, k_rest = prng.split(rng)  # as g.synthesis splits its key
+    planes = g.backbone_planes(ws, noise_mode="random", rng=k_bb)
     mark("backbone planes")
     raw = g.render_planes(planes, c, ws, neural_rendering_resolution=res, noise_mode="random",
-                          rng=rng, superres=False)
+                          rng=k_rest, superres=False)
     mark("render 48+48")
     fi = raw["feature_image"]
     image, image_raw = g.superresolution(fi[:, :3], fi, ws, noise_mode="none")
@@ -131,11 +133,14 @@ def _eg3d_split(state, cfg, phases, batch, seed, cur):
     import torch.nn.functional as F
 
     from gnerf_tpu_torch.training import eg3d_loss as E
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
 
     run_g, run_d = E._make_runners(cfg)
     res = cfg.neural_rendering_resolution
-    rng = step_generator(seed, cur, "cuda")
+    ks = prng.split(step_key(seed, cur))[1]
+    k_g, k_d = prng.split(ks)
+    k_gen, k_aug = prng.split(k_g)
     marks = []
 
     def mark(name):
@@ -144,23 +149,24 @@ def _eg3d_split(state, cfg, phases, batch, seed, cur):
         marks.append((name, ev))
 
     mark("start")
-    gen_img, ws = run_g(state.g, batch["z"], batch["c"], rng, state.cur_nimg, res)
+    gen_img, ws = run_g(state.g, batch["z"], batch["c"], k_gen, state.cur_nimg, res)
     mark("G forward")
-    loss_g = F.softplus(-run_d(state.disc, gen_img, batch["c"])).mean()
+    loss_g = F.softplus(-run_d(state.disc, gen_img, batch["c"], k_aug)).mean()
     mark("D on the fakes")
     E._adam_step(state.opt_g, loss_g)
     E._update_w_avg(state.g, ws[:, 0].detach())
     del gen_img, ws, loss_g
     mark("G backward + Adam + w_avg")
-    loss_d, _, _ = E._d_main(run_g, run_d, state, batch, rng, 0.0, 0, res)
+    loss_d, _, _ = E._d_main(run_g, run_d, state, batch, prng.split(k_d, 3), True, 0.0, 0,
+                             res)
     E._adam_step(state.opt_d, loss_d)
     del loss_d
     mark("D main + Adam")
     E._finish_main(state, int(batch["z"].shape[0]))
     mark("G_ema")
-    phases[1](state, batch, step_generator(seed, cur, "cuda", 1))
+    phases[1](state, batch, prng.fold_in(ks, 1))
     mark("Greg")
-    phases[2](state, batch, step_generator(seed, cur, "cuda", 2))
+    phases[2](state, batch, prng.fold_in(ks, 2))
     mark("Dreg")
     torch.cuda.synchronize()
     return {name: marks[i - 1][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks) if i}
@@ -173,7 +179,13 @@ def _probe_eg3d(args) -> int:
 
     import chip_smoke
     from gnerf_tpu_torch.training import make_eg3d_phase_steps
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
+
+    def keys(cur):
+        """(Gmain + Dmain's, Greg's, Dreg's) keys of the CLI's step at cur."""
+        ks = prng.split(step_key(0, cur))[1]
+        return ks, prng.fold_in(ks, 1), prng.fold_in(ks, 2)
 
     n = args.steps + 2
     batches = chip_smoke._eg3d_batches(n)
@@ -194,13 +206,11 @@ def _probe_eg3d(args) -> int:
             torch.cuda.reset_peak_memory_stats()
             evs = {"main": [], "greg": [], "dreg": []}
             for i, b in enumerate(batches):
-                cur = state.cur_nimg
-                evs["main"].append(timed(lambda: main(state, b, step_generator(0, cur, "cuda"))))
+                k_main, k_greg, k_dreg = keys(state.cur_nimg)
+                evs["main"].append(timed(lambda: main(state, b, k_main)))
                 if i in (0, n - 1):  # one regularizer call of each kind warms up
-                    evs["greg"].append(timed(
-                        lambda: greg(state, b, step_generator(0, cur, "cuda", 1))))
-                    evs["dreg"].append(timed(
-                        lambda: dreg(state, b, step_generator(0, cur, "cuda", 2))))
+                    evs["greg"].append(timed(lambda: greg(state, b, k_greg)))
+                    evs["dreg"].append(timed(lambda: dreg(state, b, k_dreg)))
             torch.cuda.synchronize()
             ms = [a.elapsed_time(e) for a, e in evs["main"][2:]]
             greg_ms, dreg_ms = (evs[k][-1][0].elapsed_time(evs[k][-1][1])
@@ -229,11 +239,11 @@ def _probe_eg3d(args) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         main, greg, dreg = make_eg3d_phase_steps(cfg)
-        b, cur = batches[0], state.cur_nimg
+        b, (k_main, k_greg, k_dreg) = batches[0], keys(state.cur_nimg)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            main(state, b, step_generator(0, cur, "cuda"))
-            greg(state, b, step_generator(0, cur, "cuda", 1))
-            dreg(state, b, step_generator(0, cur, "cuda", 2))
+            main(state, b, k_main)
+            greg(state, b, k_greg)
+            dreg(state, b, k_dreg)
             torch.cuda.synchronize()
         _write_profile(prof, args.profile, "one Gmain + Dmain, Greg and Dreg (fp32)")
     return 0
@@ -252,18 +262,17 @@ def _probe_ada(args) -> int:
     from gnerf_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter, upsample2d
     from gnerf_tpu_torch.training import augment as A
     from gnerf_tpu_torch.training import make_augment_pipe, make_eg3d_phase_steps
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.utils import prng
 
     state, cfg = chip_smoke._full_width_eg3d(0, aug="ada", aug_p=0.2)
     pipe = make_augment_pipe(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand((4, 6, 512, 512), device="cuda", generator=gen) * 2 - 1
+    x = prng.uniform(prng.PRNGKey(0), (4, 6, 512, 512), -1.0, 1.0, device="cuda")
     hz = setup_filter(A.WAVELETS["sym6"], device="cuda")
     m = int(np.ceil(pipe.pad_fraction * 512)) + hz.shape[0] // 2
     padded = A.reflect_pad(x, m)
     up = upsample2d(padded, hz, up=2)
     out = (512 + hz.shape[0] // 2) * 2
-    grid = torch.rand((4, out, out, 2), device="cuda", generator=gen) * 1.6 - 0.8
+    grid = prng.uniform(prng.PRNGKey(1), (4, out, out, 2), -0.8, 0.8, device="cuda")
     warped = A.warp(up, grid)
 
     def backward_of(fn):
@@ -278,9 +287,9 @@ def _probe_ada(args) -> int:
              "FIR downsample x2": lambda: downsample2d(warped, hz, down=2,
                                                        padding=-hz.shape[0] // 2,
                                                        flip_filter=True),
-             "pipe forward": lambda: pipe(x, p=0.2, generator=gen),
-             "pipe forward + input backward": backward_of(lambda xi: pipe(xi, p=0.2,
-                                                                          generator=gen))}
+             "pipe forward": lambda: pipe(prng.PRNGKey(2), x, p=0.2),
+             "pipe forward + input backward": backward_of(lambda xi: pipe(prng.PRNGKey(2), xi,
+                                                                          p=0.2))}
     for name, fn in parts.items():
         ms = [chip_smoke.cuda_ms(fn, iters=1, warmup=2 if i == 0 else 0)
               for i in range(args.steps)]
@@ -293,10 +302,10 @@ def _probe_ada(args) -> int:
 
         main, _, dreg = make_eg3d_phase_steps(cfg)
         b = chip_smoke._eg3d_batches(1)[0]
-        main(state, b, step_generator(0, 0, "cuda"), 0.0, 0.2)  # warm-up
+        main(state, b, prng.PRNGKey(0), 0.0, 0.2)  # warm-up
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            main(state, b, step_generator(0, 4, "cuda"), 0.0, 0.2)
-            dreg(state, b, step_generator(0, 4, "cuda", 2), 0.0, 0.2)
+            main(state, b, prng.PRNGKey(4), 0.0, 0.2)
+            dreg(state, b, prng.fold_in(prng.PRNGKey(4), 2), 0.0, 0.2)
             torch.cuda.synchronize()
         _write_profile(prof, args.profile, "one ADA Gmain + Dmain and Dreg (fp32, p = 0.2)")
     return 0
@@ -327,7 +336,7 @@ def _probe_ddp(args) -> int:
     import chip_smoke
     from gnerf_tpu_torch.parallel import make_mesh
     from gnerf_tpu_torch.training import SyntheticDataset, data_iterator, make_train_step
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -343,7 +352,7 @@ def _probe_ddp(args) -> int:
             cfg, mesh=make_mesh(data=1, rays=1))}
 
         def run(kind):
-            steps[kind](state, batch, step_generator(0, state.cur_nimg, "cuda"))
+            steps[kind](state, batch, step_key(0, state.cur_nimg))
 
         for kind in ("plain", "distributed", "plain", "distributed"):
             run(kind)
@@ -416,7 +425,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     import chip_smoke
     from gnerf_tpu_torch.training import SyntheticDataset, data_iterator, make_train_step
-    from gnerf_tpu_torch.training.train import step_generator
+    from gnerf_tpu_torch.training.train import step_key
+    from gnerf_tpu_torch.utils import prng
     from gnerf_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")
@@ -441,7 +451,7 @@ def main(argv=None) -> int:
         for i, b in enumerate(dev):
             if i == 2:
                 ev[0].record()
-            step(state, b, step_generator(0, state.cur_nimg, "cuda"))
+            step(state, b, step_key(0, state.cur_nimg))
             if i >= 2:
                 ev[i - 1].record()
         torch.cuda.synchronize()
@@ -452,7 +462,7 @@ def main(argv=None) -> int:
               f"{chip_smoke.TRAIN_BATCH * 1e3 / med:.3f} max_memory_allocated="
               f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
 
-    parts = [_split(state, cfg, b, step_generator(0, 4 * i, "cuda")) for i, b in enumerate(dev)]
+    parts = [_split(state, cfg, b, prng.split(step_key(0, 4 * i))[0]) for i, b in enumerate(dev)]
     parts = parts[2:]
     whole = sum(statistics.median(p[k] for p in parts) for k in parts[0])
     print(f"[split] medians over {len(parts)} steps (no remat), sum {whole:.3f} ms:", flush=True)
@@ -465,7 +475,7 @@ def main(argv=None) -> int:
 
         step = make_train_step(cfg)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state, dev[0], step_generator(0, state.cur_nimg, "cuda"))
+            step(state, dev[0], step_key(0, state.cur_nimg))
             torch.cuda.synchronize()
         _write_profile(prof, args.profile, "one step")
     return 0
