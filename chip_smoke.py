@@ -40,6 +40,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
               must have launched (osg_decode: twice per frame).
   7. timing:  identity prep, render and SR ms, frames/s and peak memory.
+ 7b. ingest:  published weights into the port without JAX: the full-width G
+              and E of phase main (`--seed-init 0`) pickled in the reference
+              checkpoint's layout (`tests/_torch_ingest.py`), converted by
+              `python -m gnerf_tpu_torch.tools.convert_reference_pkl` in a
+              process where `import jax` fails, then `generate_videos` on the
+              npz (4 bf16 frames) equal bit for bit to the seed-init frames,
+              osg_decode launched twice per frame; a full-width VGG16 LPIPS
+              oracle saved with `torch.jit.save`, converted and calibrated on
+              the card by `convert_vgg16_lpips`, `load_lpips` of it within
+              rtol 5e-3 of the oracle on 4 pairs; a random
+              `inception_v3_google` state dict through `convert_inception`
+              and `load_inception`, every tensor equal. Conversion seconds and
+              npz bytes.
   8. server:  `GNerfService` at the same full width behind a loopback
               ThreadingHTTPServer: /healthz, /encode (seeds, a 512^2 PNG, a
               non-square photo with 68 landmarks), sequential and 4
@@ -206,6 +219,36 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_ms(e, attr: str) -> float:
+    """A profiler average's device time in ms (`attr` under its CUDA name;
+    newer torch names it device)."""
+    v = getattr(e, attr.replace("cuda", "device"), None)
+    return (getattr(e, attr) if v is None else v) / 1e3
+
+
+def kernel_device_ms(fn, iters: int, kernel: str) -> tuple[float, float]:
+    """(device ms per call, launches per call) of the kernels whose name holds
+    `kernel`, from torch.profiler's device events over `iters` calls of `fn`
+    after a warm-up: the kernels' own time, without the host's time between
+    calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    total = sum(_dev_ms(e, "self_cuda_time_total") for e in events)
+    if not events or total <= 0:
+        raise SystemExit(f"chip_smoke: torch.profiler shows no device time for '{kernel}'")
+    return total / iters, sum(e.count for e in events) / iters
 
 
 def card_line() -> str:
@@ -453,9 +496,11 @@ def phase_threefry() -> dict:
     bits, uniform and normal, with the key on the host and on the card, and
     for the key pairs of split and fold_in: bits, pairs and uniform bit for
     bit, normal within 1e-6 (both take CUDA's log1pf and sqrtf).
-    Times the kernel and the plain version (CUDA events) beside the bound.
-    Returns {name: row} of the step's draws as they are made (STEP_DRAWS'
-    kinds)."""
+    Times the kernel by its device events (torch.profiler: `device_ms`) and
+    per call (CUDA events around 20 back-to-back calls:
+    `call_ms`, host-bound, as the card idles between calls), and the plain
+    version (CUDA events), beside the bound. Returns {name: row} of the
+    step's draws as they are made (STEP_DRAWS' kinds)."""
     import torch
 
     from gnerf_tpu_torch.ops import threefry as T
@@ -484,14 +529,19 @@ def phase_threefry() -> dict:
             continue
         kind = draw_kind
         span = T._bounds(kind, 0.0, 1.0)
-        ms = cuda_ms(lambda: T.threefry_draw(key, shape, part, dev, kind), iters=20, warmup=3)
+        call_ms = cuda_ms(lambda: T.threefry_draw(key, shape, part, dev, kind), iters=20,
+                          warmup=3)
+        device_ms, per_call = kernel_device_ms(
+            lambda: T.threefry_draw(key, shape, part, dev, kind), 20, "threefry_words")
         plain_ms = cuda_ms(lambda: T._plain(key, shape, part, dev, kind, *span), iters=3,
                            warmup=1)
         bound, by = threefry_bound_ms(n, kind)
-        rows[name] = dict(n=n, kind=kind, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by, max_abs_err=worst if kind == "normal" else 0.0)
-        lines.append(f"{name} {kind} n={n}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
-                     f"{bound:.4f} {by})")
+        rows[name] = dict(n=n, kind=kind, device_ms=device_ms, call_ms=call_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          max_abs_err=worst if kind == "normal" else 0.0)
+        lines.append(f"{name} {kind} n={n}: device {device_ms:.4f} ms ({per_call:g} launch a "
+                     f"call), call {call_ms:.4f} ms (host-bound), plain {plain_ms:.3f}, bound "
+                     f"{bound:.4f} {by} ({bound / device_ms:.2f} of device)")
     log(f"[threefry] kernel == plain version (bits, pairs, uniform bit for bit; normal max abs "
         f"err {worst:.3e}, bound 1e-6; keys on the host and on the card); " + "; ".join(lines))
     return rows
@@ -927,6 +977,112 @@ def phase_timing(frames: int, profile: Optional[str]):
         log("[profile] one frame, top device ops:\n" + "\n".join(table.splitlines()[:18]))
 
 
+INGEST_FRAMES = 4
+LPIPS_RTOL = 5e-3  # the converter's calibration bound
+
+
+def _ingest_helpers():
+    """tests/_torch_ingest.py (torch and numpy only): the reference-layout
+    stand-ins and the JAX-blocked runner."""
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_ingest
+
+    return _torch_ingest
+
+
+def phase_ingest() -> int:
+    """Published weights into the port without JAX (see the module
+    docstring). Returns the osg_decode launches of the converted npz's
+    render."""
+    import numpy as np
+    import torch
+
+    from gnerf_tpu_torch.infer import gen_videos as gv
+    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
+    from gnerf_tpu_torch.training.inception import load_inception
+    from gnerf_tpu_torch.training.losses import load_lpips
+
+    ingest = _ingest_helpers()
+    with tempfile.TemporaryDirectory() as tmp:
+        g, enc = gv.load_networks(None, seed_init=0, device="cuda", double_sampling=False)
+        pkl, npz = os.path.join(tmp, "network.pkl"), os.path.join(tmp, "gnerf.npz")
+        n_params = sum(v.numel() for net in (g, enc) for v in net.state_dict().values())
+        t0 = time.perf_counter()
+        ingest.write_reference_pickle(pkl, g, SIDE, enc)
+        pickle_s = time.perf_counter() - t0
+        del g, enc
+        t0 = time.perf_counter()
+        out = ingest.run_without_jax("gnerf_tpu_torch.tools.convert_reference_pkl", "--pkl", pkl,
+                                     "--reference", tmp, "--out", npz).stdout.strip()
+        convert_s = time.perf_counter() - t0
+        pkl_bytes, npz_bytes = os.path.getsize(pkl), os.path.getsize(npz)
+        os.remove(pkl)
+
+        common = dict(frames=INGEST_FRAMES, res=64, device="cuda")
+        osg_decode.launches = 0
+        got = gv.generate_videos(npz, video_out_path=os.path.join(tmp, "npz"), **common)
+        torch.cuda.synchronize()
+        launches = osg_decode.launches
+        want = gv.generate_videos(None, seed_init=0, video_out_path=os.path.join(tmp, "seed"),
+                                  **common)
+        gap = max(int(np.abs(got[k].astype(int) - want[k].astype(int)).max())
+                  for k in ("frames", "frames_raw"))
+        shapes_ok = (got["frames"].shape == (INGEST_FRAMES, SIDE, SIDE, 3)
+                     and got["frames"].dtype == np.uint8 and got["finite"])
+
+        oracle = ingest.LPIPSOracle()
+        pt, lnpz = os.path.join(tmp, "vgg16.pt"), os.path.join(tmp, "lpips_vgg16.npz")
+        torch.jit.save(torch.jit.script(oracle), pt)
+        t0 = time.perf_counter()
+        ingest.run_without_jax("gnerf_tpu_torch.tools.convert_vgg16_lpips", "--pt", pt,
+                               "--out", lnpz)
+        lpips_s = time.perf_counter() - t0
+        net, meta = load_lpips(lnpz, device="cuda")
+        oracle = oracle.cuda()
+        rng = np.random.RandomState(7)
+        a = torch.from_numpy(rng.rand(4, 3, 128, 128).astype(np.float32) * 255).cuda()
+        b = (a + torch.from_numpy(rng.randn(4, 3, 128, 128).astype(np.float32) * 40).cuda()
+             ).clamp(0, 255)
+        with torch.no_grad():
+            d_got = (net.apply(a) - net.apply(b)).square().sum(1)
+            d_want = (oracle(a, resize_images=True, return_lpips=True)
+                      - oracle(b, resize_images=True, return_lpips=True)).square().sum(1)
+        lpips_err = float(((d_got - d_want).abs() / d_want.abs()).max())
+
+        state = ingest.random_inception_state(seed=0)
+        ipt, inpz = os.path.join(tmp, "inception_v3_google.pth"), os.path.join(tmp, "fid.npz")
+        torch.save(state, ipt)
+        t0 = time.perf_counter()
+        ingest.run_without_jax("gnerf_tpu_torch.tools.convert_inception", "--pt", ipt,
+                               "--out", inpz)
+        inception_s = time.perf_counter() - t0
+        loaded = load_inception(inpz, device="cuda").state_dict()
+        inception_ok = all(torch.equal(v.cpu(), state[k]) for k, v in loaded.items())
+
+    log(f"[ingest] reference pickle of the full-width G + E ({n_params} parameters, "
+        f"{pkl_bytes} bytes, written in {pickle_s:.2f} s) -> npz of {npz_bytes} bytes in "
+        f"{convert_s:.2f} s by convert_reference_pkl with JAX blocked (process wall, start-up "
+        f"included): {out.splitlines()[-1]}; generate_videos on it: {INGEST_FRAMES} bf16 frames "
+        f"{got['frames'].shape}, max gap to the seed-init frames {gap} (want 0), osg_decode "
+        f"launches {launches}; LPIPS: full-width VGG16 oracle converted and calibrated on the "
+        f"card in {lpips_s:.2f} s (resize_to={meta['resize_to']}, "
+        f"antialias={meta['antialias']}, whitening={meta['whitening']}, calibration err "
+        f"{meta['calibration_err']:.3e}), load_lpips vs oracle on 4 pairs: max rel err "
+        f"{lpips_err:.3e} (bound {LPIPS_RTOL:g}); Inception: {len(loaded)} tensors converted in "
+        f"{inception_s:.2f} s, equal={inception_ok}")
+    if not shapes_ok or gap != 0:
+        raise SystemExit("chip_smoke: the converted checkpoint's frames differ from the "
+                         "seed-init frames")
+    if launches != 2 * INGEST_FRAMES:
+        raise SystemExit(f"chip_smoke: osg_decode launched {launches} times on the converted "
+                         f"npz, want {2 * INGEST_FRAMES}")
+    if not lpips_err <= LPIPS_RTOL:
+        raise SystemExit("chip_smoke: the converted LPIPS net disagrees with its oracle")
+    if not inception_ok:
+        raise SystemExit("chip_smoke: the converted Inception weights differ from the source")
+    return launches
+
+
 def _smooth_photo(h: int, w: int, seed: int):
     """Low-frequency synthetic RGB photo [h, w, 3] uint8."""
     import numpy as np
@@ -1279,10 +1435,6 @@ def _draw_share(tag, calls: dict) -> dict:
                 depth[0] -= 1
         return inner
 
-    def dev_ms(e, attr):
-        v = getattr(e, attr.replace("cuda", "device"), None)
-        return (getattr(e, attr) if v is None else v) / 1e3
-
     out = {}
     for n in names:
         setattr(prng, n, wrap(orig[n]))
@@ -1297,9 +1449,9 @@ def _draw_share(tag, calls: dict) -> dict:
                 ev[1].record()
                 torch.cuda.synchronize()
             ka = prof.key_averages()
-            total = sum(dev_ms(e, "self_cuda_time_total") for e in ka
+            total = sum(_dev_ms(e, "self_cuda_time_total") for e in ka
                         if e.device_type == DeviceType.CUDA)
-            draws = sum(dev_ms(e, "cuda_time_total") for e in ka if e.key == "prng_draw")
+            draws = sum(_dev_ms(e, "cuda_time_total") for e in ka if e.key == "prng_draw")
             out[name] = (total, draws, count[0])
             log(f"[{tag}] threefry share of one {name}: {count[0]} prng calls, {draws:.3f} ms "
                 f"of {total:.3f} ms of kernel time ({100 * draws / max(total, 1e-9):.2f} %); "
@@ -2704,6 +2856,7 @@ def main(argv=None) -> int:
 
     launches["main"], main_frames = path("main", phase_main, args.frames)
     phase_timing(args.frames, args.profile)
+    launches["ingest"] = path("ingest", phase_ingest)
     launches["server"] = path("server", phase_server)
     launches["shapes"], volume = path("shapes", phase_shapes)
     launches["train"] = path("train", phase_train)
@@ -2740,7 +2893,8 @@ def main(argv=None) -> int:
         "source": "gnerf_tpu_torch/csrc/threefry.cu",
         "replaces": "none: JAX leaves threefry to XLA (gnerf_tpu's jax.random draws)",
         "launches": fry_launches["main"], "max_abs_err": fry["jitter"]["max_abs_err"],
-        "ms": fry["jitter"]["ms"], "plain_ms": fry["jitter"]["plain_ms"],
+        "ms": fry["jitter"]["device_ms"], "call_ms": fry["jitter"]["call_ms"],
+        "plain_ms": fry["jitter"]["plain_ms"],
         "bound_ms": fry["jitter"]["bound_ms"], "bound_by": fry["jitter"]["bound_by"],
         "library_ms": None,
         "launches_by_path": fry_launches,

@@ -140,10 +140,10 @@ def run_eval(network: str, real_data: str = "", dataset_name: str = "synthetic",
 @click.option("--batch", type=int, default=4)
 @click.option("--out", default="")
 @click.option("--lpips-weights", "lpips_weights", default="",
-              help="converted vgg16.pt npz (tools/convert_vgg16_lpips.py)")
+              help="converted vgg16.pt npz (python -m gnerf_tpu_torch.tools.convert_vgg16_lpips)")
 @click.option("--inception-weights", "inception_weights", default="",
-              help="converted inception_v3 npz (tools/convert_inception.py); "
-                   "enables FID over the held-out set")
+              help="converted inception_v3 npz (python -m "
+                   "gnerf_tpu_torch.tools.convert_inception); enables FID over the held-out set")
 @click.option("--device", type=str, default=None,
               help="torch device; default CUDA (refuses to run without a card)")
 def main(**kwargs):

@@ -4,8 +4,9 @@ Port of `gnerf_tpu/training/inception.py`: the InceptionV3 trunk (Szegedy et
 al., CVPR 2016) whose parameter names are torchvision `inception_v3`'s
 state_dict names (`Conv2d_1a_3x3.conv.weight`, `Mixed_5b.branch1x1.bn.
 running_var`, ...; BN eps 1e-3, no aux head, no fc), so the npz of
-`tools/convert_inception.py` loads as it does in the JAX package. The BN is
-folded into a per-channel affine at every call (inference only); the
+`python -m gnerf_tpu_torch.tools.convert_inception` (the same file the JAX
+package's `tools/convert_inception.py` writes) loads as it does there. The
+BN is folded into a per-channel affine at every call (inference only); the
 weights are frozen.
 
 `features()` takes [-1, 1] NCHW images, resizes them to `resize_to`
@@ -258,7 +259,7 @@ def convert_torch_inception(state: Mapping[str, np.ndarray]) -> dict:
 
 
 def load_inception(path: str, device=None, resize_to: int = 299) -> InceptionV3Features:
-    """The net with the weights of a `tools/convert_inception.py` npz (its
+    """The net with the weights of a `gnerf_tpu_torch.tools.convert_inception` npz (its
     `inception` tree), on CUDA unless `device` names another device."""
     from ..utils import checkpoint as ckpt_lib
 

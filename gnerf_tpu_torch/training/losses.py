@@ -8,7 +8,8 @@ Port of `gnerf_tpu/training/losses.py`:
   * LPIPS through a VGG16 feature net (per-layer unit-normalized features
     times learned per-channel weights; the squared distance of two
     embeddings is their LPIPS distance). Weights come from the npz that
-    `tools/convert_vgg16_lpips.py` writes, or are random with a loud warning.
+    `python -m gnerf_tpu_torch.tools.convert_vgg16_lpips` writes, or are random
+    with a loud warning.
   * Non-saturating softplus GAN losses, and the R1 penalty through
     `torch.autograd.grad(create_graph=True)`.
 """
@@ -195,9 +196,10 @@ def lpips_distance(vgg: VGG16LPIPS, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def load_lpips(path: str, device=None) -> tuple[VGG16LPIPS, dict]:
-    """Converted LPIPS weights (the npz of tools/convert_vgg16_lpips.py, as
-    the JAX package reads it) -> (net, meta). The net takes the resize and
-    antialias settings the converter calibrated; meta["pretrained"] is True."""
+    """Converted LPIPS weights (the npz of `python -m
+    gnerf_tpu_torch.tools.convert_vgg16_lpips`, as the JAX package reads it)
+    -> (net, meta). The net takes the resize and antialias settings the
+    converter calibrated; meta["pretrained"] is True."""
     from ..utils.checkpoint import load_jax_params
 
     with np.load(path, allow_pickle=False) as z:
@@ -224,7 +226,7 @@ def lpips_params_or_warn(path: Optional[str] = None, device=None,
         return net, True
     print("WARNING: LPIPS is running on RANDOM VGG16 weights — the "
           "perceptual term will NOT match the reference objective. Convert "
-          "NVIDIA's vgg16.pt with tools/convert_vgg16_lpips.py and pass "
+          "NVIDIA's vgg16.pt with `python -m gnerf_tpu_torch.tools.convert_vgg16_lpips` and pass "
           "--lpips-weights to fix this.")
     return VGG16LPIPS(device=device, key=key), False
 

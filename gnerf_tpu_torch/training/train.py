@@ -800,7 +800,7 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
 @click.option("--dtype", type=click.Choice(["fp32", "bf16"]), default="fp32",
               help="forward-pass precision (optimizers and compositing stay fp32)")
 @click.option("--lpips-weights", "lpips_weights", type=str, default="",
-              help="converted vgg16.pt npz (tools/convert_vgg16_lpips.py); "
+              help="converted vgg16.pt npz (python -m gnerf_tpu_torch.tools.convert_vgg16_lpips); "
                    "empty = RANDOM VGG features (loudly flagged)")
 @click.option("--objective", type=click.Choice(["gnerf", "eg3d"]), default="gnerf",
               help="gnerf = encoder-inversion training; eg3d = EG3D GAN pretraining of G")

@@ -1,11 +1,14 @@
-"""Checkpoint I/O in the JAX package's npz format, and the weight bridge.
+"""Checkpoint I/O in the JAX package's npz format, the weight bridge, and
+the reference state_dict converters.
 
 A checkpoint is one `.npz`: every leaf of every named tree (`G_ema`, `E`,
 `E_state`, ...) under its `/`-joined path, plus a `__config__` JSON blob
 (`gnerf_tpu/utils/checkpoint.py`). This module reads and writes it with
 numpy alone. The port's modules name their parameters and buffers as the
 JAX trees do, so `load_jax_params` is a rename (`.` -> `/`) plus a shape
-check.
+check. `convert_torch_*` map the reference's torch state_dict names onto
+those trees (offline, for `tools/convert_reference_pkl.py`), leaf for leaf
+as the JAX package's converters do.
 """
 
 from __future__ import annotations
@@ -170,3 +173,99 @@ def copy_params(module: nn.Module, tree: Any, keys: Optional[Any] = None,
         elif verbose:
             print(f"copy_params: {jk} missing in src, keeping dst")
     return module
+
+
+# ---------------------------------------------------------------------------
+# Reference state_dict conversion (offline tool; torch tensors arrive as numpy)
+
+_JAX_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+               np.dtype(np.uint64): np.uint32, np.dtype(np.complex128): np.complex64}
+
+
+def jax_tree(flat: Mapping[str, Any]) -> dict:
+    """`unflatten_tree` with each leaf as the JAX package's `unflatten_tree`
+    stores it (`jnp.asarray` in JAX's default 32-bit mode: 64-bit types
+    narrowed to 32 bits, C order), so a converted tree saves to the bytes
+    the JAX converters write."""
+    out = {}
+    for key, value in flat.items():
+        a = np.asarray(value)
+        out[key] = np.asarray(a, dtype=_JAX_NARROW.get(a.dtype, a.dtype), order="C")
+    return unflatten_tree(out)
+
+
+def convert_torch_encoder(state: Mapping[str, np.ndarray]) -> dict:
+    """Map a reference ResNeXt50 encoder state_dict (torchvision names under
+    `model.`, plus `fc.`) onto the ResNeXt50Encoder tree."""
+    flat: dict[str, np.ndarray] = {}
+
+    def bn(dst, src):
+        flat[f"{dst}{SEP}scale"] = state[f"{src}.weight"]
+        flat[f"{dst}{SEP}bias"] = state[f"{src}.bias"]
+
+    flat["conv1"] = state["model.conv1.weight"]
+    bn("bn1", "model.bn1")
+    for stage in range(1, 5):
+        b = 0
+        while f"model.layer{stage}.{b}.conv1.weight" in state:
+            src = f"model.layer{stage}.{b}"
+            dst = f"layer{stage}_{b}"
+            for i in (1, 2, 3):
+                flat[f"{dst}{SEP}conv{i}"] = state[f"{src}.conv{i}.weight"]
+                bn(f"{dst}{SEP}bn{i}", f"{src}.bn{i}")
+            if f"{src}.downsample.0.weight" in state:
+                flat[f"{dst}{SEP}downsample_conv"] = state[f"{src}.downsample.0.weight"]
+                bn(f"{dst}{SEP}downsample_bn", f"{src}.downsample.1")
+            b += 1
+    flat[f"fc{SEP}weight"] = state["fc.weight"]
+    flat[f"fc{SEP}bias"] = state["fc.bias"]
+    return jax_tree(flat)
+
+
+def convert_torch_encoder_state(state: Mapping[str, np.ndarray]) -> dict:
+    """Running BN statistics for the encoder (the `E_state` tree)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def bn(dst, src):
+        flat[f"{dst}{SEP}mean"] = state[f"{src}.running_mean"]
+        flat[f"{dst}{SEP}var"] = state[f"{src}.running_var"]
+
+    bn("bn1", "model.bn1")
+    for stage in range(1, 5):
+        b = 0
+        while f"model.layer{stage}.{b}.conv1.weight" in state:
+            src = f"model.layer{stage}.{b}"
+            dst = f"layer{stage}_{b}"
+            for i in (1, 2, 3):
+                bn(f"{dst}{SEP}bn{i}", f"{src}.bn{i}")
+            if f"{src}.downsample.0.weight" in state:
+                bn(f"{dst}{SEP}downsample_bn", f"{src}.downsample.1")
+            b += 1
+    return jax_tree(flat)
+
+
+def convert_torch_generator(state: Mapping[str, np.ndarray]) -> dict:
+    """Map a reference TriPlaneGenerator state_dict onto the G tree.
+
+    Name correspondences (reference -> ours):
+      backbone.mapping.fcN.*          -> backbone/mapping/fcN/*
+      backbone.mapping.w_avg          -> backbone/mapping/w_avg
+      backbone.synthesis.bR.*        -> backbone/synthesis/bR/*
+      decoder.net.0/2.*               -> decoder/fc0|fc1/*
+      superresolution.blockX.*        -> superresolution/blockX/*
+    Noise constants ride along so noise_mode='const' is reproducible; the
+    `resample_filter` buffers are dropped (the modules compute them).
+    """
+    flat: dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        n = name
+        n = n.replace("backbone.mapping.", f"backbone{SEP}mapping{SEP}")
+        n = n.replace("backbone.synthesis.", f"backbone{SEP}synthesis{SEP}")
+        n = n.replace("decoder.net.0.", f"decoder{SEP}fc0{SEP}")
+        n = n.replace("decoder.net.2.", f"decoder{SEP}fc1{SEP}")
+        n = n.replace("superresolution.", f"superresolution{SEP}")
+        n = n.replace(".", SEP)
+        if n.endswith(f"{SEP}resample_filter"):
+            continue
+        flat[n] = value
+    return jax_tree(flat)

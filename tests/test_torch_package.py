@@ -35,6 +35,8 @@ def test_import_pulls_in_no_jax():
         "import gnerf_tpu_torch.training.augment, gnerf_tpu_torch.training.inception\n"
         "import gnerf_tpu_torch.training.metrics, gnerf_tpu_torch.training.pti\n"
         "import gnerf_tpu_torch.training.eval, gnerf_tpu_torch.parallel\n"
+        "import gnerf_tpu_torch.utils.tf_legacy, gnerf_tpu_torch.tools.convert_reference_pkl\n"
+        "import gnerf_tpu_torch.tools.convert_vgg16_lpips, gnerf_tpu_torch.tools.convert_inception\n"
         "new = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gnerf_tpu'))\n"
         "print(new)\n"
@@ -44,6 +46,16 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("tool", ["convert_reference_pkl", "convert_vgg16_lpips",
+                                  "convert_inception"])
+def test_converters_run_where_jax_cannot_be_imported(tool):
+    """Each converter's CLI starts with `jax`, `jaxlib` and `gnerf_tpu`
+    blocked (`tests/_torch_ingest.py::run_without_jax`)."""
+    from _torch_ingest import run_without_jax
+
+    assert "--out" in run_without_jax(f"gnerf_tpu_torch.tools.{tool}", "--help").stdout
 
 
 def _python_files():
