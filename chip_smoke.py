@@ -17,10 +17,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  3b. threefry: the threefry kernel (csrc/threefry.cu) vs its plain version
               (int64 torch ops, then the float steps in torch) on the card
               at the step's draw shapes, a rank's block at data=2 and at
-              rays=2 and the edges (n = 0, 1, 5003, past 2^24), as bits,
-              uniform and normal draws (bit for bit; normal within 1e-6),
-              keys on the host and on the card, split and fold_in pairs;
-              its time, its bound and the plain version's time.
+              rays=2 and the edges (n = 0, 1, 5003, past 2^24, counters past
+              2^32), as bits, uniform and normal draws (bit for bit; normal
+              within 1e-6), keys on the host and on the card, split and
+              fold_in pairs; its device and call time beside its bound, PR
+              13's numbers and an empty kernel's; batched tables (the ADA
+              pipe's, a synthesis network's noise, a mixed one of 40) against
+              their single draws; one launch per ADA pipe call, backbone
+              synthesis forward and SR forward.
   4. small:   a tiny generator on the card (fp32) vs the same weights on
               the CPU, through render + 8XDC, and through `sample_mixed`;
               the tiny G-NeRF train step with rng=None and seeded from a
@@ -280,11 +284,10 @@ def phase_build():
         for line in out.splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(osg_decode_(?:tc|tf32)|threefry_words)(?:I((?:Li\d+E)+)E)?",
-                              entry.group(1))
-                args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+                m = re.search(r"osg_decode_(?:tc|tf32)|threefry_table", entry.group(1))
+                args = re.findall(r"Li(\d+)E", entry.group(1)[m.end():]) if m else []
                 instance = (entry.group(1) if not m else
-                            f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1))
+                            f"{m.group(0)}<{', '.join(args)}>" if args else m.group(0))
             elif "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name} {instance}: {line.strip()}")
     log(f"[build] built in {secs:.2f} s")
@@ -487,20 +490,148 @@ def threefry_bound_ms(n: int, kind: str = "bits") -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# PR 13's readings of the old kernel (one value a thread, int64 indexing;
+# NVIDIA H100 80GB HBM3, 700.00 W): (device ms, call ms) per STEP_DRAWS row.
+PR13_THREEFRY = {"jitter": (0.0051, 0.0547), "noise 512^2": (0.0089, 0.0483),
+                 "noise 512^2, data=2 rank 1": (0.0086, 0.0487),
+                 "jitter, rays=2 rank 1": (0.0058, 0.0571), "n=2^24+3": (0.0677, 0.0706)}
+
+
+def _threefry_tables(key) -> dict:
+    """Batched draw tables, {name: [(key, shape, part, kind, minval, maxval)]}:
+    the ADA bgc pipe's 26 draws at batch 4 (a 6-channel D input), whole and
+    a rank's rows at data=2; the 13 noise layers of the full-width backbone
+    and the 6 of the 8XDC SR module at batch 4, whole and at data=2; and a
+    mixed table of 40 entries (two launches) with the step's draws, a
+    rays=2 block, bits, key pairs and a draw past 32-bit counters (a launch
+    of its own)."""
+    from gnerf_tpu_torch.training.augment import AugmentPipe
+    from gnerf_tpu_torch.training.eg3d_loss import BGC_SPEC
+    from gnerf_tpu_torch.utils import prng
+
+    def rows(entries, rank):
+        return [(k, shape, {0: (2 * rank, 2)}, kind, lo, hi) for k, shape, _, kind, lo, hi
+                in entries]
+
+    keys = prng.split(key, 32)
+    ada = [(keys[i], (TRAIN_BATCH,) + shape, None, kind, 0.0, 1.0)
+           for i, (kind, shape) in enumerate(AugmentPipe(**BGC_SPEC)._draw_plan(6))]
+    noise = []
+    for res, block_key in zip([2 ** i for i in range(2, 9)], prng.split(keys[0], 7)):
+        k0, k1 = prng.split(block_key)
+        noise += [(k, (TRAIN_BATCH, 1, res, res), None, "normal", 0.0, 1.0)
+                  for k in ((k0,) if res == 4 else (k0, k1))]
+    for res, block_key in zip((64, 256, 512), prng.split(keys[1], 3)):
+        noise += [(k, (TRAIN_BATCH, 1, res, res), None, "normal", 0.0, 1.0)
+                  for k in prng.split(block_key)]
+    mixed = [(keys[2], shape, part, kind, -0.5, 1.5) for _, kind, shape, part in STEP_DRAWS]
+    mixed += [(keys[3], (1 << 33,), {0: ((1 << 32) + 5, 5003)}, "uniform", 0.0, 1.0),
+              (keys[4], (7,), None, "pairs", 0.0, 1.0),
+              (keys[5], (1 << 32,), {0: ((1 << 32) - 1, 1)}, "pairs", 0.0, 1.0)]
+    mixed += [(k, (TRAIN_BATCH, 3 + i), None, ("bits", "uniform", "normal")[i % 3], 0.0, 1.0)
+              for i, k in enumerate(prng.split(keys[6], 40 - len(mixed)))]
+    return {"ada bgc": ada, "ada bgc, data=2 rank 1": rows(ada, 1), "synthesis noise": noise,
+            "synthesis noise, data=2 rank 1": rows(noise, 1), "mixed": mixed}
+
+
+def _threefry_batched(key, dev) -> list:
+    """Each table of `_threefry_tables` in one `threefry_draws` call against
+    its single draws (`threefry_draw`, the kernel): equal bit for bit, every
+    kind, and normal draws within 1e-6 of the plain version; the table's
+    launches (ceil(entries / 32), and one per 64-bit entry); its device ms
+    beside the single draws' summed device ms, and its call ms."""
+    import torch
+
+    from gnerf_tpu_torch.ops import threefry as T
+
+    lines = []
+    for name, table in _threefry_tables(key).items():
+        before = T.threefry_draw.launches
+        got = T.threefry_draws(table, dev)
+        launches = T.threefry_draw.launches - before
+        wide = sum(T.plan_of(shape, part).wide for _, shape, part, *_ in table)
+        if launches != -(-(len(table) - wide) // T.MAX_ENTRIES) + wide:
+            raise SystemExit(f"chip_smoke: the threefry table '{name}' took {launches} launches")
+        for (k, shape, part, kind, lo, hi), g in zip(table, got):
+            one = T.threefry_draw(k, shape, part, dev, kind, lo, hi)
+            ok = torch.equal(g, one)
+            if kind == "normal" and ok and g.numel():
+                plain = T._plain(k, shape, part, dev, kind, *T._bounds(kind, lo, hi))
+                ok = float((g.reshape(-1) - plain).abs().max()) <= 1e-6
+            if not ok:
+                raise SystemExit(f"chip_smoke: the threefry table '{name}' differs from its "
+                                 f"single draws at {kind}{list(shape)} part {part}")
+        device_ms, _ = kernel_device_ms(lambda: T.threefry_draws(table, dev), 20,
+                                        "threefry_table")
+        singles_ms, _ = kernel_device_ms(
+            lambda: [T.threefry_draw(k, shape, part, dev, kind, lo, hi)
+                     for k, shape, part, kind, lo, hi in table], 5, "threefry_table")
+        call_ms = cuda_ms(lambda: T.threefry_draws(table, dev), iters=20, warmup=3)
+        singles_call = cuda_ms(lambda: [T.threefry_draw(k, shape, part, dev, kind, lo, hi)
+                                        for k, shape, part, kind, lo, hi in table], 5, 1)
+        lines.append(f"{name}: {len(table)} draws, {launches} launch(es), device {device_ms:.4f}"
+                     f" ms (single draws {singles_ms:.4f}), call {call_ms:.4f} ms (single draws "
+                     f"{singles_call:.4f})")
+    log("[threefry] batched tables == their single draws (bit for bit; normal within 1e-6 of "
+        "the plain version): " + "; ".join(lines))
+
+
+def _threefry_launches_per_call(key, dev) -> dict:
+    """Launches of one bgc ADA pipe call on a [4, 6, 512, 512] pair and of
+    one forward of the full-width backbone's synthesis network and of its
+    8XDC SR module with random noise (keys on the host): 1 each."""
+    import torch
+
+    from gnerf_tpu_torch.ops.threefry import threefry_draw
+    from gnerf_tpu_torch.training.augment import AugmentPipe
+    from gnerf_tpu_torch.training.eg3d_loss import BGC_SPEC
+    from gnerf_tpu_torch.utils import prng
+
+    g = _full_width_g(0)
+    pipe = AugmentPipe(**BGC_SPEC, pad_fraction=0.55)
+    x = prng.uniform(prng.PRNGKey(1), (TRAIN_BATCH, 6, SIDE, SIDE), -1.0, 1.0, device=dev)
+    feats = prng.normal(prng.PRNGKey(2), (TRAIN_BATCH, 32, 64, 64), device=dev)
+    calls = {
+        "ADA pipe call": lambda: pipe(key, x, p=0.2),
+        "backbone synthesis forward": lambda: g.backbone.synthesis(
+            torch.zeros((TRAIN_BATCH, g.backbone.num_ws, 512), device=dev), noise_mode="random",
+            rng=key),
+        "SR forward": lambda: g.superresolution(feats[:, :3], feats, torch.zeros(
+            (TRAIN_BATCH, g.num_ws, 512), device=dev), noise_mode="random", rng=key),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            before = threefry_draw.launches
+            fn()
+            out[name] = threefry_draw.launches - before
+    torch.cuda.synchronize()
+    log(f"[threefry] launches per call (PR 13: 26 per ADA pipe call, 13 per backbone synthesis "
+        f"forward, 6 per SR forward): {out}")
+    if any(v != 1 for v in out.values()):
+        raise SystemExit(f"chip_smoke: a batched draw site took other than one launch: {out}")
+    del g, x, feats
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_threefry() -> dict:
-    """The threefry kernel (`ops/threefry.py::threefry_draw`, csrc/threefry.cu)
-    against its plain version (`threefry2x32` in int64 torch ops, then the
-    float steps in torch) on the card, at the step's draw shapes
-    (`STEP_DRAWS`: the jitter, the importance u, the 512^2 noise, a rank's
-    block at data=2 and at rays=2, n = 0, 1, 5003 and past 2^24), each as
-    bits, uniform and normal, with the key on the host and on the card, and
-    for the key pairs of split and fold_in: bits, pairs and uniform bit for
-    bit, normal within 1e-6 (both take CUDA's log1pf and sqrtf).
-    Times the kernel by its device events (torch.profiler: `device_ms`) and
-    per call (CUDA events around 20 back-to-back calls:
-    `call_ms`, host-bound, as the card idles between calls), and the plain
-    version (CUDA events), beside the bound. Returns {name: row} of the
-    step's draws as they are made (STEP_DRAWS' kinds)."""
+    """The threefry kernel (`ops/threefry.py::threefry_draw` and
+    `threefry_draws`, csrc/threefry.cu) against its plain version
+    (`threefry2x32` in int64 torch ops, then the float steps in torch) on
+    the card, at the step's draw shapes (`STEP_DRAWS`: the jitter, the
+    importance u, the 512^2 noise, a rank's block at data=2 and at rays=2,
+    n = 0, 1, 5003 and past 2^24), each as bits, uniform and normal, with
+    the key on the host and on the card, and for the key pairs of split and
+    fold_in: bits, pairs and uniform bit for bit, normal within 1e-6 (both
+    take CUDA's log1pf and sqrtf). Times the kernel by its device events
+    (torch.profiler: `device_ms`) and per call (CUDA events around 20
+    back-to-back calls: `call_ms`, host-bound, as the card idles between
+    calls), and the plain version (CUDA events), beside the bound and PR
+    13's numbers; an empty kernel's device ms as the floor. Then the
+    batched tables (`_threefry_batched`) and the launches per ADA pipe call
+    and synthesis forward (`_threefry_launches_per_call`). Returns {name:
+    row} of the step's draws as they are made (STEP_DRAWS' kinds)."""
     import torch
 
     from gnerf_tpu_torch.ops import threefry as T
@@ -511,7 +642,8 @@ def phase_threefry() -> dict:
     rows, lines, worst = {}, [], 0.0
     cases = [(name, kind, shape, part) for name, kind, shape, part in STEP_DRAWS]
     cases += [("split 7", "pairs", (7,), None),
-              ("fold_in 2^32-1", "pairs", (1 << 32,), {0: ((1 << 32) - 1, 1)})]
+              ("fold_in 2^32-1", "pairs", (1 << 32,), {0: ((1 << 32) - 1, 1)}),
+              ("past 2^32", "uniform", (1 << 33,), {0: ((1 << 32) + 5, 5003)})]
     for name, draw_kind, shape, part in cases:
         kinds = ("pairs",) if draw_kind == "pairs" else ("bits", "uniform", "normal")
         for kind in kinds:
@@ -525,25 +657,35 @@ def phase_threefry() -> dict:
                     raise SystemExit(f"chip_smoke: the threefry kernel differs from its plain "
                                      f"version at '{name}' {kind} (key on {k.device.type})")
         n = math.prod(T.block_shape(shape, part))
-        if n == 0 or draw_kind == "pairs":
+        if n == 0 or draw_kind == "pairs" or name == "past 2^32":
             continue
         kind = draw_kind
         span = T._bounds(kind, 0.0, 1.0)
         call_ms = cuda_ms(lambda: T.threefry_draw(key, shape, part, dev, kind), iters=20,
                           warmup=3)
         device_ms, per_call = kernel_device_ms(
-            lambda: T.threefry_draw(key, shape, part, dev, kind), 20, "threefry_words")
+            lambda: T.threefry_draw(key, shape, part, dev, kind), 20, "threefry_table")
         plain_ms = cuda_ms(lambda: T._plain(key, shape, part, dev, kind, *span), iters=3,
                            warmup=1)
         bound, by = threefry_bound_ms(n, kind)
         rows[name] = dict(n=n, kind=kind, device_ms=device_ms, call_ms=call_ms,
                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                           max_abs_err=worst if kind == "normal" else 0.0)
+        old = PR13_THREEFRY.get(name)
         lines.append(f"{name} {kind} n={n}: device {device_ms:.4f} ms ({per_call:g} launch a "
                      f"call), call {call_ms:.4f} ms (host-bound), plain {plain_ms:.3f}, bound "
-                     f"{bound:.4f} {by} ({bound / device_ms:.2f} of device)")
+                     f"{bound:.4f} {by} ({bound / device_ms:.2f} of device)"
+                     + (f" [PR 13: device {old[0]}, call {old[1]}]" if old else ""))
     log(f"[threefry] kernel == plain version (bits, pairs, uniform bit for bit; normal max abs "
         f"err {worst:.3e}, bound 1e-6; keys on the host and on the card); " + "; ".join(lines))
+    floor = {blocks: kernel_device_ms(lambda: T.empty_launch(blocks, dev), 20, "empty_kernel")[0]
+             for blocks in (1, 768)}
+    log(f"[threefry] empty kernel (the launch floor): device {floor[1]:.4f} ms at 1 block, "
+        f"{floor[768]:.4f} ms at 768 blocks of 256 (the jitter's grid)")
+    for row in rows.values():
+        row["empty_kernel_ms"] = floor[1]
+    _threefry_batched(key, dev)
+    _threefry_launches_per_call(key, dev)
     return rows
 
 
@@ -1404,7 +1546,7 @@ def _full_width_trainer(seed: int):
 def _draw_share(tag, calls: dict) -> dict:
     """Each of `calls` {name: fn} once under torch.profiler, with every
     outermost call into `utils.prng` (split, fold_in, bits, uniform, normal,
-    randint) inside a record_function range "prng_draw": {name: (the call's
+    randint, draw_many) inside a record_function range "prng_draw": {name: (the call's
     device ms, the ranges' device ms, the number of prng calls)}, printed
     with the share and the call's CUDA-event ms. The device ms are the
     kernels' own (the profile's device events, each counted once); the
@@ -1418,7 +1560,7 @@ def _draw_share(tag, calls: dict) -> dict:
     from gnerf_tpu_torch.utils import prng
 
     depth, count = [0], [0]
-    names = ("split", "fold_in", "bits", "uniform", "normal", "randint")
+    names = ("split", "fold_in", "bits", "uniform", "normal", "randint", "draw_many")
     orig = {n: getattr(prng, n) for n in names}
 
     def wrap(fn):

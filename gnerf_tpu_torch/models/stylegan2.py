@@ -10,7 +10,8 @@ package. Every constructor takes a threefry `key` (`utils.prng`) and splits
 it as the JAX `init` does, so a key gives JAX's parameters; they are made on
 the key's device (nothing is drawn on `meta`). `noise_mode="random"` draws
 from the call's key (`rng`), split per block and layer as the JAX `apply`
-splits it, so a key gives JAX's noise. Every op is plain PyTorch, so the
+splits it, so a key gives JAX's noise; a network's noise layers are drawn
+together in one launch (`draw_noise`). Every op is plain PyTorch, so the
 discriminator is twice differentiable, as the R1 penalty needs.
 """
 
@@ -27,7 +28,7 @@ from ..ops.conv2d_resample import conv2d_resample
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import active_mesh
-from ..parallel.sharding import draw, local_rows
+from ..parallel.sharding import draw_many, local_rows
 from ..utils import prng
 from ..utils.device import place, resolve_device
 
@@ -202,16 +203,18 @@ class SynthesisLayer(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, noise_mode: str = "random",
-                gain: float = 1.0, rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gain: float = 1.0, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`noise`: this layer's standard normal draw [N, 1, r, r] for
+        `noise_mode="random"` (`draw_noise`)."""
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"unknown noise_mode {noise_mode!r}")
         styles = self.affine(w)
-        noise = None
         if self.use_noise and noise_mode == "random":
-            if rng is None:
+            if noise is None:
                 raise ValueError("noise_mode='random' needs a key (rng)")
-            noise = draw(prng.normal, rng, (x.shape[0], 1, self.resolution, self.resolution),
-                         device=x.device) * self.noise_strength
+            noise = noise * self.noise_strength
+        else:
+            noise = None
         if self.use_noise and noise_mode == "const":
             noise = self.noise_const * self.noise_strength
         f = self.resample_filter if self.up > 1 else None
@@ -281,34 +284,56 @@ class SynthesisBlock(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 ws: torch.Tensor, noise_mode: str = "random",
-                rng: Optional[torch.Tensor] = None,
+                noise: Optional[dict] = None,
                 dtype: torch.dtype = torch.float32):
-        """ws: [N, num_conv + num_torgb, w_dim]. Returns (x, img). `rng`
-        splits in two: conv0 takes the first key and conv1 the second (the
-        4x4 block's lone conv1 the first), as in the JAX package (only
-        random noise draws from them)."""
+        """ws: [N, num_conv + num_torgb, w_dim]. Returns (x, img). `noise`:
+        this block's entry of `draw_noise` for `noise_mode="random"`."""
         w_iter = iter(ws.unbind(dim=1))
-        random = rng is not None and noise_mode == "random"
-        k0, k1 = prng.split(rng) if random else (None, None)
+        noise = noise or {}
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].expand(ws.shape[0], *self.const.shape)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=k0)
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, noise=noise.get("conv1"))
         elif self.architecture == "resnet":
             x = x.to(dtype)
             y = self.skip(x, gain=math.sqrt(0.5))
-            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=k0)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, gain=math.sqrt(0.5), rng=k1)
+            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, noise=noise.get("conv0"))
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, gain=math.sqrt(0.5),
+                           noise=noise.get("conv1"))
             x = y + x
         else:
             x = x.to(dtype)
-            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, rng=k0)
-            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, rng=k1)
+            x = self.conv0(x, next(w_iter), noise_mode=noise_mode, noise=noise.get("conv0"))
+            x = self.conv1(x, next(w_iter), noise_mode=noise_mode, noise=noise.get("conv1"))
         if img is not None and self.up == 2:
             img = upsample2d(img, self.resample_filter)
         if self.num_torgb:
             y = self.torgb(x, next(w_iter)).float()
             img = img + y if img is not None else y
         return x, img
+
+
+def draw_noise(blocks: Sequence[SynthesisBlock], rng: Optional[torch.Tensor], n: int,
+               device) -> list:
+    """The random noise of every layer of `blocks` for a batch of n (this
+    rank's rows), as the JAX `apply` draws it: `rng` splits into one key per
+    block and each block's key in two (conv0 takes the first, conv1 the
+    second; the 4x4 block's lone conv1 the first). All of it is drawn in one
+    launch. Per block {"conv0": .., "conv1": ..}, each a standard normal
+    [n, 1, r, r]; a None per block without a key."""
+    if rng is None:
+        return [None] * len(blocks)
+    slots = []
+    for i, (block, key) in enumerate(zip(blocks, prng.split(rng, len(blocks)))):
+        names = ("conv1",) if block.in_channels == 0 else ("conv0", "conv1")
+        for name, k in zip(names, prng.split(key)):
+            layer = getattr(block, name)
+            if layer.use_noise:
+                r = layer.resolution
+                slots.append((i, name, prng.Draw("normal", k, (n, 1, r, r))))
+    noises = [{} for _ in blocks]
+    for (i, name, _), value in zip(slots, draw_many([d for *_, d in slots], device)):
+        noises[i][name] = value
+    return noises
 
 
 class SynthesisNetwork(nn.Module):
@@ -339,12 +364,12 @@ class SynthesisNetwork(nn.Module):
         ws = ws.float()
         x = img = None
         w_idx = 0
-        n = len(self.block_resolutions)
-        keys = prng.split(rng, n) if rng is not None and noise_mode == "random" else [None] * n
-        for res, key in zip(self.block_resolutions, keys):
-            block = getattr(self, f"b{res}")
+        blocks = [getattr(self, f"b{res}") for res in self.block_resolutions]
+        noises = draw_noise(blocks, rng if noise_mode == "random" else None, ws.shape[0],
+                            ws.device)
+        for block, noise in zip(blocks, noises):
             cur_ws = ws[:, w_idx: w_idx + block.num_conv + block.num_torgb]
-            x, img = block(x, img, cur_ws, noise_mode=noise_mode, rng=key, dtype=dtype)
+            x, img = block(x, img, cur_ws, noise_mode=noise_mode, noise=noise, dtype=dtype)
             w_idx += block.num_conv
         return img
 

@@ -26,7 +26,7 @@ from torch import nn
 
 from ..ops.interpolate import interpolate_bilinear
 from ..utils import prng
-from .stylegan2 import SynthesisBlock, root_key
+from .stylegan2 import SynthesisBlock, draw_noise, root_key
 
 
 def _block_ws(ws: torch.Tensor) -> torch.Tensor:
@@ -66,16 +66,16 @@ class _SRBase(nn.Module):
         return (interpolate_bilinear(x, r, r, antialias=antialias),
                 interpolate_bilinear(rgb, r, r, antialias=antialias))
 
-    def _keys(self, rng, noise_mode):
-        """One key per block of `BLOCKS`, as the JAX `apply` splits `rng`
-        (for random noise)."""
-        n = len(self.BLOCKS)
-        return (list(prng.split(rng, n)) if rng is not None and noise_mode == "random"
-                else [None] * n)
+    def _noise(self, rng, noise_mode, x):
+        """Each block's noise (`draw_noise`: `rng` split into one key per
+        block of `BLOCKS`, as the JAX `apply` splits it), drawn in one
+        launch for random noise."""
+        blocks = [getattr(self, name) for name, *_ in self.BLOCKS]
+        return draw_noise(blocks, rng if noise_mode == "random" else None, x.shape[0], x.device)
 
-    def _blocks(self, names, x, rgb, ws, keys, **kw):
-        for name, key in zip(names, keys):
-            x, rgb = getattr(self, name)(x, rgb, ws, rng=key, **kw)
+    def _blocks(self, names, x, rgb, ws, noises, **kw):
+        for name, noise in zip(names, noises):
+            x, rgb = getattr(self, name)(x, rgb, ws, noise=noise, **kw)
         return x, rgb
 
 
@@ -85,9 +85,9 @@ class _DualConditioned(_SRBase):
 
     def forward(self, rgb, x, ws, noise_mode="random", rng=None, dtype=torch.float32):
         ws = _block_ws(ws)
-        keys = self._keys(rng, noise_mode)
+        noises = self._noise(rng, noise_mode, x)
         kw = dict(noise_mode=noise_mode, dtype=dtype)
-        x_raw, image_raw = self.block64(x, rgb, ws, rng=keys[0], **kw)
+        x_raw, image_raw = self.block64(x, rgb, ws, noise=noises[0], **kw)
         if x.shape[-1] != self.input_resolution:
             x, rgb = self._resize(x_raw, image_raw, self.sr_antialias)
         else:
@@ -95,7 +95,7 @@ class _DualConditioned(_SRBase):
             # ORIGINAL x (not x_raw), while rgb aliases image_raw.
             rgb = image_raw
         names = [name for name, *_ in self.BLOCKS[1:]]
-        _, rgb = self._blocks(names, x, rgb, ws, keys[1:], **kw)
+        _, rgb = self._blocks(names, x, rgb, ws, noises[1:], **kw)
         return rgb, image_raw
 
 
@@ -143,7 +143,7 @@ class _Resized(_SRBase):
         image_raw = rgb
         if self._needs_resize(x.shape[-1]):
             x, rgb = self._resize(x, rgb, self.sr_antialias and self.ANTIALIAS)
-        _, rgb = self._blocks(("block0", "block1"), x, rgb, ws, self._keys(rng, noise_mode),
+        _, rgb = self._blocks(("block0", "block1"), x, rgb, ws, self._noise(rng, noise_mode, x),
                               noise_mode=noise_mode, dtype=dtype)
         return rgb, image_raw
 
@@ -183,12 +183,12 @@ class SuperresolutionHybrid2X(_SRBase):
 
     def forward(self, rgb, x, ws, noise_mode="random", rng=None, dtype=torch.float32):
         ws = _block_ws(ws)
-        keys = self._keys(rng, noise_mode)
+        noises = self._noise(rng, noise_mode, x)
         kw = dict(noise_mode=noise_mode, dtype=dtype)
-        x_raw, image_raw = self.block64(x, rgb, ws, rng=keys[0], **kw)
+        x_raw, image_raw = self.block64(x, rgb, ws, noise=noises[0], **kw)
         # block0 sees the accumulated raw image, not the input rgb (the
         # reference's in-place torgb add aliases the two).
-        _, rgb = self._blocks(("block0", "block1"), x_raw, image_raw, ws, keys[1:], **kw)
+        _, rgb = self._blocks(("block0", "block1"), x_raw, image_raw, ws, noises[1:], **kw)
         return rgb, image_raw
 
 

@@ -5,21 +5,28 @@ here: element i of a draw of `shape` comes from threefry2x32(key,
 (hi32(i), lo32(i))) with i its flat index, so a block of the draw (`part`,
 a rank's share) is the same function at the block's counters.
 `threefry_draw` launches `csrc/threefry.cu` for a draw on CUDA (one launch
-writes the words, or the uniform or normal values made from them) and runs
-the plain version for a draw on the CPU: `threefry2x32` in int64 torch ops
-(~170 elementwise ops), then the float steps in torch (XLA's FMA rounding
-for uniform, its erfinv polynomial for normal). A draw on `meta` is its
-shape only. There is no other route. JAX leaves threefry to XLA, so this
-kernel replaces no TPU kernel.
-"""
+writes the words, or the uniform or normal values made from them), and
+`threefry_draws` one launch for up to 32 draws; on the CPU both run the
+plain version: `threefry2x32` in int64 torch ops (~170 elementwise ops),
+then the float steps in torch (XLA's FMA rounding for uniform, its erfinv
+polynomial for normal). A draw on `meta` is its shape only. There is no
+other route. JAX leaves threefry to XLA, so this kernel replaces no TPU
+kernel.
 
+The host side of a launch is a table the kernel takes by value: per draw
+its output, key, kind and bounds, and its geometry (`geometry`: the
+block's counters as a first counter plus strided coordinates, with a
+multiply-high divisor per inner dimension, `divisor`), cached per (shape,
+part); and the prefix of the draws' block counts (`block_prefix`).
+"""
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import struct
 import threading
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -165,6 +172,7 @@ KINDS = {"bits": 0, "pairs": 1, "uniform": 2, "normal": 3}
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
+@functools.lru_cache(maxsize=256)
 def _bounds(kind: str, minval: float, maxval: float) -> tuple[float, float]:
     """(lo, span) of a float draw as float32 values: span = hi - lo rounded
     to float32, as JAX subtracts them."""
@@ -197,45 +205,168 @@ def _plain(key: torch.Tensor, shape: tuple, part: Part, device, kind: str, lo: f
     return u if kind == "uniform" else math.sqrt(2) * _erfinv(u)
 
 
+# The kernel's launch geometry (csrc/threefry.cu): 256 threads a block, 4
+# values a thread, an entry's blocks capped at one wave of an H100 (132 SMs x
+# 8 resident blocks), up to 32 entries in one launch.
+THREADS, VALUES, WAVE, MAX_ENTRIES = 256, 4, 132 * 8, 32
+# The packed layout of csrc/threefry.cu's Entry and Table (its static_asserts
+# hold the C side to the same sizes): an entry's head (out, key, k0, k1, lo,
+# span, kind), then its geometry (ndim, n, base, sizes, strides, magic
+# numbers, shifts) in 32-bit words for a `Narrow` entry (4 dimensions) and
+# 64-bit ones for a `Wide` entry (8).
+_HEAD = struct.Struct("<QQIIffi")
+_NARROW = struct.Struct("<iII4I4I4I4I")
+_WIDE = struct.Struct("<iQQ8Q8Q8I8I")
+_NARROW_DIMS, _WIDE_DIMS = 4, 8
+_TABLE_HEAD = {False: struct.Struct(f"<i{MAX_ENTRIES + 1}I"), True: struct.Struct("<i2I4x")}
+
+
+def divisor(d: int) -> tuple[int, int]:
+    """(magic, shift) with which the kernel divides a 32-bit j by d >= 2:
+    t = umulhi(j, magic), j // d = (t + ((j - t) >> 1)) >> shift, exact
+    for every j < 2^32 (Granlund and Montgomery's round-up method)."""
+    if not 2 <= d < 1 << 32:
+        raise ValueError(f"divisor {d} is not in [2, 2^32)")
+    bits = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << bits) - d)) // d + 1, bits - 1
+
+
+def geometry(shape: tuple, part: Part) -> tuple[int, tuple, tuple]:
+    """(base, sizes, strides): the block's value j (row-major in the block)
+    has the counter base + sum_d c_d * strides[d], c the coordinates of j in
+    `sizes`. A dimension of the block of size 1 is folded into base, and a
+    dimension whose span meets its outer neighbour's stride is merged into
+    it, so a data-rank block is one dimension and a ray-rank block two."""
+    sizes = block_shape(shape, part)
+    strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    base = sum((part or {}).get(d, (0, 0))[0] * strides[d] for d in range(len(shape)))
+    dims = []
+    for size, stride in zip(sizes, strides):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == size * stride:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    sizes, strides = zip(*dims) if dims else ((1,), (1,))
+    return base, sizes, strides
+
+
+class _Plan(NamedTuple):
+    shape: tuple  # the block's shape
+    n: int
+    wide: bool  # counters past 32 bits or more than 4 dimensions: the 64-bit entry
+    geometry: Optional[bytes]  # the entry's packed bytes after its head; None past 8 dims
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_plan(shape: tuple, part: tuple) -> _Plan:
+    part = dict(part)
+    out_shape = block_shape(shape, part)
+    n = math.prod(out_shape)
+    if n == 0:
+        return _Plan(out_shape, 0, False, b"")
+    base, sizes, strides = geometry(shape, part)
+    last = base + sum((s - 1) * st for s, st in zip(sizes, strides))
+    wide = n >= 1 << 32 or last >= 1 << 32 or len(sizes) > _NARROW_DIMS
+    if last >= 1 << 64:
+        raise ValueError(f"threefry counters of {shape} reach past 2^64")
+    if len(sizes) > _WIDE_DIMS:
+        return _Plan(out_shape, n, True, None)
+    dims = _WIDE_DIMS if wide else _NARROW_DIMS
+    div = [divisor(s) if d and not wide else (0, 0) for d, s in enumerate(sizes)]
+    pad = [0] * (dims - len(sizes))
+    fields = ([len(sizes), n, base] + list(sizes) + pad + list(strides) + pad
+              + [m for m, _ in div] + pad + [sh for _, sh in div] + pad)
+    return _Plan(out_shape, n, wide, (_WIDE if wide else _NARROW).pack(*fields))
+
+
+def plan_of(shape: tuple, part: Part) -> _Plan:
+    """The cached plan of a draw of `shape`, or of its block `part`: the
+    block's shape and size, whether it needs the 64-bit entry, and its
+    packed geometry."""
+    return _cached_plan(tuple(shape), tuple(sorted(part.items())) if part else ())
+
+
+def block_prefix(counts: Sequence[int]) -> list[int]:
+    """The table's `first`: entry k's blocks are [first[k], first[k + 1]),
+    for entries of `counts` values each. An entry of n values has ceil(n /
+    1024) blocks, at most one wave (a larger entry loops over its values)."""
+    first = [0]
+    for n in counts:
+        first.append(first[-1] + min(-(-n // (THREADS * VALUES)), WAVE))
+    return first
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from .cuda_build import load
 
-    fn = load("threefry").threefry_launch
-    fn.argtypes = ([ctypes.c_uint32] * 2 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load("threefry")
+    lib.threefry_launch.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    lib.threefry_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.threefry_launch.restype = lib.threefry_empty_launch.restype = ctypes.c_int
+    return lib
 
 
-def _kernel(key: torch.Tensor, shape: tuple, part: Part, device, kind: str, lo: float,
-            span: float, out: torch.Tensor) -> torch.Tensor:
-    if len(shape) > _MAX_DIMS:
-        raise ValueError(f"threefry kernel draws take at most {_MAX_DIMS} dimensions")
-    n = math.prod(block_shape(shape, part))
-    if n == 0:
-        return out
-    if key.device.type == "cpu":
-        (k0, k1), key_ptr = key.tolist(), None
+def _call(fn, *args, device) -> None:
+    """fn(*args, stream) on `device`'s current stream, inside its device
+    context only when it is not the current device; raises on an error."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
     else:
-        key = key.to(device=device, dtype=torch.int64).contiguous()
-        k0, k1, key_ptr = 0, 0, key.data_ptr()
-    dims = len(shape) if part else 0
-    sizes = block_shape(shape, part)[:dims]
-    strides = [math.prod(shape[d + 1:]) for d in range(dims)]
-    starts = [part.get(d, (0, shape[d]))[0] for d in range(dims)] if part else []
-    arr = ctypes.c_int64 * max(dims, 1)
-    fn = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(k0, k1, key_ptr, dims, arr(*sizes), arr(*starts), arr(*strides), n,
-                 KINDS[kind], lo, span, out.data_ptr(), stream)
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+
+
+def empty_launch(blocks: int, device) -> None:
+    """An empty kernel of `blocks` x 256 threads on `device`: the floor of a
+    launch's device time (not counted as a draw)."""
+    _call(_library().threefry_empty_launch, blocks, device=torch.device(device))
+
+
+def entry(plan: _Plan, key: torch.Tensor, kind: str, lo: float, span: float,
+          out: torch.Tensor, device, keep: list) -> bytes:
+    """The packed table entry of one draw into `out`; a key on the card is
+    appended to `keep`, alive until the launch."""
+    if plan.geometry is None:
+        raise ValueError(f"threefry kernel draws take at most {_WIDE_DIMS} dimensions (after "
+                         "merging those a block takes whole)")
+    if key.device.type == "cpu":
+        (k0, k1), key_ptr = key.tolist(), 0
+    else:
+        key = key.to(device=device, dtype=torch.int64).contiguous()
+        keep.append(key)
+        k0, k1, key_ptr = 0, 0, key.data_ptr()
+    return _HEAD.pack(out.data_ptr(), key_ptr, k0, k1, lo, span, KINDS[kind]) + plan.geometry
+
+
+def table(entries: Sequence[tuple[bytes, int]], wide: bool) -> bytes:
+    """The kernel's by-value table of `entries` (packed entry, values):
+    their count, block prefix (`block_prefix`) and entries."""
+    first = block_prefix([n for _, n in entries])
+    slots = 1 if wide else MAX_ENTRIES
+    if not 1 <= len(entries) <= slots:
+        raise ValueError(f"a threefry table holds 1 to {slots} entries, not {len(entries)}")
+    head = _TABLE_HEAD[wide].pack(len(entries), *first, *[0] * (slots + 1 - len(first)))
+    return head + b"".join(e for e, _ in entries)
+
+
+def _launch(entries: Sequence[tuple[bytes, int]], wide: bool, device) -> None:
+    """One launch of the table of `entries`."""
+    _call(_library().threefry_launch, table(entries, wide), int(wide), device=device)
     with _count_lock:
         threefry_draw.launches += 1
-    return out
+
+
+def _out_spec(plan: _Plan, kind: str) -> tuple[tuple, torch.dtype]:
+    dtype = torch.int32 if kind in ("bits", "pairs") else torch.float32
+    return plan.shape + ((2,) if kind == "pairs" else ()), dtype
 
 
 def threefry_draw(key: torch.Tensor, shape: tuple, part: Part = None, device=None,
@@ -245,20 +376,63 @@ def threefry_draw(key: torch.Tensor, shape: tuple, part: Part = None, device=Non
     "pairs" (both words, a trailing dimension of 2), "uniform" (float32 in
     [minval, maxval)) or "normal" (float32). A draw on CUDA launches the
     kernel (or raises), on the CPU takes the plain version, on `meta` is
-    its shape. `threefry_draw.launches` counts the kernel's launches."""
+    its shape. `threefry_draw.launches` counts the kernel's launches (of
+    this and of `threefry_draws`)."""
     device = key.device if device is None else torch.device(device)
-    out_shape = block_shape(shape, part)
-    lo, span = _bounds(kind, minval, maxval)
-    dtype = torch.int32 if kind in ("bits", "pairs") else torch.float32
-    full = out_shape + ((2,) if kind == "pairs" else ())
+    plan = plan_of(shape, part)
+    lo, span = _bounds(kind, float(minval), float(maxval))
+    full, dtype = _out_spec(plan, kind)
     if device.type == "meta":
         return torch.empty(full, dtype=dtype, device=device)
     if device.type == "cuda":
         out = torch.empty(full, dtype=dtype, device=device)
-        return _kernel(key, shape, part, device, kind, lo, span, out)
+        if plan.n:
+            keep = []
+            _launch([(entry(plan, key, kind, lo, span, out, device, keep), plan.n)],
+                    plan.wide, device)
+        return out
     if device.type != "cpu":
         raise ValueError(f"threefry draws run on cuda or cpu, not {device}")
     return _plain(key, shape, part, device, kind, lo, span).reshape(full)
+
+
+def threefry_draws(draws: Sequence[tuple], device) -> list:
+    """Each of `draws`, (key, shape, part, kind, minval, maxval) as
+    `threefry_draw` takes them, on `device`. On CUDA the draws share one
+    buffer, each at a 16-byte-aligned offset, and up to 32 of them one
+    launch (a longer list takes more; a draw needing 64-bit counters one of
+    its own); on the CPU each takes the plain version; on `meta` each is its
+    shape."""
+    device = torch.device(device)
+    specs = []
+    for key, shape, part, kind, minval, maxval in draws:
+        plan = plan_of(shape, part)
+        specs.append((key, shape, part, kind, plan, _bounds(kind, float(minval), float(maxval)))
+                     + _out_spec(plan, kind))
+    if device.type == "meta":
+        return [torch.empty(full, dtype=dtype, device=device) for *_, full, dtype in specs]
+    if device.type == "cpu":
+        return [_plain(key, shape, part, device, kind, *bounds).reshape(full)
+                for key, shape, part, kind, _, bounds, full, _ in specs]
+    if device.type != "cuda":
+        raise ValueError(f"threefry draws run on cuda or cpu, not {device}")
+    offsets, total = [], 0
+    for *_, full, _ in specs:
+        offsets.append(total)
+        total += -(-math.prod(full) * 4 // 16) * 16
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    outs, narrow, wide, keep = [], [], [], []
+    for (key, _, _, kind, plan, bounds, full, dtype), off in zip(specs, offsets):
+        out = buf[off:off + math.prod(full) * 4].view(dtype).view(full)
+        outs.append(out)
+        if plan.n:
+            packed = (entry(plan, key, kind, *bounds, out, device, keep), plan.n)
+            (wide if plan.wide else narrow).append(packed)
+    for i in range(0, len(narrow), MAX_ENTRIES):
+        _launch(narrow[i:i + MAX_ENTRIES], False, device)
+    for packed in wide:
+        _launch([packed], True, device)
+    return outs
 
 
 _count_lock = threading.Lock()

@@ -14,11 +14,12 @@ their counters: a step does not depend on the number of ranks.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from ..utils import prng
 from .collectives import all_gather, all_reduce, psum_moments
 from .mesh import Mesh, active_mesh
 
@@ -62,14 +63,10 @@ def global_rows(x: torch.Tensor) -> torch.Tensor:
     return all_gather(x, mesh.data_group)
 
 
-def draw(sampler: Callable, key: torch.Tensor, shape, *, ray_mesh: Optional[Mesh] = None,
-         ray_dim: Optional[int] = None, **kwargs) -> torch.Tensor:
-    """This rank's part of the draw `sampler(key, global shape, **kwargs)`
-    (`prng.uniform`, `normal`): dimension 0 of `shape` is this rank's rows,
-    split over the active mesh's data axis, and `ray_dim` (when `ray_mesh`
-    shards the render's rays) its rays, split over the ray axis. Only the
-    rank's counters are computed (`prng`'s `part`): each value is that of
-    the world-1 draw at the same position."""
+def _global(shape, ray_mesh: Optional[Mesh], ray_dim: Optional[int]) -> tuple:
+    """(global shape, this rank's part) of a draw whose local shape is
+    `shape`: dimension 0 split over the active mesh's data axis, `ray_dim`
+    over `ray_mesh`'s ray axis."""
     mesh = active_mesh()
     shape = tuple(int(s) for s in shape)
     full, part = list(shape), {}
@@ -79,7 +76,30 @@ def draw(sampler: Callable, key: torch.Tensor, shape, *, ray_mesh: Optional[Mesh
     if ray_mesh is not None and ray_dim is not None and ray_mesh.rays > 1:
         full[ray_dim] *= ray_mesh.rays
         part[ray_dim] = (ray_mesh.ray_rank * shape[ray_dim], shape[ray_dim])
-    return sampler(key, tuple(full), part=part or None, **kwargs)
+    return tuple(full), part or None
+
+
+def draw(sampler: Callable, key: torch.Tensor, shape, *, ray_mesh: Optional[Mesh] = None,
+         ray_dim: Optional[int] = None, **kwargs) -> torch.Tensor:
+    """This rank's part of the draw `sampler(key, global shape, **kwargs)`
+    (`prng.uniform`, `normal`): dimension 0 of `shape` is this rank's rows,
+    split over the active mesh's data axis, and `ray_dim` (when `ray_mesh`
+    shards the render's rays) its rays, split over the ray axis. Only the
+    rank's counters are computed (`prng`'s `part`): each value is that of
+    the world-1 draw at the same position."""
+    full, part = _global(shape, ray_mesh, ray_dim)
+    return sampler(key, full, part=part, **kwargs)
+
+
+def draw_many(draws: Sequence[prng.Draw], device=None) -> list:
+    """This rank's part of each of `draws` (`prng.Draw`s whose shapes are
+    this rank's, dimension 0 its rows, as `draw` takes them), in one launch
+    (`prng.draw_many`)."""
+    blocks = []
+    for d in draws:
+        full, part = _global(d.shape, None, None)
+        blocks.append(d._replace(shape=full, part=part))
+    return prng.draw_many(blocks, device)
 
 
 def data_mean(x: torch.Tensor) -> torch.Tensor:

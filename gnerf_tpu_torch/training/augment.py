@@ -20,8 +20,11 @@ differentiates through the pipe without PyTorch's convolution double
 backward.
 
 Draws come from a key (`utils.prng`), split into 32 keys taken in the JAX
-package's order (imgfilter splits its own), so a key gives JAX's draws; the
-steps that follow the draws are split out (`_execute_geometric`,
+package's order (imgfilter splits its own), so a key gives JAX's draws.
+`_draw_plan` lists, from the config, what each key draws; the per-sample
+draws are made in one launch before the first is used (`draw_many`), and
+each use checks that it takes the plan's next draw. The steps that follow
+the draws are split out (`_execute_geometric`,
 `_execute_color`, `_execute_imgfilter_gains`). `debug_percentile` gives the
 reference's deterministic debugging mode.
 """
@@ -37,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import conv2d, downsample2d, setup_filter, upsample2d
-from ..parallel.sharding import draw
+from ..parallel.sharding import draw, draw_many
 from ..utils import prng
 
 # Wavelet low-pass filters (public coefficients; only the ones used).
@@ -250,6 +253,30 @@ class AugmentPipe:
         return any(x > 0 for x in (self.brightness, self.contrast, self.lumaflip,
                                    self.hue, self.saturation))
 
+    def _draw_plan(self, channels: int) -> list:
+        """(kind, shape after the batch) of each split key's draw in the
+        order `__call__` takes the keys: each augmentation's value, then its
+        gate's uniform of ones (each rotation's uniform against p_rot is
+        one), cutout's gate before its centre; (None, ()) for a key handed
+        on undrawn (imgfilter's, which it splits, and the image-sized
+        noise's)."""
+        u, n, colour = "uniform", "normal", channels > 1
+        values = ((self.xflip, u, ()), (self.rotate90, u, ()), (self.xint, u, (2,)),
+                  (self.scale, n, ()), (self.rotate, u, ()), (self.aniso, n, ()),
+                  (self.rotate, u, ()), (self.xfrac, n, (2,)), (self.brightness, n, ()),
+                  (self.contrast, n, ()), (self.lumaflip, u, ()), (self.hue * colour, u, ()),
+                  (self.saturation * colour, n, ()), (self.imgfilter, None, None),
+                  (self.noise, n, (1, 1, 1)))
+        plan = []
+        for prob, kind, shape in values:
+            if prob > 0:
+                plan += [(kind, shape), (u, (1,) * len(shape))] if kind else [(None, ())]
+        if self.noise > 0:
+            plan.append((None, ()))
+        if self.cutout > 0:
+            plan += [(u, (1, 1, 1, 1)), (u, (2, 1, 1, 1))]
+        return plan
+
     def __call__(self, rng: torch.Tensor, images: torch.Tensor, p: float = 1.0,
                  debug_percentile: Optional[float] = None) -> torch.Tensor:
         """Augment a batch [N, C, H, W] with the draws of the key `rng`; `p`
@@ -258,13 +285,24 @@ class AugmentPipe:
         N, C, H, W = images.shape
         dev = images.device
         f32 = dict(dtype=torch.float32, device=dev)
-        keys = iter(prng.split(rng, 32))
+        keys = prng.split(rng, 32)
+        plan = self._draw_plan(C)
+        values = iter(draw_many([prng.Draw(kind, keys[k], (N,) + shape)
+                                 for k, (kind, shape) in enumerate(plan) if kind], device=dev))
+        steps = iter(zip(plan, keys))
+
+        def take(kind=None, shape=()):
+            """The next key's draw, which must be the plan's; a key the plan
+            does not draw from (kind None) is handed on."""
+            want, key = next(steps)
+            assert want == (kind, shape), f"{kind}{shape} taken where the plan draws {want}"
+            return next(values) if kind else key
 
         def uniform(*shape):
-            return draw(prng.uniform, next(keys), (N,) + shape, device=dev)
+            return take("uniform", shape)
 
         def normal(*shape):
-            return draw(prng.normal, next(keys), (N,) + shape, device=dev)
+            return take("normal", shape)
 
         def gate(value, fallback, prob):
             u = uniform(*(1,) * (value.dim() - 1))
@@ -371,7 +409,7 @@ class AugmentPipe:
 
         # ----- Image-space filtering ---------------------------------------
         if self.imgfilter > 0:
-            images = self._execute_imgfilter(next(keys), images, p, dp)
+            images = self._execute_imgfilter(take(), images, p, dp)
 
         # ----- Corruptions --------------------------------------------------
         if self.noise > 0:
@@ -379,7 +417,7 @@ class AugmentPipe:
             sigma = gate(sigma, torch.zeros_like(sigma), self.noise)
             if dp is not None:
                 sigma = full(sigma, _erfinv(dp) * self.noise_std)
-            noise = draw(prng.normal, next(keys), images.shape, device=dev)
+            noise = draw(prng.normal, take(), images.shape, device=dev)
             images = images + (noise * sigma).to(images.dtype)
         if self.cutout > 0:
             size = torch.full((N, 2, 1, 1, 1), self.cutout_size, **f32)
@@ -457,16 +495,17 @@ class AugmentPipe:
 
     def _execute_imgfilter(self, rng, images, p, dp):
         """Draw the per-band gains from `rng`'s split (a normal and a
-        uniform key per band), then filter."""
+        uniform key per band, all in one launch), then filter."""
         N, dev = images.shape[0], images.device
         num_bands = len(self.imgfilter_bands)
         keys = prng.split(rng, num_bands * 2)
+        draws = draw_many([prng.Draw(kind, k, (N,)) for k, kind in
+                           zip(keys, ("normal", "uniform") * num_bands)], device=dev)
         expected_power = _constants(dev)["expected_power"]
         g = torch.ones((N, num_bands), dtype=torch.float32, device=dev)
         for i, band_strength in enumerate(self.imgfilter_bands):
-            t_i = torch.exp2(draw(prng.normal, keys[2 * i], (N,), device=dev)
-                             * self.imgfilter_std)
-            u = draw(prng.uniform, keys[2 * i + 1], (N,), device=dev)
+            t_i = torch.exp2(draws[2 * i] * self.imgfilter_std)
+            u = draws[2 * i + 1]
             t_i = torch.where(u < _f32(self.imgfilter, p, band_strength), t_i,
                               torch.ones_like(t_i))
             if dp is not None:

@@ -32,17 +32,22 @@ dimensions of the draw's `shape`, the slice to compute; every draw of a
 block is the draw of the whole at the same position, since element i
 depends only on the key and i. A rank computes its part of a sharded draw
 so (`parallel.sharding.draw`).
+
+`draw_many` makes a list of draws (`Draw`) in one launch of the kernel
+where their keys are all known before the first value is needed (the ADA
+pipe's per-sample parameters, a synthesis network's noise): the values are
+those of the single draws.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..ops.threefry import MASK as _MASK
-from ..ops.threefry import Part, host_pairs, threefry_draw
+from ..ops.threefry import Part, host_pairs, threefry_draw, threefry_draws
 
 Shape = Union[int, Sequence[int]]
 
@@ -155,3 +160,28 @@ def normal(key: torch.Tensor, shape: Shape = (), part: Part = None,
            device=None) -> torch.Tensor:
     """Standard normal float32 draws."""
     return threefry_draw(key, _shape(shape), part, device, "normal")
+
+
+class Draw(NamedTuple):
+    """One draw of `draw_many`: `kind` "uniform", "normal" or "bits", as
+    those functions take their arguments."""
+
+    kind: str
+    key: torch.Tensor
+    shape: tuple
+    minval: float = 0.0
+    maxval: float = 1.0
+    part: Part = None
+
+
+def draw_many(draws: Sequence[Draw], device: Optional[torch.device] = None) -> list:
+    """Each of `draws` on `device` (default the first key's), equal to the
+    single draw (`uniform`, `normal`, `bits`), in one launch of the kernel
+    for up to 32 draws on CUDA."""
+    if not draws:
+        return []
+    device = draws[0].key.device if device is None else device
+    outs = threefry_draws([(d.key, _shape(d.shape), d.part, d.kind, d.minval, d.maxval)
+                           for d in draws], device)
+    return [out.to(torch.int64) & _MASK if d.kind == "bits" else out
+            for d, out in zip(draws, outs)]

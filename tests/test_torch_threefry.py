@@ -49,3 +49,54 @@ def test_threefry_kernel_matches_plain_version(shape, part):
     assert keys.is_cuda and torch.equal(keys.cpu(), prng.split(prng.PRNGKey(5), 7))
     assert torch.equal(prng.fold_in(keys[3], 2 ** 32 - 1).cpu(),
                        prng.fold_in(keys[3].cpu(), 2 ** 32 - 1))
+
+
+def _bgc_table(n: int):
+    """The bgc ADA pipe's draws at batch n (a 6-channel D input), one key of
+    a split each, as (kind, key, shape)."""
+    from gnerf_tpu_torch.training.augment import AugmentPipe
+    from gnerf_tpu_torch.training.eg3d_loss import BGC_SPEC
+
+    keys = prng.split(prng.PRNGKey(21), 32)
+    return [(kind, keys[i], (n,) + shape)
+            for i, (kind, shape) in enumerate(AugmentPipe(**BGC_SPEC)._draw_plan(6))]
+
+
+def _noise_table(n: int):
+    """The noise layers of a 256^2 backbone and an 8XDC SR module at batch n."""
+    keys = prng.split(prng.PRNGKey(22), 10)
+    out = []
+    for res, k in zip([4, 8, 16, 32, 64, 128, 256, 64, 256, 512], keys):
+        out += [("normal", kk, (n, 1, res, res)) for kk in prng.split(k)[:1 if res == 4 else 2]]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["bgc", "noise"])
+@pytest.mark.parametrize("part", [None, "data=2", "rays=2"])
+def test_batched_draws_equal_single_draws(table, part):
+    """A table of draws in one `threefry_draws` launch (keys on the host, a
+    rank's rows at data=2 or its half of dimension 1 at rays=2, where the
+    draw has one) equals its single kernel draws bit for bit, and the
+    normal draws the plain version within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gnerf_tpu_torch.ops import threefry as T
+
+    dev = torch.device("cuda")
+    draws = []
+    for kind, key, shape in (_bgc_table(4) if table == "bgc" else _noise_table(4)):
+        p = None
+        if part == "data=2":
+            p = {0: (2, 2)}
+        elif part == "rays=2" and len(shape) > 1 and shape[1] > 1:
+            p = {1: (shape[1] // 2, shape[1] // 2)}
+        draws.append((key, shape, p, kind, 0.0, 1.0))
+    before = T.threefry_draw.launches
+    got = T.threefry_draws(draws, dev)
+    assert T.threefry_draw.launches == before + 1
+    for (key, shape, p, kind, lo, hi), g in zip(draws, got):
+        assert torch.equal(g, T.threefry_draw(key, shape, p, dev, kind, lo, hi))
+        if kind == "normal":
+            plain = T._plain(key, shape, p, dev, kind, *T._bounds(kind, lo, hi))
+            torch.testing.assert_close(g.reshape(-1), plain, rtol=0, atol=1e-6)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What one draw of the key stream costs on one CUDA card and on the host.
 
-    python3 tools/draw_probe.py [--plain]
+    python3 tools/draw_probe.py [--plain] [--host-profile N] [--root DIR]
 
 For each `utils.prng` draw at a training step's shapes (the jitter, the
 importance u, a 256^2 noise layer, a 4^2 one, ADA's per-sample draws, the
@@ -11,6 +11,10 @@ per call back to back (CUDA events over 20 calls), and, from a profile of
 the ops. `--plain` draws through the plain version (int64 torch ops, the
 float steps in torch) instead of the kernel. Then the host ms of a key
 split and a fold_in (keys stay on the host during training).
+`--host-profile N`: first a cProfile of N back-to-back jitter draws (uniform
+[4, 4096, 48, 1], a host key drawing on the card), the functions by their
+own host time. `--root DIR` imports `gnerf_tpu_torch` from another checkout
+(e.g. the parent, unpacked with `git archive`) to profile its call path.
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 CASES = [("uniform", (4, 4096, 48, 1)), ("uniform", (16384, 48)), ("normal", (4, 1, 256, 256)),
          ("normal", (4, 1, 4, 4)), ("uniform", (4,)), ("normal", (4,)), ("bits", (786432,))]
@@ -31,7 +34,10 @@ CASES = [("uniform", (4, 4096, 48, 1)), ("uniform", (16384, 48)), ("normal", (4,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--host-profile", type=int, default=0, metavar="N")
+    ap.add_argument("--root", default=ROOT, help="the checkout to import gnerf_tpu_torch from")
     args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.autograd import DeviceType
@@ -47,6 +53,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     dev = resolve_device("cuda")
     key = prng.PRNGKey(3)
+    if args.host_profile:
+        host_profile(prng, key, dev, args.host_profile)
     for kind, shape in CASES:
         if args.plain:
             span = T._bounds(kind, 0.0, 1.0)
@@ -85,6 +93,37 @@ def main(argv=None) -> int:
             fn()
         print(f"host key {name}: {(time.perf_counter() - t0) / 200 * 1e3:.4f} ms", flush=True)
     return 0
+
+
+def host_profile(prng, key, dev, calls: int) -> None:
+    """cProfile of `calls` jitter draws on the card from a host key: the
+    host us per call without and with the profiler, and the 20 functions
+    with the most own time."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    def run():
+        for _ in range(calls):
+            prng.uniform(key, (4, 4096, 48, 1), device=dev)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    plain_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(run)
+    profiled_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(20)
+    print(f"host profile of {calls} jitter draws: {plain_us:.2f} us a call ({profiled_us:.2f} "
+          f"under cProfile)\n{out.getvalue()}", flush=True)
 
 
 if __name__ == "__main__":

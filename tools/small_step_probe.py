@@ -51,12 +51,13 @@ def _batch():
 @contextlib.contextmanager
 def _card_draws(on: bool):
     """While on, a draw asked for on the CPU is made on the card and copied
-    back (`utils.prng`'s words all come from `threefry_draw`)."""
+    back (`utils.prng`'s words all come from `threefry_draw` and
+    `threefry_draws`)."""
     import torch
 
     from gnerf_tpu_torch.utils import prng
 
-    plain = prng.threefry_draw
+    plain, plain_many = prng.threefry_draw, prng.threefry_draws
 
     def card(key, shape, part=None, device=None, kind="bits", minval=0.0, maxval=1.0):
         dev = key.device if device is None else torch.device(device)
@@ -64,11 +65,16 @@ def _card_draws(on: bool):
             return plain(key, shape, part, device, kind, minval, maxval)
         return plain(key, shape, part, "cuda", kind, minval, maxval).cpu()
 
-    prng.threefry_draw = card if on else plain
+    def card_many(draws, device):
+        if torch.device(device).type != "cpu":
+            return plain_many(draws, device)
+        return [x.cpu() for x in plain_many(draws, "cuda")]
+
+    prng.threefry_draw, prng.threefry_draws = (card, card_many) if on else (plain, plain_many)
     try:
         yield
     finally:
-        prng.threefry_draw = plain
+        prng.threefry_draw, prng.threefry_draws = plain, plain_many
 
 
 def _run(dev, kw, seeded, batch):
