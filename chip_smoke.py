@@ -567,11 +567,20 @@ def _threefry_batched(key, dev) -> list:
             lambda: [T.threefry_draw(k, shape, part, dev, kind, lo, hi)
                      for k, shape, part, kind, lo, hi in table], 5, "threefry_table")
         call_ms = cuda_ms(lambda: T.threefry_draws(table, dev), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: [T._plain(k, shape, part, dev, kind, *T._bounds(kind, lo, hi))
+                                    for k, shape, part, kind, lo, hi in table], 3, 1)
         singles_call = cuda_ms(lambda: [T.threefry_draw(k, shape, part, dev, kind, lo, hi)
                                         for k, shape, part, kind, lo, hi in table], 5, 1)
+        # The table's bound: the sum of its draws' bounds (each at its own
+        # value count and kind), bound by whatever holds most of them.
+        bounds = [threefry_bound_ms(math.prod(T.block_shape(shape, part)), kind)
+                  for _, shape, part, kind, *_ in table]
+        bound = sum(b for b, _ in bounds)
+        by = max(("bytes", "operations"), key=lambda w: sum(b for b, k in bounds if k == w))
         lines.append(f"{name}: {len(table)} draws, {launches} launch(es), device {device_ms:.4f}"
                      f" ms (single draws {singles_ms:.4f}), call {call_ms:.4f} ms (single draws "
-                     f"{singles_call:.4f})")
+                     f"{singles_call:.4f}), plain {plain_ms:.3f} ms, bound {bound:.4g} ms "
+                     f"({by}; the sum of its draws' bounds, {bound / device_ms:.3g} of device)")
     log("[threefry] batched tables == their single draws (bit for bit; normal within 1e-6 of "
         "the plain version): " + "; ".join(lines))
 
@@ -1530,17 +1539,87 @@ def _full_width_g(seed: int):
     return TriPlaneGenerator(**_full_width_g_cfg(), device="cuda", key=prng.PRNGKey(seed))
 
 
-def _full_width_trainer(seed: int):
+def _full_width_trainer(seed: int, draw: bool = True):
     """The `ffhq` preset's networks at full width on the card, as
     `gnerf_tpu_torch.training.train` builds them from `--seed` (the JAX
-    CLI's weights for that seed)."""
+    CLI's weights for that seed); with `draw` False built on `meta` with
+    storage on the card and nothing drawn, as the CLI builds them for a
+    full-state `--resume`."""
     from gnerf_tpu_torch.training import TrainConfig, init_train_state
     from gnerf_tpu_torch.training.train import gnerf_networks
 
     cfg = TrainConfig(batch_size=TRAIN_BATCH)
     g, enc, disc, vgg, _ = gnerf_networks(seed, cfg, 512, 512, SIDE,
-                                          _full_width_g_cfg()["rendering_kwargs"], device="cuda")
+                                          _full_width_g_cfg()["rendering_kwargs"], device="cuda",
+                                          draw=draw)
     return init_train_state(g, enc, disc, vgg, cfg), cfg
+
+
+# The full-width full-state files of the port's earlier layout
+# (`train_state_torch`), from an A/B run of this script on an NVIDIA H100
+# 80GB HBM3 at 700 W, printed beside this run's.
+EARLIER_FULL_STATE = {"train": "984578865 bytes, save 2.31-2.36 s, load 2.87-3.03 s",
+                   "eg3d": "881764398 bytes, save 1.30-1.43 s, load 1.86-2.73 s"}
+
+
+def _npy_header(zf, name: str):
+    """(shape, dtype) of an npz member, read from its header alone."""
+    import numpy as np
+
+    with zf.open(name + ".npy") as fh:
+        version = np.lib.format.read_magic(fh)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, _, dtype = read(fh)
+    return tuple(shape), np.dtype(dtype)
+
+
+def _check_jax_layout(tag: str, path: str, state) -> int:
+    """The file `save_train_state` wrote is the JAX package's layout for
+    `state`: its members are `train_state/*` and `__config__` alone, the
+    leaves `train_state/00000` ... in the number of `jax_state.leaf_plan`,
+    each of the plan's shape and dtype. Returns the leaf count."""
+    import zipfile
+
+    from gnerf_tpu_torch.training import jax_state
+
+    plan = jax_state.leaf_plan(state)
+    with zipfile.ZipFile(path) as zf:
+        names = sorted(n[:-len(".npy")] for n in zf.namelist())
+        roots = sorted({n.split("/")[0] for n in names})
+        leaves = [n for n in names if n.startswith("train_state/")]
+        count_ok = leaves == [f"train_state/{i:05d}" for i in range(len(plan))]
+        bad = [] if not count_ok else [
+            (leaf.path, got) for leaf, got in
+            ((leaf, _npy_header(zf, f"train_state/{i:05d}")) for i, leaf in enumerate(plan))
+            if got != (leaf.shape, leaf.dtype)]
+    kinds = {}
+    for leaf in plan:
+        kinds[leaf.kind] = kinds.get(leaf.kind, 0) + 1
+    log(f"[{tag}] JAX full-state layout: roots={roots} leaves={len(leaves)} "
+        f"(plan {len(plan)}: {kinds}); shapes and dtypes match={count_ok and not bad}")
+    if roots != ["__config__", "train_state"] or not count_ok or bad:
+        raise SystemExit(f"chip_smoke: the {tag} full state is not JAX's layout: {bad[:3]}")
+    return len(plan)
+
+
+def _meta_built(tag: str, build):
+    """`build()` (a trainer built for a full-state load), checked to draw
+    nothing: no threefry launch while it builds."""
+    import torch
+
+    from gnerf_tpu_torch.ops.threefry import threefry_draw
+
+    before = threefry_draw.launches
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    drawn = threefry_draw.launches - before
+    log(f"[{tag}] resumed trainer built on meta in {time.perf_counter() - t0:.2f} s, "
+        f"threefry launches while building={drawn} (want 0)")
+    if drawn:
+        raise SystemExit(f"chip_smoke: the {tag} trainer for a full-state load drew weights")
+    return out
 
 
 def _draw_share(tag, calls: dict) -> dict:
@@ -1676,11 +1755,14 @@ def phase_train(warmup: int = 2, steps: int = 6):
         save_train_state(path, state, config={"chip_smoke": True}, best_ssim=0.5)
         save_s = time.perf_counter() - t0
         size = os.path.getsize(path)
+        n_leaves = _check_jax_layout("train", path, state)
         del before, after
-        again, _ = _full_width_trainer(1)
+        again, _ = _meta_built("train", lambda: _full_width_trainer(1, draw=False))
         t0 = time.perf_counter()
-        load_train_state(path, again)
+        _, config, best = load_train_state(path, again)
         load_s = time.perf_counter() - t0
+    if best != 0.5 or config != {"chip_smoke": True, "best_ssim": 0.5}:
+        raise SystemExit(f"chip_smoke: best_ssim did not come back from the config: {config}")
     a, b = _state_tensors(state), _state_tensors(again)
     bitwise = a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and torch.equal(a[k], b[k].to(a[k].device)) for k in a)
@@ -1691,9 +1773,11 @@ def phase_train(warmup: int = 2, steps: int = 6):
         _, s2 = make_train_step(cfg)(st, nxt, step_key(0, st.cur_nimg))
         outs.append({k: float(v) for k, v in s2.items()})
     err = max(abs(outs[0][k] - v) / max(abs(v), 1e-3) for k, v in outs[1].items())
-    log(f"[train] full-state save {size} bytes in {save_s:.2f} s, load in {load_s:.2f} s: "
-        f"bitwise={bitwise}; next step saved vs loaded: max rel stat err={err:.3e} (1e-3; "
-        "grid_sample's backward uses atomics)")
+    log(f"[train] full-state save {size} bytes ({n_leaves} leaves, JAX's layout) in "
+        f"{save_s:.2f} s, load in {load_s:.2f} s (train_state_torch layout: "
+        f"{EARLIER_FULL_STATE['train']}): "
+        f"bitwise={bitwise} best_ssim={best}; next step saved vs loaded: max rel stat "
+        f"err={err:.3e} (1e-3; grid_sample's backward uses atomics)")
     if not bitwise or err > 1e-3:
         raise SystemExit("chip_smoke: the full-state checkpoint does not give the state back")
     del state, again, dev
@@ -1701,17 +1785,18 @@ def phase_train(warmup: int = 2, steps: int = 6):
     return launches
 
 
-def _full_width_eg3d(seed: int, **cfg_overrides):
+def _full_width_eg3d(seed: int, draw: bool = True, **cfg_overrides):
     """The `ffhq` preset's G and the 512^2 dual D on the card, with the
     EG3DLossConfig and lazy optimizers `gnerf_tpu_torch.training.train`
-    builds for `--objective eg3d --batch 4` (seed-init weights)."""
+    builds for `--objective eg3d --batch 4` (seed-init weights; with `draw`
+    False nothing drawn, as for a full-state `--resume`)."""
     import dataclasses
 
     from gnerf_tpu_torch.training import TrainConfig, init_eg3d_state
     from gnerf_tpu_torch.training.train import eg3d_loss_config, eg3d_networks
 
     g, disc = eg3d_networks(seed, 512, 512, SIDE, _full_width_g_cfg()["rendering_kwargs"],
-                            device="cuda")
+                            device="cuda", draw=draw)
     cfg = eg3d_loss_config(g.rendering_kwargs, TrainConfig(batch_size=TRAIN_BATCH),
                            g.neural_rendering_resolution)
     cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -1948,6 +2033,7 @@ def phase_eg3d_ada(warmup: int = 2, steps: int = 16, p0: float = 0.2):
         raise SystemExit("chip_smoke: the ADA controller's p disagrees with its arithmetic")
     _eg3d_draw_share("eg3d_ada", phases, state, batches[0], aug_p=ada.p)
     _eg3d_dreg_profile(phases, state, batches[0], aug_p=ada.p, tag="eg3d_ada")
+    _eg3d_save_load(phases, state, batches[1], tag="eg3d_ada", aug_p=ada.p)
 
     pipe = make_augment_pipe(cfg)
     pair = torch.cat([batches[0]["real_image"], batches[1]["real_image"]], dim=1)
@@ -1992,10 +2078,11 @@ def _eg3d_dreg_profile(phases, state, batch, aug_p=None, tag="eg3d"):
         raise SystemExit("chip_smoke: R1 did not differentiate through the pipe's warp")
 
 
-def _eg3d_save_load(phases, state, batch):
-    """Full-state save and load into a second full-width state: bitwise; the
-    next scheduled step from both agrees within 1e-3 (grid_sample's backward
-    uses atomics)."""
+def _eg3d_save_load(phases, state, batch, tag="eg3d", aug_p=0.0):
+    """Full-state save in JAX's layout (checked) and load into a second
+    full-width state built on meta: bitwise, the live ADA p `aug_p` back
+    from the config; the next scheduled step from both at that p agrees
+    within 1e-3 (grid_sample's backward uses atomics)."""
     import torch
 
     from gnerf_tpu_torch.training import load_train_state, save_train_state
@@ -2003,10 +2090,11 @@ def _eg3d_save_load(phases, state, batch):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "training-state.npz")
         t0 = time.perf_counter()
-        save_train_state(path, state, config={"chip_smoke": True, "aug_p_live": 0.0})
+        save_train_state(path, state, config={"chip_smoke": True, "aug_p_live": aug_p})
         save_s = time.perf_counter() - t0
         size = os.path.getsize(path)
-        again, _ = _full_width_eg3d(1)
+        n_leaves = _check_jax_layout(tag, path, state)
+        again, _ = _meta_built(tag, lambda: _full_width_eg3d(1, draw=False))
         t0 = time.perf_counter()
         _, config, _ = load_train_state(path, again)
         load_s = time.perf_counter() - t0
@@ -2016,14 +2104,18 @@ def _eg3d_save_load(phases, state, batch):
     del a, b
     outs = []
     for st in (state, again):
-        _, s2 = _eg3d_step(phases, st, batch)
+        _, s2 = _eg3d_step(phases, st, batch, aug_p=config["aug_p_live"])
         outs.append({k: float(v) for k, v in s2.items()})
     err = max(abs(outs[0][k] - v) / max(abs(v), 1e-3) for k, v in outs[1].items())
-    log(f"[eg3d] full-state save {size} bytes in {save_s:.2f} s, load in {load_s:.2f} s: "
-        f"bitwise={bitwise} aug_p_live={config['aug_p_live']}; next step saved vs loaded: "
-        f"max rel stat err={err:.3e} (1e-3)")
-    if not bitwise or err > 1e-3 or sorted(outs[0]) != sorted(outs[1]):
-        raise SystemExit("chip_smoke: the eg3d full-state checkpoint does not give the state back")
+    log(f"[{tag}] full-state save {size} bytes ({n_leaves} leaves, JAX's layout) in "
+        f"{save_s:.2f} s, load in {load_s:.2f} s (train_state_torch layout, eg3d: "
+        f"{EARLIER_FULL_STATE['eg3d']}): "
+        f"bitwise={bitwise} aug_p_live={config['aug_p_live']!r} (saved {aug_p!r}); next step "
+        f"saved vs loaded: max rel stat err={err:.3e} (1e-3)")
+    if (not bitwise or err > 1e-3 or sorted(outs[0]) != sorted(outs[1])
+            or config["aug_p_live"] != aug_p):
+        raise SystemExit(f"chip_smoke: the {tag} full-state checkpoint does not give the "
+                         "state back")
 
 
 def _eg3d_freeze(batch):

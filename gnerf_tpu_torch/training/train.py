@@ -6,8 +6,10 @@ preset, SR module, knobs), writes the run directory and drives the tick and
 snapshot loop. `--objective gnerf` writes `training_options.json`,
 `log.txt`, `stats.jsonl`, `id_images.png`, `fakes-*.png`,
 `network-snapshot-{best,latest,final,NNNNNN}.npz` and
-`training-state-latest.npz`; `--resume` continues from the last bit for bit,
-or starts from a network snapshot of either package. `--objective eg3d`
+`training-state-latest.npz` (the JAX package's full-state layout, so a run
+moves between the packages in either direction); `--resume` continues from
+either package's full state (bit for bit from the port's own), or starts
+from a network snapshot of either package. `--objective eg3d`
 trains all of G against the dual discriminator with lazy regularization
 (Greg every `--density_reg_every`, Dreg every `--d_reg_interval` steps),
 with `--aug ada` (the bgc ADA pipe in front of D, its p driven by the
@@ -233,23 +235,21 @@ def _rendering_kwargs(preset_cfg, gen_pose_cond, c_scale, sr_noise_mode, density
 
 
 def _resume(state, path, disc):
-    """Load a full-state checkpoint of the port, or a network snapshot of
-    either package as the JAX CLI resumes one: G_ema into G and G_ema, E's
-    parameters (its BN statistics stay at init) and D, each leaf that the
-    snapshot has at the same shape (`checkpoint.copy_params`: the others
-    keep their init values, so an EG3D snapshot, whose D is the dual D,
-    starts G-NeRF training). Returns the best SSIM the full state recorded,
-    else None."""
+    """Load a full-state checkpoint of either package (`training-state-
+    latest.npz`: every module, both Adam states and cur_nimg), or a network
+    snapshot of either package as the JAX CLI resumes one: G_ema into G and
+    G_ema, E's parameters (its BN statistics stay at init) and D, each leaf
+    that the snapshot has at the same shape (`checkpoint.copy_params`: the
+    others keep their init values, so an EG3D snapshot, whose D is the dual
+    D, starts G-NeRF training). Returns the best SSIM the full state's
+    config recorded (-100 without one), else None."""
     from ..utils import checkpoint as ckpt_lib
     from .train_loop import load_train_state
 
     trees, _ = ckpt_lib.load_checkpoint(path)
-    if "train_state_torch" in trees:
+    if "train_state" in trees or "train_state_torch" in trees:
         _, _, best = load_train_state(path, state)
         return best
-    if "train_state" in trees:
-        raise ValueError(f"{path} is a JAX full-state checkpoint (optax leaves by index); "
-                         "resume the port from a network snapshot instead")
     if "G_ema" in trees:
         ckpt_lib.copy_params(state.g, trees["G_ema"])
         ckpt_lib.copy_params(state.g_ema, trees["G_ema"])
@@ -418,10 +418,10 @@ def _any_rank(flag: bool, mesh, device) -> bool:
 
 
 def _is_full_state(path: str) -> bool:
-    """Whether `path` is a full-state checkpoint of the port (which fills
-    every module of the run), read from its key names alone."""
+    """Whether `path` is a full-state checkpoint of either package (which
+    fills every module of the run), read from its key names alone."""
     with np.load(path) as data:
-        return any(k.startswith("train_state_torch/") for k in data.files)
+        return any(k.startswith(("train_state/", "train_state_torch/")) for k in data.files)
 
 
 def _build(make, device, draw: bool):

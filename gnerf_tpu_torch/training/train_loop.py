@@ -48,6 +48,7 @@ from ..parallel.sharding import data_sum, mean_stats
 from ..utils import checkpoint as ckpt_lib
 from ..utils import prng
 from ..utils.misc import ema_update
+from . import jax_state
 from . import losses as L
 
 
@@ -270,6 +271,10 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         return loss_dgen + loss_dreal + loss_dr1, stats
 
     def apply_grads(opt, params, grads):
+        """One Adam step. A trainable parameter the loss does not reach (G's
+        noise_const under random noise) has a zero gradient, as in optax:
+        its step advances with the others', since JAX's Adam keeps one
+        count for the whole tree (`jax_state`)."""
         grads = pmean_grads(grads, mesh.group if mesh is not None else None)
         for p, gr in zip(params, grads):
             p.grad = gr
@@ -286,12 +291,12 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
         total, stats, depth_fake = g_loss(state, batch, rng)
         stats["Loss/G/total"] = total.detach()
         if g_params:
-            g_grads = torch.autograd.grad(total, g_params, allow_unused=True)
+            g_grads = torch.autograd.grad(total, g_params, materialize_grads=True)
         del total
         if cfg.gan_depth and state.disc is not None:
             d_params = [p for grp in state.opt_d.param_groups for p in grp["params"]]
             loss_d, d_stats = d_loss(state.disc, batch, depth_fake)
-            d_grads = torch.autograd.grad(loss_d, d_params, allow_unused=True)
+            d_grads = torch.autograd.grad(loss_d, d_params, materialize_grads=True)
             stats.update(d_stats)
             stats["Loss/D/total"] = loss_d.detach()
             apply_grads(state.opt_d, d_params, d_grads)
@@ -320,51 +325,42 @@ def save_snapshot(path: str, state: TrainState, config: Optional[dict] = None) -
     ckpt_lib.save_checkpoint(path, _snapshot_trees(state), config=config)
 
 
-_MODULES = ("g", "g_ema", "enc", "disc", "vgg")
-_OPTS = ("opt_g", "opt_d")
-
-
-def _exact(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
-
-
 def save_train_state(path: str, state, config: Optional[dict] = None,
                      best_ssim: Optional[float] = None) -> None:
-    """Full-state checkpoint of a TrainState or an EG3DState (which has no
-    E and no VGG): every module's state_dict, both optimizers' states in
-    their own dtypes, cur_nimg and best_ssim, under the `train_state_torch`
-    root of an npz (the port's own layout; the JAX package keys its optax
-    state by leaf index). Resuming from it continues bit for bit on the CPU."""
-    tree: dict = {"cur_nimg": np.asarray(state.cur_nimg, np.int64),
-                  "best_ssim": np.asarray(-100.0 if best_ssim is None else best_ssim, np.float64)}
-    for name in _MODULES:
-        module = getattr(state, name, None)
-        if module is not None:
-            tree[name] = {k.replace(".", ckpt_lib.SEP): _exact(v)
-                          for k, v in module.state_dict().items()}
-    for name in _OPTS:
-        opt = getattr(state, name)
-        if opt is None:
-            continue
-        sd = opt.state_dict()
-        tree[name] = {
-            "param_groups": np.frombuffer(json.dumps(sd["param_groups"]).encode(), np.uint8),
-            "state": {str(i): {k: _exact(v) for k, v in s.items()}
-                      for i, s in sd["state"].items()},
-        }
-    ckpt_lib.save_checkpoint(path, {"train_state_torch": tree}, config=config)
+    """Full-state checkpoint of a TrainState or an EG3DState in the JAX
+    package's layout (`gnerf_tpu/training/train_loop.py::save_train_state`):
+    every leaf of JAX's state of the same config under `train_state/{i:05d}`
+    in JAX's flatten order (`jax_state.leaf_plan`: parameters, BN statistics,
+    both Adam states as count, mu, nu, cur_nimg), the options as
+    `__config__`, with `best_ssim` in them when given, as the JAX CLI puts
+    it. Either package resumes from it; the port continues bit for bit on
+    the CPU. Raises if an optimizer's parameters disagree on their step."""
+    if best_ssim is not None:
+        config = {**(config or {}), "best_ssim": best_ssim}
+    ckpt_lib.save_checkpoint(path, {"train_state": jax_state.state_leaves(state)}, config=config)
 
 
 def load_train_state(path: str, state) -> tuple[Any, Optional[dict], float]:
-    """Restore `save_train_state` into a TrainState or EG3DState built with
-    the same config, in place. Returns (state, config, best_ssim). Raises on
-    any missing, extra or mis-shaped entry."""
+    """Restore a full-state checkpoint into a TrainState or EG3DState built
+    with the same config, in place: the JAX layout that either package
+    writes (checked as the JAX `load_train_state` checks it: leaf count and
+    shapes raise, naming the leaf; a dtype is cast with a WARNING line), or
+    the port's earlier `train_state_torch` layout. Returns (state, config,
+    best_ssim), best_ssim from the config (-100 without one)."""
     trees, config = ckpt_lib.load_checkpoint(path)
-    if "train_state_torch" not in trees:
-        raise ValueError(f"{path} is not a gnerf_tpu_torch full-state checkpoint "
-                         f"(roots {sorted(trees)}); resume from a network snapshot instead")
-    tree = trees["train_state_torch"]
-    for name in _MODULES:
+    if "train_state_torch" in trees:
+        return state, config, _load_torch_layout(trees["train_state_torch"], state)
+    if "train_state" not in trees:
+        raise ValueError(f"{path} is not a full-state checkpoint (roots {sorted(trees)}); "
+                         "resume from a network snapshot instead")
+    jax_state.restore_leaves(state, trees["train_state"])
+    return state, config, float((config or {}).get("best_ssim", -100.0))
+
+
+def _load_torch_layout(tree: dict, state) -> float:
+    """The port's earlier layout (`train_state_torch`: state_dicts, torch
+    optimizer states, cur_nimg, best_ssim), in place; returns best_ssim."""
+    for name in ("g", "g_ema", "enc", "disc", "vgg"):
         module = getattr(state, name, None)
         if module is None:
             if name in tree:
@@ -377,7 +373,7 @@ def load_train_state(path: str, state) -> tuple[Any, Optional[dict], float]:
                              f"{sorted(set(flat) ^ set(want))[:8]}")
         module.load_state_dict({k: torch.from_numpy(np.array(flat[jk]))
                                 for jk, (k, _) in want.items()})
-    for name in _OPTS:
+    for name in ("opt_g", "opt_d"):
         opt = getattr(state, name)
         if (opt is None) != (name not in tree):
             raise ValueError(f"optimizer {name}: checkpoint and state disagree on its presence")
@@ -387,5 +383,28 @@ def load_train_state(path: str, state) -> tuple[Any, Optional[dict], float]:
         st = {int(i): {k: torch.from_numpy(np.array(v)) for k, v in s.items()}
               for i, s in tree[name].get("state", {}).items()}
         opt.load_state_dict({"state": st, "param_groups": groups})
+        _align_steps(opt)
     state.cur_nimg = int(tree["cur_nimg"])
-    return state, config, float(tree["best_ssim"])
+    return float(tree["best_ssim"])
+
+
+def _align_steps(opt: torch.optim.Optimizer) -> None:
+    """Give every parameter of `opt` the step of the furthest one, as JAX's
+    one count holds it. Before the port wrote JAX's layout, Adam skipped a
+    parameter the loss did not reach (G's noise_const under random noise):
+    such a parameter has no state, or an earlier step. Its moments become
+    what optax holds after zero gradients since: zero without state, else
+    decayed by beta ** (the steps it missed)."""
+    params = [(p, grp["betas"]) for grp in opt.param_groups for p in grp["params"]]
+    common = max((int(opt.state[p]["step"]) for p, _ in params if p in opt.state), default=0)
+    for p, (beta1, beta2) in params:
+        st = opt.state[p] if p in opt.state else None
+        missed = common - (int(st["step"]) if st else 0)
+        if missed == 0:
+            continue
+        if not st:
+            opt.state[p] = {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+        else:
+            st["exp_avg"].mul_(beta1 ** missed)
+            st["exp_avg_sq"].mul_(beta2 ** missed)
+        opt.state[p]["step"] = jax_state.adam_step(common)

@@ -400,22 +400,22 @@ def run_eg3d_phases(state, cfg, steps, batch, phases, seeded, aug_p):
 # The CLI
 
 
-def shrink_networks():
+def shrink_networks(set_attr=setattr):
     """The CLI's networks at the tests' tiny widths, as
-    tests/test_torch_train_cli.py's `tiny_networks` fixture makes them."""
+    tests/test_torch_train_cli.py's `tiny_networks` fixture makes them
+    (`set_attr`: a pytest monkeypatch's `setattr`, to undo it)."""
     import gnerf_tpu_torch.models as models
     from gnerf_tpu_torch.training import losses
 
-    def shrink(cls, **small):
-        return lambda *a, **kw: cls(*a, **{**kw, **small})
+    def shrink(owner, name, **small):
+        cls = getattr(owner, name)
+        set_attr(owner, name, lambda *a, **kw: cls(*a, **{**kw, **small}))
 
-    models.TriPlaneGenerator = shrink(models.TriPlaneGenerator, plane_resolution=16,
-                                      channel_base=512, channel_max=32)
-    models.ResNeXt50Encoder = shrink(models.ResNeXt50Encoder, layers=(1, 1, 1, 1))
-    models.Discriminator = shrink(models.Discriminator, channel_base=256, channel_max=32)
-    models.DualDiscriminator = shrink(models.DualDiscriminator, channel_base=256,
-                                      channel_max=32)
-    losses.VGG16LPIPS = shrink(losses.VGG16LPIPS, resize_to=32)
+    shrink(models, "TriPlaneGenerator", plane_resolution=16, channel_base=512, channel_max=32)
+    shrink(models, "ResNeXt50Encoder", layers=(1, 1, 1, 1))
+    shrink(models, "Discriminator", channel_base=256, channel_max=32)
+    shrink(models, "DualDiscriminator", channel_base=256, channel_max=32)
+    shrink(losses, "VGG16LPIPS", resize_to=32)
 
 
 def cli_case(rank, world, runs):

@@ -16,10 +16,12 @@ import pytest
 import _torch_ddp_workers as W
 from _torch_dist import run_ranks
 from _torch_port import one_torch_thread  # noqa: F401
+from _torch_state import saved_state
 
 
 @pytest.mark.parametrize("objective", ["gnerf", "eg3d"])
-def test_four_ranks_with_ray_shards_write_once_and_resume(tmp_path, objective):
+def test_four_ranks_with_ray_shards_write_once_and_resume(tmp_path, objective,
+                                                           monkeypatch):
     out = str(tmp_path / "runs")
     kw = dict(outdir=out, dataset_name="synthetic", batch=4, tick=0.004, snap=1, z_dim=32,
               w_dim=32, device="cpu", ray_shards=2, objective=objective)
@@ -48,7 +50,5 @@ def test_four_ranks_with_ray_shards_write_once_and_resume(tmp_path, objective):
         loss = "Loss/G/total"
         assert all(np.isfinite(s[loss]["mean"]) for s in stats)
 
-    from gnerf_tpu_torch.utils.checkpoint import load_checkpoint
-
-    trees, _ = load_checkpoint(os.path.join(second, "training-state-latest.npz"))
-    assert int(trees["train_state_torch"]["cur_nimg"]) == 12
+    W.shrink_networks(monkeypatch.setattr)
+    assert int(saved_state(second, objective)[0]["cur_nimg"]) == 12

@@ -54,6 +54,33 @@ def smooth(cls):
     return Smooth
 
 
+@pytest.fixture(autouse=True, scope="module")
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache for this module's runs: every JAX
+    CLI run compiles its steps anew, and a later run's identical programs
+    (a resumed run's step) are then read back instead of compiled again.
+    The cache reads its options at its first use, so it is reset around
+    the module; where a JAX lacks that private hook, the options take
+    effect only if nothing compiled before."""
+    try:
+        from jax._src.compilation_cache import reset_cache
+    except ImportError:
+        def reset_cache():
+            pass
+
+    names = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    prev = {n: getattr(jax.config, n) for n in names}
+    jax.config.update(names[0], str(tmp_path_factory.mktemp("jax_compile_cache")))
+    jax.config.update(names[1], 0)
+    jax.config.update(names[2], 0)
+    reset_cache()
+    yield
+    for n, v in prev.items():
+        jax.config.update(n, v)
+    reset_cache()
+
+
 @pytest.fixture
 def tiny_clis(monkeypatch):
     """Both CLIs' networks at the tiny widths, the JAX CLI on one device."""
@@ -223,3 +250,86 @@ def test_two_step_gnerf_run_matches_jax_cli(tmp_path, tiny_clis, port_steps):
     port_dir, jax_dir = run_both(tmp_path, train_en=False, train_gen=True)
     assert_stats_match(port_dir, jax_dir)
     assert_weights_match(port_dir, jax_dir, ("G_ema", "G", "E", "E_state", "D"), port_steps)
+
+
+def set_state_config(path, **changes):
+    """Rewrite the config of a full-state file, its leaves untouched."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    config = json.loads(bytes(flat["__config__"]).decode())
+    flat["__config__"] = np.frombuffer(json.dumps({**config, **changes}).encode(), np.uint8)
+    np.savez(path, **flat)
+
+
+def resumed_both(tmp_path, first, state_path, **kw):
+    """(port run dir, JAX run dir): each CLI's `--resume` of `state_path`
+    (written by the run in `first`) for one step more."""
+    from gnerf_tpu.training.train import run_training as jax_run
+    from gnerf_tpu_torch.training.train import run_training
+
+    kw = {**dict(dataset_name="synthetic", batch=2, kimg=0.004, tick=1, snap=1, seed=3,
+                 z_dim=32, w_dim=32), **kw, "resume": state_path}
+    jax_run(outdir=str(tmp_path / "jax_resumed"), **kw)
+    jax_dir = os.path.join(str(tmp_path / "jax_resumed"),
+                           os.listdir(tmp_path / "jax_resumed")[0])
+    port_dir = run_training(outdir=str(tmp_path / "port_resumed"), device="cpu", **kw)
+    for run in (jax_dir, port_dir):
+        with open(os.path.join(run, "log.txt")) as fh:
+            assert "Resumed" in fh.read() and first not in (jax_dir, port_dir)
+    return port_dir, jax_dir
+
+
+def first_step(tmp_path, package, **kw):
+    """The run dir of a one-step run of `package`'s CLI ("jax" or "port")."""
+    from gnerf_tpu.training.train import run_training as jax_run
+    from gnerf_tpu_torch.training.train import run_training
+
+    kw = {**dict(dataset_name="synthetic", batch=2, kimg=0.002, tick=1, snap=1, seed=3,
+                 z_dim=32, w_dim=32), **kw}
+    out = tmp_path / f"{package}_first"
+    if package == "jax":
+        jax_run(outdir=str(out), **kw)
+        return os.path.join(str(out), os.listdir(out)[0])
+    return run_training(outdir=str(out), device="cpu", **kw)
+
+
+GEN_ONLY = dict(train_en=False, train_gen=True)
+
+
+def test_jax_cli_state_resumes_in_port_cli(tmp_path, tiny_clis, port_steps):
+    """The JAX CLI runs one step; the port CLI's `--resume` of its
+    training-state-latest.npz runs one more and equals the JAX CLI's own
+    `--resume` (stats; every weight under the rule above). The file's
+    best_ssim, set above any SSIM, comes back in both: neither writes a best
+    snapshot, and both save it again."""
+    first = first_step(tmp_path, "jax", **GEN_ONLY)
+    path = os.path.join(first, "training-state-latest.npz")
+    set_state_config(path, best_ssim=2.0)
+    port_dir, jax_dir = resumed_both(tmp_path, first, path, **GEN_ONLY)
+    assert_stats_match(port_dir, jax_dir)
+    assert_weights_match(port_dir, jax_dir, ("G_ema", "G", "E", "E_state", "D"), port_steps)
+    for run in (port_dir, jax_dir):
+        assert "network-snapshot-best.npz" not in os.listdir(run)
+        with np.load(os.path.join(run, "training-state-latest.npz")) as data:
+            assert json.loads(bytes(data["__config__"]).decode())["best_ssim"] == 2.0
+
+
+def test_port_cli_state_resumes_in_jax_cli(tmp_path, tiny_clis, port_steps):
+    """The reverse: the port CLI runs one step; the JAX CLI's `--resume` of
+    the port's file runs one more and equals the port CLI's own `--resume`
+    (stats; every weight under the rule above); both write final full
+    states of the same leaves (shapes, dtypes), the Adam counts at 2 and
+    cur_nimg at 4."""
+    first = first_step(tmp_path, "port", **GEN_ONLY)
+    path = os.path.join(first, "training-state-latest.npz")
+    port_dir, jax_dir = resumed_both(tmp_path, first, path, **GEN_ONLY)
+    assert_stats_match(port_dir, jax_dir)
+    assert_weights_match(port_dir, jax_dir, ("G_ema", "G", "E", "E_state", "D"), port_steps)
+    with np.load(os.path.join(jax_dir, "training-state-latest.npz")) as a, \
+            np.load(os.path.join(port_dir, "training-state-latest.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            if k != "__config__":
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        count = [k for k in a.files if k != "__config__" and a[k].dtype == np.int32]
+        assert {int(a[k]) for k in count} == {int(b[k]) for k in count} == {2, 4}

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from _torch_port import ENC_UNIFORM, assert_init_matches, one_torch_thread  # noqa: F401
+from _torch_state import saved_state
 
 
 def _printed_options(text):
@@ -143,7 +144,6 @@ def test_cli_networks_match_jax_init_state(tiny_networks, objective):
 def test_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_networks):
     from gnerf_tpu.utils import checkpoint as jckpt
     from gnerf_tpu_torch.training.train import run_training
-    from gnerf_tpu_torch.utils.checkpoint import load_checkpoint
 
     kw = dict(dataset_name="synthetic", batch=2, tick=0.002, snap=1, z_dim=32, w_dim=32,
               device="cpu")
@@ -166,8 +166,8 @@ def test_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_networks):
 
     state_path = os.path.join(run, "training-state-latest.npz")
     run2 = run_training(outdir=str(tmp_path / "b"), kimg=0.004, resume=state_path, **kw)
-    trees2, _ = load_checkpoint(os.path.join(run2, "training-state-latest.npz"))
-    assert int(trees2["train_state_torch"]["cur_nimg"]) == 4
+    state2, config2 = saved_state(run2)
+    assert int(state2["cur_nimg"]) == 4 and "best_ssim" in config2
     with open(os.path.join(run2, "log.txt")) as fh:
         assert "Resumed from" in fh.read()
 
@@ -183,7 +183,7 @@ def test_eg3d_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_netwo
     from gnerf_tpu.utils import checkpoint as jckpt
     from gnerf_tpu_torch.models import DualDiscriminator
     from gnerf_tpu_torch.training.train import run_training
-    from gnerf_tpu_torch.utils.checkpoint import load_checkpoint, load_jax_params
+    from gnerf_tpu_torch.utils.checkpoint import load_jax_params
 
     kw = dict(objective="eg3d", dataset_name="synthetic", batch=2, tick=0.002, snap=1,
               z_dim=32, w_dim=32, device="cpu")
@@ -202,11 +202,11 @@ def test_eg3d_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_netwo
 
     trees, config = jckpt.load_checkpoint(os.path.join(run, "network-snapshot-final.npz"))
     assert set(trees) == {"G_ema", "G", "D"} and config["config"]["batch_size"] == 2
-    state_trees, state_cfg = load_checkpoint(os.path.join(run, "training-state-latest.npz"))
+    state_trees, state_cfg = saved_state(run, "eg3d")
     assert state_cfg["aug_p_live"] == 0.0
     d_kw = dict(c_dim=25, img_resolution=128, img_channels=3, channel_base=256, channel_max=32)
     d = DualDiscriminator(**d_kw, device="meta")
-    load_jax_params(d, state_trees["train_state_torch"]["disc"], device="cpu")
+    load_jax_params(d, state_trees["disc"], device="cpu")
     rs = np.random.RandomState(0)
     img = {"image": rs.randn(2, 3, 128, 128).astype(np.float32),
            "image_raw": rs.randn(2, 3, 64, 64).astype(np.float32)}
@@ -218,8 +218,7 @@ def test_eg3d_one_step_run_writes_run_directory_and_resumes(tmp_path, tiny_netwo
 
     run2 = run_training(outdir=str(tmp_path / "b"), kimg=0.004,
                         resume=os.path.join(run, "training-state-latest.npz"), **kw)
-    trees2, _ = load_checkpoint(os.path.join(run2, "training-state-latest.npz"))
-    assert int(trees2["train_state_torch"]["cur_nimg"]) == 4
+    assert int(saved_state(run2, "eg3d")[0]["cur_nimg"]) == 4
     with open(os.path.join(run2, "log.txt")) as fh:
         assert "Resumed EG3D training state" in fh.read()
 
@@ -233,7 +232,7 @@ def test_eg3d_ada_run_resumes_its_live_p_bit_for_bit(tmp_path, tiny_networks, mo
     import dataclasses
 
     from gnerf_tpu_torch.training import dataset, train
-    from gnerf_tpu_torch.utils.checkpoint import flatten_tree, load_checkpoint
+    from gnerf_tpu_torch.utils.checkpoint import flatten_tree
 
     config = train.eg3d_loss_config
     monkeypatch.setattr(train, "eg3d_loss_config", lambda *a, **k: dataclasses.replace(
@@ -244,8 +243,8 @@ def test_eg3d_ada_run_resumes_its_live_p_bit_for_bit(tmp_path, tiny_networks, mo
               batch=2, tick=0.002, snap=10, z_dim=32, w_dim=32, device="cpu")
 
     def final_state(run):
-        trees, cfg = load_checkpoint(os.path.join(run, "training-state-latest.npz"))
-        return flatten_tree(trees["train_state_torch"]), cfg["aug_p_live"]
+        named, cfg = saved_state(run, "eg3d")
+        return flatten_tree(named), cfg["aug_p_live"]
 
     once = train.run_training(outdir=str(tmp_path / "once"), kimg=0.004, **kw)
     first = train.run_training(outdir=str(tmp_path / "a"), kimg=0.002, **kw)

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_port import one_torch_thread, to_np  # noqa: F401
+from _torch_state import save_train_state_torch
 from gnerf_tpu.models import Discriminator as JD
 from gnerf_tpu.models import ResNeXt50Encoder as JEnc
 from gnerf_tpu.models import TriPlaneGenerator as JGen
@@ -31,6 +32,7 @@ from gnerf_tpu.training import train_loop as JT
 from gnerf_tpu.utils import checkpoint as jckpt
 from gnerf_tpu_torch.models import Discriminator, ResNeXt50Encoder, TriPlaneGenerator
 from gnerf_tpu_torch.training import dataset as tds
+from gnerf_tpu_torch.training import jax_state
 from gnerf_tpu_torch.training import losses as L
 from gnerf_tpu_torch.training import train_loop as T
 from gnerf_tpu_torch.training.train import step_key
@@ -109,33 +111,45 @@ def torch_batch(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
+_JAX_STEPS = {}
+
+
 def run_jax_step(train_gen):
     """One JAX step from a seeded init: (train_gen, init state, new state,
-    stats, batch). The JAX compile takes most of a minute, so each setting
-    of train_gen has a test file of its own (tests/test_torch_train_gen.py
-    has the other) and the two run on two workers."""
+    stats, batch); the jitted step stays in `_JAX_STEPS[train_gen]` for a
+    test to take another. The JAX compile takes most of a minute, so each
+    setting of train_gen has a test file of its own
+    (tests/test_torch_train_gen.py has the other) and the two run on two
+    workers."""
     g, enc, disc, vgg, cfg = jax_setup(train_gen)
     state = JT.init_train_state(g, enc, disc, vgg, cfg, jax.random.PRNGKey(0))
+    # Without weak types, as JAX's load_train_state gives the leaves back,
+    # so a step from a loaded state reuses this compile (fp32: no value moves).
+    state = jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x)), state)
     opt_g, opt_d = JT.make_optimizers(g, state.params_e, state.params_g, cfg)
-    step = jax.jit(JT.make_train_step(g, enc, disc, vgg, opt_g, opt_d, cfg))
+    step = _JAX_STEPS[train_gen] = jax.jit(JT.make_train_step(g, enc, disc, vgg, opt_g, opt_d,
+                                                              cfg))
     batch = tiny_batch()
     new, stats = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                       jax.random.PRNGKey(1))
     return train_gen, state, new, {k: float(v) for k, v in stats.items()}, batch
 
 
-def assert_adam_step_matches(name, jax_new, param, opt):
+def assert_adam_step_matches(name, jax_new, param, opt, grad=None):
     """The first Adam step moves a weight by lr * g / (|g| + eps), i.e. by
     +-lr wherever |g| >> eps, so a weight whose gradient lies within fp32
     summation noise may move the other way in the other package. Every
     weight off rtol 1e-4 / atol 1e-5 of the JAX result must have such a
     gradient (below 3e-4 of its tensor's largest), be within one step
-    (2 lr) of it, and be one of under 1% of the tensor's weights."""
+    (2 lr) of it, and be one of under 1% of the tensor's weights. `grad` is
+    the step's gradient (default: the first step's, exp_avg / 0.1)."""
     got, want = to_np(param), np.asarray(jax_new)
     off = ~np.isclose(got, want, **TOL)
     if not off.any():
         return
-    grad = np.abs(to_np(opt.state[param]["exp_avg"]) / 0.1)
+    if grad is None:
+        grad = to_np(opt.state[param]["exp_avg"]) / 0.1
+    grad = np.abs(grad)
     assert off.mean() < 0.01, (name, off.mean())
     assert grad[off].max() < 3e-4 * grad.max(), (name, grad[off].max() / grad.max())
     assert np.abs(got - want).max() <= 2 * opt.param_groups[0]["lr"] + 1e-5, name
@@ -279,13 +293,141 @@ def test_resume_is_bit_identical(jax_init_state, tmp_path):
     T.save_train_state(path, b, config={"x": 1}, best_ssim=0.25)
     c, _ = _fresh_port(seed=3)
     _, config, best = T.load_train_state(path, c)
-    assert config == {"x": 1} and best == 0.25 and c.cur_nimg == 2
+    assert config == {"x": 1, "best_ssim": 0.25} and best == 0.25 and c.cur_nimg == 2
     run(c, cfg, 1)
     assert c.cur_nimg == a.cur_nimg == 4
     sa, sc = _state_tensors(a), _state_tensors(c)
     assert sa.keys() == sc.keys()
     for k in sa:
         assert sa[k].dtype == sc[k].dtype and torch.equal(sa[k], sc[k]), k
+
+
+def test_jax_full_state_resumes_in_port(jax_step, tmp_path):
+    """JAX steps once and its `save_train_state` writes the file; the port's
+    `load_train_state` reads it (every leaf bit for bit) and steps once
+    more: equal to JAX's step from its own `load_train_state` of the file
+    (stats, E, its BN statistics, G, G_ema, D, cur_nimg), the trained
+    weights under the Adam-flip rule with the second step's gradient."""
+    _, jstate, jnew, _, _ = jax_step
+    path = str(tmp_path / "jax_state.npz")
+    JT.save_train_state(path, jnew, config={"best_ssim": 0.3})
+    resumed, config = JT.load_train_state(path, jnew)
+    assert config == {"best_ssim": 0.3}
+    batch = tiny_batch(2)
+    jnext, jstats = _JAX_STEPS[False](resumed, {k: jnp.asarray(v) for k, v in batch.items()},
+                                      jax.random.PRNGKey(2))
+
+    state, cfg = port_state(jstate, False)
+    _, config, best = T.load_train_state(path, state)
+    assert best == 0.3 and state.cur_nimg == 2
+    plan = jax_state.leaf_plan(state)
+    for leaf, (path_, x) in zip(plan, jax.tree_util.tree_flatten_with_path(jnew)[0]):
+        assert leaf.path == jax.tree_util.keystr(path_)
+        np.testing.assert_array_equal(jax_state.leaf_value(leaf), np.asarray(x),
+                                      err_msg=leaf.path)
+    first = {id(p): to_np(state.opt_g.state[p]["exp_avg"]).copy()
+             for p in state.opt_g.state}
+    _, stats = T.make_train_step(cfg)(state, torch_batch(batch), None)
+    assert sorted(stats) == sorted(jstats) and state.cur_nimg == int(jnext.cur_nimg) == 4
+    for k, v in jstats.items():
+        np.testing.assert_allclose(float(stats[k]), float(v), **TOL, err_msg=k)
+    params = {n.replace(".", "/"): p for m in (state.enc, state.g)
+              for n, p in m.named_parameters()}
+
+    def grad(p):  # beta1 = 0.9: m2 = 0.9 m1 + 0.1 g2
+        return (to_np(state.opt_g.state[p]["exp_avg"]) - 0.9 * first[id(p)]) / 0.1
+
+    for root, tree, module in (("E", jnext.params_e, state.enc), ("G", jnext.params_g, state.g),
+                               ("E_state", jnext.state_e, state.enc),
+                               ("D", jnext.params_d, state.disc)):
+        got = module_params(module)
+        for k, v in flatten_tree(tree).items():
+            p = params.get(k) if root in ("E", "G") else None
+            if p is not None and p in state.opt_g.state:
+                assert_adam_step_matches(f"{root}/{k}", v, p, state.opt_g, grad=grad(p))
+            else:
+                np.testing.assert_allclose(got[k], np.asarray(v), **TOL, err_msg=f"{root}/{k}")
+    ema = module_params(state.g_ema)
+    for k, v in flatten_tree(jnext.params_g_ema).items():
+        np.testing.assert_allclose(ema[k], np.asarray(v), **TOL, err_msg=f"G_ema/{k}")
+
+
+def test_port_full_state_loads_in_jax(jax_init_state, tmp_path, capsys):
+    """A file the port wrote after a step loads in the JAX `load_train_state`
+    without a cast warning, every leaf equal to the port's tensor (module
+    entries, Adam step and moments, cur_nimg) bit for bit, best_ssim in its
+    config."""
+    state, cfg = port_state(jax_init_state, True)
+    T.make_train_step(cfg)(state, torch_batch(tiny_batch()), step_key(0, 0))
+    path = str(tmp_path / "port_state.npz")
+    T.save_train_state(path, state, config={"k": "v"}, best_ssim=0.4)
+    capsys.readouterr()
+    loaded, config = JT.load_train_state(path, jax_init_state)
+    assert "WARNING" not in capsys.readouterr().out
+    assert config == {"k": "v", "best_ssim": 0.4}
+    params = {id(p) for grp in state.opt_g.param_groups for p in grp["params"]}
+    leaves = jax.tree_util.tree_flatten_with_path(loaded)[0]
+    plan = jax_state.leaf_plan(state)
+    assert len(leaves) == len(plan) and {leaf.kind for leaf in plan} == {
+        "entry", "exp_avg", "exp_avg_sq", "step", "cur_nimg"}
+    for leaf, (path_, x) in zip(plan, leaves):
+        x = np.asarray(x)
+        if leaf.kind == "entry":
+            want = to_np(leaf.tensor)
+        elif leaf.kind == "cur_nimg":
+            want = np.asarray(state.cur_nimg, np.int32)
+        elif leaf.kind == "step":
+            opt = leaf.owner
+            want = np.asarray(int(opt.state[opt.param_groups[0]["params"][0]]["step"]),
+                              np.int32)
+            assert int(want) == 1
+        elif leaf.tensor is None:  # w_avg: a buffer, no moment
+            want = np.zeros(leaf.shape, np.float32)
+        else:
+            assert id(leaf.tensor) in params or leaf.owner is state.opt_d
+            want = to_np(leaf.owner.state[leaf.tensor][leaf.kind])
+        assert x.dtype == want.dtype and np.array_equal(x, want), leaf.path
+        assert jax.tree_util.keystr(path_) == leaf.path
+
+
+def test_old_layout_resumes_bit_for_bit(jax_init_state, tmp_path):
+    """A `train_state_torch` file (the port's layout before it wrote JAX's,
+    `tests/_torch_state.py`'s copy of that writer) still resumes bit for
+    bit, and a file written after it is JAX's layout. Such a file holds no
+    Adam state for G's noise_const (that port's Adam skipped a parameter
+    the loss did not reach under random noise): the load gives it the
+    others' step and zero moments, as optax holds it."""
+    batches = [torch_batch(tiny_batch(0)), torch_batch(tiny_batch(2))]
+
+    def run(state, cfg, i):
+        T.make_train_step(cfg)(state, batches[i], step_key(0, state.cur_nimg))
+
+    a, cfg = port_state(jax_init_state, True)
+    run(a, cfg, 0)
+    run(a, cfg, 1)
+    b, _ = port_state(jax_init_state, True)
+    run(b, cfg, 0)
+    unreached = [p for n, p in b.g.named_parameters() if n.endswith("noise_const")]
+    assert unreached
+    for p in unreached:
+        assert not b.opt_g.state[p]["exp_avg"].any()
+        del b.opt_g.state[p]
+    path = str(tmp_path / "old.npz")
+    save_train_state_torch(path, b, config={"x": 1}, best_ssim=0.25)
+    c, _ = _fresh_port(seed=3)
+    _, config, best = T.load_train_state(path, c)
+    assert config == {"x": 1} and best == 0.25 and c.cur_nimg == 2
+    run(c, cfg, 1)
+    sa, sc = _state_tensors(a), _state_tensors(c)
+    assert sa.keys() == sc.keys()
+    for k in sa:
+        assert sa[k].dtype == sc[k].dtype and torch.equal(sa[k], sc[k]), k
+    T.save_train_state(path, c)
+    assert set(jckpt.load_checkpoint(path)[0]) == {"train_state"}
+    d, _ = _fresh_port(seed=4)
+    T.load_train_state(path, d)
+    sd = _state_tensors(d)
+    assert sd.keys() == sc.keys() and all(torch.equal(sd[k], sc[k]) for k in sc)
 
 
 def test_port_snapshot_loads_in_jax(jax_init_state, tmp_path):
