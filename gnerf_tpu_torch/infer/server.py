@@ -67,6 +67,7 @@ from ..render.ray_sampler import sample_rays
 from ..render.renderer import auto_ray_extremes
 from ..utils import camera, prng
 from ..utils.device import module_device, resolve_device
+from ..utils.profiling import profiled_function, span
 
 # Upper bound on client-requested orbit length (10 s at 30 fps).
 MAX_ORBIT_FRAMES = 300
@@ -265,6 +266,7 @@ class GNerfService:
         return self._on_device_worker(self._encode_image, image_chw_uint8)
 
     @torch.inference_mode()
+    @profiled_function("identity.encode")
     def _encode_image(self, image_chw_uint8: np.ndarray) -> str:
         x = torch.tensor(image_chw_uint8[None], device=self.device).float() / 127.5 - 1.0
         return self._prepare(self.enc.apply(x, train=False))
@@ -279,6 +281,7 @@ class GNerfService:
         return self._on_device_worker(self._prepare, z)
 
     @torch.inference_mode()
+    @profiled_function("identity.prepare")
     def _prepare(self, z) -> str:
         z = torch.as_tensor(z, dtype=torch.float32).to(self.device)
         c0 = camera.pose_to_label(camera.lookat_sample(math.pi / 2, math.pi / 2, radius=2.7),
@@ -332,26 +335,29 @@ class GNerfService:
 
     @torch.inference_mode()
     def _render_orbit(self, states, frames: int, radius: float) -> list[np.ndarray]:
-        labels = torch.cat([
-            camera.pose_to_label(
-                camera.lookat_sample(
-                    math.pi / 2 + 0.7 * math.sin(2 * math.pi * i / frames),
-                    math.pi / 2 - 0.05 + 0.3 * math.cos(2 * math.pi * i / frames),
-                    radius=radius),
-                camera.FFHQ_INTRINSICS)
-            for i in range(frames)])
+        with span("orbit.poses"):
+            labels = torch.cat([
+                camera.pose_to_label(
+                    camera.lookat_sample(
+                        math.pi / 2 + 0.7 * math.sin(2 * math.pi * i / frames),
+                        math.pi / 2 - 0.05 + 0.3 * math.cos(2 * math.pi * i / frames),
+                        radius=radius),
+                    camera.FFHQ_INTRINSICS)
+                for i in range(frames)])
         out: list[np.ndarray] = []
         for start in range(0, frames, self.frames_per_chunk):
             cs = labels[start:start + self.frames_per_chunk]
-            ext = self._chunk_extremes(cs) if len(self.replicas) > 1 else None
-            # Launch every replica's part before the first copy to the host.
-            parts = [self._render(g, planes, ws.expand(c.shape[0], -1, -1), c.to(d),
-                                  None if ext is None else {"auto_extremes": ext.to(d)})
-                     for c, d, g, (ws, planes) in zip(cs.tensor_split(len(self.replicas)),
-                                                      self.devices, self.replicas, states)
-                     if c.shape[0]]
-            for imgs in parts:
-                out.extend(imgs.cpu().numpy())
+            with span("orbit.render"):
+                ext = self._chunk_extremes(cs) if len(self.replicas) > 1 else None
+                # Launch every replica's part before the first copy to the host.
+                parts = [self._render(g, planes, ws.expand(c.shape[0], -1, -1), c.to(d),
+                                      None if ext is None else {"auto_extremes": ext.to(d)})
+                         for c, d, g, (ws, planes) in zip(cs.tensor_split(len(self.replicas)),
+                                                          self.devices, self.replicas, states)
+                         if c.shape[0]]
+            with span("orbit.to_host"):
+                for imgs in parts:
+                    out.extend(imgs.cpu().numpy())
         return out
 
     @property

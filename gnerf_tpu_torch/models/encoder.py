@@ -25,6 +25,7 @@ from ..parallel.mesh import active_mesh
 from ..parallel.sharding import data_mean
 from ..utils import prng
 from ..utils.device import place, resolve_device
+from ..utils.profiling import profiled_function
 
 
 def _kaiming(shape, key: torch.Tensor) -> nn.Parameter:
@@ -144,6 +145,7 @@ class ResNeXt50Encoder(nn.Module):
         x = x.reshape(x.shape[0], -1)
         return F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
 
+    @profiled_function("encoder")
     def apply(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Encode, the JAX package's `apply(params, state, images, train)`:
         z, with the BN buffers updated in place when `train`. (Shadows

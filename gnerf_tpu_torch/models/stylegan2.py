@@ -31,6 +31,7 @@ from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw_many, local_rows
 from ..utils import prng
 from ..utils.device import place, resolve_device
+from ..utils.profiling import profiled_function
 
 
 def root_key(key: Optional[torch.Tensor]) -> torch.Tensor:
@@ -559,6 +560,7 @@ class Discriminator(nn.Module):
         cmap = self.mapping(None, c) if self.c_dim > 0 else None
         return self.b4(x, img, cmap)
 
+    @profiled_function("disc")
     def apply(self, img, c=None, dtype=torch.float32) -> torch.Tensor:
         """The JAX package's name for the forward pass. (Shadows
         `nn.Module.apply`.)"""

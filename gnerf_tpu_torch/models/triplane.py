@@ -23,6 +23,7 @@ from ..render.ray_sampler import sample_rays
 from ..render.renderer import render_rays, run_model
 from ..utils import prng
 from ..utils.device import place, resolve_device
+from ..utils.profiling import profiled_function, span
 from .stylegan2 import FullyConnectedLayer, Generator, root_key
 from .superresolution import make_superresolution
 
@@ -132,6 +133,7 @@ class TriPlaneGenerator(nn.Module):
     def num_ws(self) -> int:
         return self.backbone.num_ws
 
+    @profiled_function("mapping")
     def mapping(self, z, c, truncation_psi=1.0, truncation_cutoff=None) -> torch.Tensor:
         """z (+ conditioning pose) -> broadcast ws; honours
         c_gen_conditioning_zero / c_scale."""
@@ -153,6 +155,7 @@ class TriPlaneGenerator(nn.Module):
                 (1, self.num_ws, self.w_dim), device=dev), noise_mode="none")
         return int(image.shape[-1])
 
+    @profiled_function("backbone")
     def backbone_planes(self, ws, noise_mode="const", rng=None,
                         dtype=torch.float32) -> torch.Tensor:
         """ws -> tri-plane features [N, 3, C, H, W] in `dtype`. The ToRGB skip
@@ -162,6 +165,7 @@ class TriPlaneGenerator(nn.Module):
         return planes.reshape(planes.shape[0], 3, self.plane_channels,
                               planes.shape[-2], planes.shape[-1])
 
+    @profiled_function("render")
     def render_planes(self, planes, c, ws, neural_rendering_resolution=None,
                       noise_mode="const", rng=None, dtype=torch.float32,
                       rendering_kwargs=None, superres=True) -> dict[str, torch.Tensor]:
@@ -183,8 +187,10 @@ class TriPlaneGenerator(nn.Module):
             return {"feature_image": feature_image, "image_depth": depth_image}
         sr_noise = opts.get("superresolution_noise_mode", "none")
         sr_noise = sr_noise if sr_noise in ("random", "const") else "none"
-        sr_image, rgb_image = self.superresolution(
-            feature_image[:, :3], feature_image, ws, noise_mode=sr_noise, rng=k_sr, dtype=dtype)
+        with span("sr"):
+            sr_image, rgb_image = self.superresolution(
+                feature_image[:, :3], feature_image, ws, noise_mode=sr_noise, rng=k_sr,
+                dtype=dtype)
         return {"image": sr_image, "image_raw": rgb_image, "image_depth": depth_image}
 
     def synthesis(self, ws, c, neural_rendering_resolution=None, noise_mode="const",

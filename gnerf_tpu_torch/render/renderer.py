@@ -29,6 +29,7 @@ from ..parallel.collectives import all_gather, reduce_max
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw
 from ..utils import prng
+from ..utils.profiling import span
 from . import math_utils
 from .importance import sample_importance, sample_stratified
 from .ray_marcher import march_rays
@@ -180,31 +181,36 @@ def _render_shard(plane_features, decoder, ray_origins, ray_directions, ray_star
                   options, rng, ray_mesh):
     """`render_rays` past the ray limits, on this rank's rays."""
     keys = prng.split(rng, 4) if rng is not None else [None] * 4
-    depths_coarse = sample_stratified(
-        keys[0], ray_origins, ray_start, ray_end, options["depth_resolution"],
-        options.get("disparity_space_sampling", False), ray_mesh=ray_mesh)
-    n, r, _, _ = depths_coarse.shape
 
     def eval_points(depths, key):
-        s = depths.shape[2]
+        n, r, s, _ = depths.shape
         pts = (ray_origins[:, :, None, :] + depths * ray_directions[:, :, None, :]).reshape(n, -1, 3)
         dirs = ray_directions[:, :, None, :].expand(n, r, s, 3).reshape(n, -1, 3)
         out = run_model(plane_features, decoder, pts, dirs, options, key)
         return out["rgb"].reshape(n, r, s, -1), out["sigma"].reshape(n, r, s, 1)
 
-    colors_coarse, densities_coarse = eval_points(depths_coarse, keys[1])
+    with span("render.coarse"):
+        depths_coarse = sample_stratified(
+            keys[0], ray_origins, ray_start, ray_end, options["depth_resolution"],
+            options.get("disparity_space_sampling", False), ray_mesh=ray_mesh)
+        colors_coarse, densities_coarse = eval_points(depths_coarse, keys[1])
 
     n_imp = options["depth_resolution_importance"]
     if n_imp > 0:
-        _, _, weights = march_rays(colors_coarse, densities_coarse, depths_coarse, options)
-        depths_fine = sample_importance(keys[2], depths_coarse, weights, n_imp,
-                                        ray_mesh=ray_mesh)
-        colors_fine, densities_fine = eval_points(depths_fine, keys[3])
-        all_depths, all_colors, all_densities = unify_samples(
-            depths_coarse, colors_coarse, densities_coarse,
-            depths_fine, colors_fine, densities_fine)
-        rgb_final, depth_final, weights = march_rays(all_colors, all_densities, all_depths, options)
+        with span("render.importance"):
+            _, _, weights = march_rays(colors_coarse, densities_coarse, depths_coarse, options)
+            depths_fine = sample_importance(keys[2], depths_coarse, weights, n_imp,
+                                            ray_mesh=ray_mesh)
+        with span("render.fine"):
+            colors_fine, densities_fine = eval_points(depths_fine, keys[3])
+        with span("render.composite"):
+            all_depths, all_colors, all_densities = unify_samples(
+                depths_coarse, colors_coarse, densities_coarse,
+                depths_fine, colors_fine, densities_fine)
+            rgb_final, depth_final, weights = march_rays(all_colors, all_densities, all_depths,
+                                                         options)
     else:
-        rgb_final, depth_final, weights = march_rays(
-            colors_coarse, densities_coarse, depths_coarse, options)
+        with span("render.composite"):
+            rgb_final, depth_final, weights = march_rays(
+                colors_coarse, densities_coarse, depths_coarse, options)
     return rgb_final, depth_final, weights.sum(dim=2)

@@ -33,6 +33,7 @@ from typing import Iterator, Mapping, Optional, Sequence
 import numpy as np
 
 from ..utils.misc import InfiniteSampler
+from ..utils.profiling import span
 
 
 def held_out_partition(
@@ -573,14 +574,15 @@ def data_iterator(
     q: queue.Queue = queue.Queue(maxsize=prefetch)
 
     def worker():
-        items = []
-        for idx in sampler:
-            items.append(dataset[idx])
-            if len(items) == batch_size:
-                q.put(collate(items))
-                items = []
+        indices = iter(sampler)
+        while True:
+            with span("data.batch"):
+                batch = collate([dataset[next(indices)] for _ in range(batch_size)])
+            q.put(batch)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        yield q.get()
+        with span("data.next"):
+            batch = q.get()
+        yield batch

@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.interpolate import interpolate_bilinear
 from ..utils import prng
 from ..utils.device import place, resolve_device
+from ..utils.profiling import profiled_function
 
 # ---------------------------------------------------------------------------
 # SSIM
@@ -146,6 +147,7 @@ class VGG16LPIPS(nn.Module):
             conv_i += 1
         return feats
 
+    @profiled_function("lpips")
     def apply(self, images: torch.Tensor) -> torch.Tensor:
         """[N, 3, H, W] in [0, 255] -> [N, D] embeddings. (Shadows
         `nn.Module.apply`, to keep the JAX package's name.)"""

@@ -44,6 +44,8 @@ import click
 import numpy as np
 import torch
 
+from ..utils.profiling import profiled_function
+
 RENDERING_PRESETS = {
     "ffhq": dict(depth_resolution=48, depth_resolution_importance=48,
                  ray_start=2.25, ray_end=3.3, box_warp=1.0,
@@ -143,6 +145,7 @@ def pick_run_dir(outdir: str, desc: str) -> str:
     return run_dir
 
 
+@profiled_function("train.step_key")
 def step_key(seed: int, cur_nimg: int) -> torch.Tensor:
     """The step's key, on the CPU: fold_in(PRNGKey(seed + 1), cur_nimg), as
     the JAX loops key their steps, so a resumed run continues the stream

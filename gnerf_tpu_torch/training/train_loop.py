@@ -48,6 +48,7 @@ from ..parallel.sharding import data_sum, mean_stats
 from ..utils import checkpoint as ckpt_lib
 from ..utils import prng
 from ..utils.misc import ema_update
+from ..utils.profiling import span
 from . import jax_state
 from . import losses as L
 
@@ -286,24 +287,36 @@ def make_train_step(cfg: TrainConfig, rendering_overrides: Optional[dict] = None
             return step(state, batch, rng)
 
     def step(state: TrainState, batch, rng: Optional[torch.Tensor]):
+        with span("train.step"):
+            return parts(state, batch, rng)
+
+    def parts(state: TrainState, batch, rng: Optional[torch.Tensor]):
         g_params = [p for grp in state.opt_g.param_groups for p in grp["params"]] \
             if state.opt_g is not None else []
-        total, stats, depth_fake = g_loss(state, batch, rng)
+        with span("train.g_forward"):
+            total, stats, depth_fake = g_loss(state, batch, rng)
         stats["Loss/G/total"] = total.detach()
-        if g_params:
-            g_grads = torch.autograd.grad(total, g_params, materialize_grads=True)
-        del total
-        if cfg.gan_depth and state.disc is not None:
+        with span("train.g_backward"):
+            if g_params:
+                g_grads = torch.autograd.grad(total, g_params, materialize_grads=True)
+            del total
+        with_d = cfg.gan_depth and state.disc is not None
+        if with_d:
             d_params = [p for grp in state.opt_d.param_groups for p in grp["params"]]
-            loss_d, d_stats = d_loss(state.disc, batch, depth_fake)
-            d_grads = torch.autograd.grad(loss_d, d_params, materialize_grads=True)
+            with span("train.d_forward"):
+                loss_d, d_stats = d_loss(state.disc, batch, depth_fake)
+            with span("train.d_backward"):
+                d_grads = torch.autograd.grad(loss_d, d_params, materialize_grads=True)
             stats.update(d_stats)
             stats["Loss/D/total"] = loss_d.detach()
-            apply_grads(state.opt_d, d_params, d_grads)
-        if g_params:
-            apply_grads(state.opt_g, g_params, g_grads)
-        beta = 0.5 ** (cfg.batch_size / max(cfg.ema_kimg * 1000.0, 1e-8))
-        ema_update(state.g_ema.state_dict(), state.g.state_dict(), beta)
+        with span("train.optimizer"):
+            if with_d:
+                apply_grads(state.opt_d, d_params, d_grads)
+            if g_params:
+                apply_grads(state.opt_g, g_params, g_grads)
+        with span("train.ema"):
+            beta = 0.5 ** (cfg.batch_size / max(cfg.ema_kimg * 1000.0, 1e-8))
+            ema_update(state.g_ema.state_dict(), state.g.state_dict(), beta)
         state.cur_nimg += int(batch["condition_image"].shape[0]) * data
         return state, mean_stats({k: v.detach() for k, v in stats.items()}, mesh)
 
