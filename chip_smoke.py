@@ -8,13 +8,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build:   compiles every kernel of the paths from csrc/ with nvcc (one
               process per source, started together); prints ptxas's
               registers and spills per kernel instance.
-  3. kernels: each kernel vs its plain PyTorch version on the card, at the
+  3. kernels: osg_decode vs its plain PyTorch version on the card, at the
               shapes of the main, server, shape and training paths and of a
               rank's part under the inference mesh (with
               gradients at the G-NeRF and EG3D step's shapes, fp32 and
               bf16, and at Greg's) and at the edge cases, with its time,
               its bound and the plain version's time.
- 3b. threefry: the threefry kernel (csrc/threefry.cu) vs its plain version
+ 3b. upfirdn2d: the FIR resampling kernel (csrc/upfirdn2d.cu) vs its plain
+              version (zero-insert, pad, depthwise F.conv2d) on the card at
+              the program's calls: the superresolution's up=2 layers and
+              skip-image upsamples at a 15-frame orbit chunk (bf16, fp32),
+              block1.conv0 at a train step (fp32) with its input gradient
+              and that gradient's down=2 call, D's down=2 skip; device and
+              call ms beside the byte bound, the plain version's ms and the
+              depthwise F.conv2d alone (the library yardstick).
+ 3c. threefry: the threefry kernel (csrc/threefry.cu) vs its plain version
               (int64 torch ops, then the float steps in torch) on the card
               at the step's draw shapes, a rank's block at data=2 and at
               rays=2 and the edges (n = 0, 1, 5003, past 2^24, counters past
@@ -152,10 +160,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               layer's magnitude EMA moved by `updated_magnitude_ema`; the
               card's fp32 output at batch 1 within 1e-3 of the same weights
               on the CPU; a profile of one forward with filtered_lrelu's
-              share of device time. It runs no hand-written kernel.
+              share of device time (filtered_lrelu's FIR passes run the
+              upfirdn2d kernel).
 The training phases draw from the CLI's step keys (`train.step_key`). The
-threefry kernel's launches are counted per path, each path's count set to
-0 just before it; main, train, eg3d and eg3d_ada must launch it.
+threefry and upfirdn2d kernels' launches are counted per path, each path's
+count set to 0 just before it; main, train, eg3d and eg3d_ada must launch
+threefry; every path must launch upfirdn2d, main exactly 12 for the identity
+prep and 4 a frame.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -278,7 +289,7 @@ def phase_build():
     the instance precedes them)."""
     from gnerf_tpu_torch.ops import cuda_build
 
-    secs = cuda_build.build(["osg_decode", "threefry"])
+    secs = cuda_build.build(["osg_decode", "threefry", "upfirdn2d"])
     for name, out in cuda_build.build_log.items():
         instance = name
         for line in out.splitlines():
@@ -474,6 +485,134 @@ def _train_gradients(feats, dec, row) -> bool:
     row["backward_bound_ms"] = moved / H100_BYTES_PER_S * 1e3
     del got, want, out
     return ok
+
+
+# The upfirdn2d calls of the program at full width (name, shape, dtype, up,
+# down, padding, flip_filter, gain; the filter is [1, 3, 3, 1], 4x4): the
+# superresolution's up=2 layers (block1.conv0, block0.conv0) and its skip
+# image's two upsamples at a 15-frame orbit chunk; block1.conv0 at a train
+# step (batch 4, fp32) and its input gradient (up and down swapped, the
+# filter flipped); D's down=2 skip at the step's [4, 512, 64^2].
+FIR_CASES = [
+    ("orbit_block1_bf16", (ORBIT_FRAMES, 256, 256, 256), "bfloat16", 2, 1, (3, 2, 3, 2), False, 4),
+    ("orbit_block0_bf16", (ORBIT_FRAMES, 32, 128, 128), "bfloat16", 2, 1, (3, 2, 3, 2), False, 4),
+    ("orbit_skip128_f32", (ORBIT_FRAMES, 3, 128, 128), "float32", 2, 1, (2, 1, 2, 1), False, 4),
+    ("orbit_skip256_f32", (ORBIT_FRAMES, 3, 256, 256), "float32", 2, 1, (2, 1, 2, 1), False, 4),
+    ("train_block1_f32", (TRAIN_BATCH, 256, 256, 256), "float32", 2, 1, (3, 2, 3, 2), False, 4),
+    ("train_block1_grad_f32", (TRAIN_BATCH, 256, 514, 514), "float32", 1, 2, (0, 0, 0, 0), True,
+     4),
+    ("train_d_down2_f32", (TRAIN_BATCH, 512, 64, 64), "float32", 1, 2, (1, 1, 1, 1), False, 1),
+]
+FIR_PREP_LAUNCHES = 12   # an identity prep: the backbone's 6 up blocks, conv0 and skip image
+FIR_FRAME_LAUNCHES = 4   # an SR forward: block0 and block1, conv0 (up=2) and skip image
+
+
+def _fir_library_call(x, f, up, down, padding, flip_filter, gain):
+    """The library yardstick: the plain version's depthwise F.conv2d alone
+    (stride `down`), on its prepared input (zero-inserted and padded)."""
+    import torch
+    import torch.nn.functional as F
+
+    padx0, padx1, pady0, pady1 = padding
+    n, c, h, w = x.shape
+    xp = F.pad(x.reshape(n, c, h, 1, w, 1), [0, up - 1, 0, 0, 0, up - 1])
+    xp = F.pad(xp.reshape(n, c, h * up, w * up),
+               [max(padx0, 0), max(padx1, 0), max(pady0, 0), max(pady1, 0)]).contiguous()
+    f = (f * gain).to(x.dtype)  # a 2-D filter: gain ** (f.dim() / 2)
+    if not flip_filter:
+        f = f.flip([0, 1])
+    f = f[None, None].repeat([c, 1, 1, 1])
+    return lambda: F.conv2d(xp, f, stride=down, groups=c)
+
+
+def phase_upfirdn2d() -> dict:
+    """The upfirdn2d kernel (csrc/upfirdn2d.cu, through `ops.upfirdn2d`) vs
+    its plain version (`_plain`: zero-insert, pad, depthwise F.conv2d) on the
+    card at `FIR_CASES`, in the working type, within the tolerances of
+    tests/test_torch_upfirdn2d.py: fp32 within 1e-5 of the largest output
+    (the same products summed in another order); bf16 within 2^-7 relative
+    and 2^-7 of the largest (the kernel rounds an fp32 sum once, the plain
+    version rounds in bf16). At `train_block1_f32` also the input gradient of
+    the Function against autograd through the plain version, within 1e-5 of
+    its largest. Each case with the kernel's device ms (torch.profiler over
+    20 calls) and call ms (CUDA events), its byte bound (input read once,
+    output written once at the HBM rate), the plain version's ms and the
+    library's: the depthwise F.conv2d alone on the plain version's prepared
+    input. Returns {name: row}."""
+    import importlib
+
+    import torch
+
+    from gnerf_tpu_torch import ops
+
+    fir = importlib.import_module("gnerf_tpu_torch.ops.upfirdn2d")
+    f = ops.setup_filter([1, 3, 3, 1], device="cuda")
+    results = {}
+    for name, shape, dtype, up, down, padding, flip, gain in FIR_CASES:
+        dtype = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        conf = ((up, up), (down, down), padding, flip, float(gain))
+        before = ops.upfirdn2d.launches
+        got = ops.upfirdn2d(x, f, up=up, down=down, padding=padding, flip_filter=flip, gain=gain)
+        want = fir._plain(x, f, *conf)
+        torch.cuda.synchronize()
+        slack = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (ops.upfirdn2d.launches == before + 1 and got.shape == want.shape
+              and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=slack, atol=slack * scale))
+        row = {"shape": list(shape), "out": list(got.shape), "dtype": str(dtype)[6:], "up": up,
+               "down": down, "padding": list(padding), "flip_filter": flip,
+               "max_abs_err": err, "of_largest": scale}
+        del want
+        torch.cuda.empty_cache()
+        row["ms"], per_call = kernel_device_ms(
+            lambda: ops.upfirdn2d(x, f, up=up, down=down, padding=padding, flip_filter=flip,
+                                  gain=gain), 20, "upfirdn2d_kernel")
+        ok = ok and per_call == 1
+        row["call_ms"] = cuda_ms(lambda: ops.upfirdn2d(x, f, up=up, down=down, padding=padding,
+                                                       flip_filter=flip, gain=gain),
+                                 iters=20, warmup=3)
+        row["plain_ms"] = cuda_ms(lambda: fir._plain(x, f, *conf), iters=5, warmup=1)
+        row["library_ms"] = cuda_ms(_fir_library_call(x, f, up, down, padding, flip, gain),
+                                    iters=20, warmup=3)
+        row["bound_ms"] = ((x.numel() + got.numel()) * x.element_size()
+                           / H100_BYTES_PER_S * 1e3)
+        msg = (f"[upfirdn2d] {name} {list(shape)} {row['dtype']} up={up} down={down} "
+               f"padding={padding} flip={flip} gain={gain}: max_abs_err={err:.3e} of "
+               f"{scale:.3e} (rtol {slack:g}, atol {slack:g} of the largest) kernel_ms="
+               f"{row['ms']:.4f} (device; call {row['call_ms']:.4f}) bound_ms="
+               f"{row['bound_ms']:.4f} (bytes) roofline={row['bound_ms'] / row['ms']:.3f} "
+               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f}")
+        del got
+        if name == "train_block1_f32":
+            xg = x.detach().requires_grad_()
+            gy = torch.randn(row["out"], generator=gen, device="cuda")
+            before = ops.upfirdn2d.launches
+            (gx,) = torch.autograd.grad(
+                ops.upfirdn2d(xg, f, up=up, padding=padding, gain=gain), xg, gy)
+            launched = ops.upfirdn2d.launches - before
+            (gw,) = torch.autograd.grad(fir._plain(xg, f, *conf), xg, gy)
+            torch.cuda.synchronize()
+            gscale = gw.abs().max().item()
+            row["grad_max_err"] = (gx - gw).abs().max().item()
+            ok = (ok and launched == 2 and bool(torch.isfinite(gx).all())
+                  and torch.allclose(gx, gw, rtol=0, atol=1e-5 * gscale))
+            msg += (f"; input gradient (kernel Function, {launched} launches) vs autograd of "
+                    f"the plain version: max_abs_err={row['grad_max_err']:.3e} of {gscale:.3e} "
+                    "(atol 1e-5 of the largest)")
+            del xg, gy, gx, gw
+        log(msg + ("" if ok else " FAILED"))
+        if not ok:
+            raise SystemExit(f"chip_smoke: upfirdn2d {name} disagrees with its plain version")
+        results[name] = row
+        del x
+        torch.cuda.empty_cache()
+    frame = sum(results[k]["ms"] for k in results if k.startswith("orbit_")) / ORBIT_FRAMES
+    log(f"[upfirdn2d] kernel device ms a frame (the 4 orbit calls / {ORBIT_FRAMES}): {frame:.4f}")
+    return results
 
 
 def threefry_bound_ms(n: int, kind: str = "bits") -> tuple[float, str]:
@@ -3073,19 +3212,22 @@ def main(argv=None) -> int:
     resolve_device("cuda")  # TF32 off for fp32 products
     phase_build()
     kern = phase_kernels()
+    fir = phase_upfirdn2d()
     fry = phase_threefry()
     phase_small()
     phase_prng()
     from gnerf_tpu_torch.ops.threefry import threefry_draw
+    from gnerf_tpu_torch.ops.upfirdn2d import upfirdn2d
 
-    launches, fry_launches = {}, {}
+    launches, fry_launches, fir_launches = {}, {}, {}
 
     def path(name, fn, *a):
-        """Runs a path with the threefry count set to 0 just before it; keeps
-        what it launched."""
-        threefry_draw.launches = 0
+        """Runs a path with the threefry and upfirdn2d counts set to 0 just
+        before it; keeps what each launched."""
+        threefry_draw.launches = upfirdn2d.launches = 0
         out = fn(*a)
         fry_launches[name] = threefry_draw.launches
+        fir_launches[name] = upfirdn2d.launches
         return out
 
     launches["main"], main_frames = path("main", phase_main, args.frames)
@@ -3100,11 +3242,20 @@ def main(argv=None) -> int:
     launches["eval"] = path("eval", phase_eval)
     launches["ddp"] = path("ddp", phase_ddp)
     launches["infer_ddp"] = phase_infer_ddp(args.frames, main_frames, volume)
-    phase_sg3()
+    path("sg3", phase_sg3)
     log(f"[threefry] launches by path (this process): {fry_launches}")
     idle = [p for p in ("main", "train", "eg3d", "eg3d_ada") if not fry_launches[p]]
     if idle:
         raise SystemExit(f"chip_smoke: the threefry kernel never launched on {idle}")
+    want_main = FIR_PREP_LAUNCHES + FIR_FRAME_LAUNCHES * args.frames
+    log(f"[upfirdn2d] launches by path (this process): {fir_launches} (main: want {want_main}, "
+        f"{FIR_PREP_LAUNCHES} an identity prep and {FIR_FRAME_LAUNCHES} a frame)")
+    if fir_launches["main"] != want_main:
+        raise SystemExit(f"chip_smoke: upfirdn2d launched {fir_launches['main']} times on main, "
+                         f"want {want_main}")
+    idle = [p for p, n in fir_launches.items() if not n]
+    if idle:
+        raise SystemExit(f"chip_smoke: the upfirdn2d kernel never launched on {idle}")
 
     log(f"[wall] chip_smoke.py: {time.perf_counter() - start:.1f} s from start to the results "
         "(host clock, the kernels' build included)")
@@ -3133,6 +3284,17 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_by_path": fry_launches,
         "shapes": fry,
+    }, {
+        "name": "upfirdn2d", "route": "cuda",
+        "source": "gnerf_tpu_torch/csrc/upfirdn2d.cu",
+        "replaces": "none: JAX's upfirdn2d is one XLA convolution (gnerf_tpu/ops/upfirdn2d.py)",
+        "launches": fir_launches["main"], "max_abs_err": fir["orbit_block1_bf16"]["max_abs_err"],
+        "ms": fir["orbit_block1_bf16"]["ms"], "call_ms": fir["orbit_block1_bf16"]["call_ms"],
+        "plain_ms": fir["orbit_block1_bf16"]["plain_ms"],
+        "bound_ms": fir["orbit_block1_bf16"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": fir["orbit_block1_bf16"]["library_ms"],
+        "launches_by_path": fir_launches,
+        "shapes": fir,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 Port of `gnerf_tpu/ops/filtered_lrelu.py`: bias -> zero-insert upsample ->
 FIR fu -> gain -> leaky ReLU -> clamp -> FIR fd -> downsample, composed of
-`bias_act` and `upfirdn2d`. The gradient comes from autograd through
-`upfirdn2d`'s convolutions (`_Conv2d`).
+`bias_act` and `upfirdn2d` (on CUDA its kernel, `csrc/upfirdn2d.cu`, and
+its Function's gradient; on the CPU autograd through the plain version's
+convolutions). Fusing the two FIR passes and the activation into one pass
+is later work.
 """
 
 from __future__ import annotations

@@ -1,20 +1,32 @@
-"""Up-FIR-down 2D resampling as plain PyTorch.
+"""Up-FIR-down 2D resampling: the hand-written kernel and its plain version.
 
 Port of `gnerf_tpu/ops/upfirdn2d.py`: zero-insert upsample -> pad/crop ->
 FIR filter (convolution unless `flip_filter`) scaled by `gain` -> keep
-every `down`-th sample. Differentiable (twice, for R1) through autograd. Padding is
-given w.r.t. the upsampled image; negative padding crops. The helpers
-`filter2d` / `upsample2d` / `downsample2d` keep the reference padding
-conventions.
+every `down`-th sample. Padding is given w.r.t. the upsampled image;
+negative padding crops. The helpers `filter2d` / `upsample2d` /
+`downsample2d` keep the reference padding conventions.
+
+`upfirdn2d` launches `csrc/upfirdn2d.cu` for a CUDA tensor (one polyphase
+pass, no zero-inserted or padded copy) or raises; a CPU tensor takes the
+plain version (`_plain`: zero-insert, pad, depthwise `conv2d`). The
+gradient is `_Upfirdn2d`: upfirdn2d again with up and down swapped, the
+filter flipped and the padding derived, through the same Function, so it
+is differentiable twice (R1), as the JAX op's `custom_vjp`.
+`upfirdn2d.launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import span
 
 
 def _parse_scaling(scaling) -> tuple[int, int]:
@@ -102,30 +114,21 @@ class _Conv2d(torch.autograd.Function):
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
            groups: int = 1) -> torch.Tensor:
-    """F.conv2d, through `_Conv2d` when autograd records it (training):
-    the convolution of every op in this package's resampling stack."""
+    """F.conv2d, through `_Conv2d` when autograd records it (training): the
+    weight convolutions of `conv2d_resample` and `training/augment.py`, and
+    the plain version's FIR convolutions."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv2d.apply(x, w, stride, padding, groups)
     return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
 
 
-def upfirdn2d(
-    x: torch.Tensor,
-    f: Optional[torch.Tensor],
-    up: Union[int, Sequence[int]] = 1,
-    down: Union[int, Sequence[int]] = 1,
-    padding: Union[int, Sequence[int]] = 0,
-    flip_filter: bool = False,
-    gain: float = 1,
-) -> torch.Tensor:
-    """Pad, upsample, filter and downsample [N, C, H, W] images."""
-    if x.dim() != 4:
-        raise ValueError(f"x must be [N, C, H, W], got {tuple(x.shape)}")
+def _plain(x: torch.Tensor, f: Optional[torch.Tensor], up: tuple, down: tuple,
+           padding: tuple, flip_filter: bool, gain: float) -> torch.Tensor:
+    """The plain version, differentiable through autograd (`conv2d`)."""
     if f is None:
         f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
-    upx, upy = _parse_scaling(up)
-    downx, downy = _parse_scaling(down)
-    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    (upx, upy), (downx, downy) = up, down
+    padx0, padx1, pady0, pady1 = padding
     n, c, h, w = x.shape
 
     # Zero-insert after every sample.
@@ -147,6 +150,116 @@ def upfirdn2d(
         x = conv2d(x, f.unsqueeze(2), groups=c)
         x = conv2d(x, f.unsqueeze(3), groups=c)
     return x[:, :, ::downy, ::downx]
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from .cuda_build import load
+
+    lib = load("upfirdn2d")
+    lib.upfirdn2d_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
+                                     + [ctypes.c_float, ctypes.c_void_p])
+    lib.upfirdn2d_launch.restype = ctypes.c_int
+    return lib
+
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch(x: torch.Tensor, f: Optional[torch.Tensor], up: tuple, down: tuple,
+            padding: tuple, flip_filter: bool, gain: float) -> torch.Tensor:
+    """One launch of `csrc/upfirdn2d.cu` on x's device and current stream."""
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the upfirdn2d kernel takes float32 or bfloat16, not {x.dtype}")
+    (upx, upy), (downx, downy) = up, down
+    padx0, padx1, pady0, pady1 = padding
+    fw, fh = _get_filter_size(f)
+    n, c, h, w = x.shape
+    oh = (h * upy + pady0 + pady1 - fh) // downy + 1
+    ow = (w * upx + padx0 + padx1 - fw) // downx + 1
+    if oh < 1 or ow < 1:
+        raise ValueError(f"upfirdn2d: the padded {h * upy}x{w * upx} image is smaller than "
+                         f"the {fh}x{fw} filter")
+    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    if max(n * c, h * w, oh * ow, h * upy, w * upx) >= 1 << 31:
+        raise ValueError(f"upfirdn2d: {tuple(x.shape)} -> {tuple(y.shape)} needs 64-bit "
+                         "indices within a plane")
+    x = x.contiguous()
+    if f is not None:
+        f = f.to(device=x.device, dtype=torch.float32).contiguous()
+    scale = float(gain ** ((2 if f is None else f.dim()) / 2))
+    args = (x.data_ptr(), y.data_ptr(), 0 if f is None else f.data_ptr(),
+            _KERNEL_DTYPES[x.dtype], n * c, h, w, oh, ow, upx, upy, downx, downy, padx0, pady0,
+            fw, fh, int(f is not None and f.dim() == 1), int(flip_filter), scale)
+    # The span gives the launch a host op to be charged to, as an ATen op
+    # would be: in a profile its device time is counted in the spans around
+    # the call (`sr`), not in the nearest enclosing `gnerf.` span.
+    with span("upfirdn2d"), torch.cuda.device(x.device):
+        err = _library().upfirdn2d_launch(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"upfirdn2d kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        upfirdn2d.launches += 1
+    return y
+
+
+class _Upfirdn2d(torch.autograd.Function):
+    """upfirdn2d with the gradient of the JAX op's `custom_vjp`: upfirdn2d of
+    the output gradient with up and down swapped, the filter flipped and the
+    padding derived, applied through this Function again, so that R1 can
+    differentiate it once more. The filter takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, flip_filter, gain):
+        y = _launch(x, f, up, down, padding, flip_filter, gain)
+        ctx.save_for_backward(f)
+        ctx.conf = (x.shape, y.shape, up, down, padding, flip_filter, gain)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (f,) = ctx.saved_tensors
+        (_, _, ih, iw), (_, _, oh, ow), up, down, padding, flip_filter, gain = ctx.conf
+        (upx, upy), (downx, downy) = up, down
+        padx0, _, pady0, _ = padding
+        fw, fh = _get_filter_size(f)
+        p = (fw - padx0 - 1, iw * upx - ow * downx + padx0 - upx + 1,
+             fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
+        dx = _Upfirdn2d.apply(dy, f, down, up, p, not flip_filter, gain)
+        return dx, None, None, None, None, None, None
+
+
+def upfirdn2d(
+    x: torch.Tensor,
+    f: Optional[torch.Tensor],
+    up: Union[int, Sequence[int]] = 1,
+    down: Union[int, Sequence[int]] = 1,
+    padding: Union[int, Sequence[int]] = 0,
+    flip_filter: bool = False,
+    gain: float = 1,
+) -> torch.Tensor:
+    """Pad, upsample, filter and downsample [N, C, H, W] images. A CUDA
+    tensor launches the kernel (or raises); a CPU tensor takes the plain
+    version. `upfirdn2d.launches` counts the kernel's launches."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N, C, H, W], got {tuple(x.shape)}")
+    if f is not None and f.dim() not in (1, 2):
+        raise ValueError(f"f must be [taps] or [h, w], got {tuple(f.shape)}")
+    args = (_parse_scaling(up), _parse_scaling(down), _parse_padding(padding),
+            bool(flip_filter), float(gain))
+    if x.device.type != "cuda":
+        if x.device.type != "cpu":
+            raise ValueError(f"upfirdn2d runs on cuda or cpu, not {x.device}")
+        return _plain(x, f, *args)
+    if f is not None and f.requires_grad:
+        raise ValueError("upfirdn2d's kernel takes no gradient for the filter")
+    return _Upfirdn2d.apply(x, f, *args)
+
+
+_count_lock = threading.Lock()
+upfirdn2d.launches = 0
 
 
 def filter2d(x, f, padding=0, flip_filter=False, gain=1):

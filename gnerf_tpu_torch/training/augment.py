@@ -15,9 +15,10 @@ exist, so it is kept as JAX has it. The reflection is index-based, as
 (which `F.pad` refuses). The warp is `F.grid_sample` (bilinear, zeros
 outside, align_corners=False: JAX's `grid_sample_2d` convention) through
 `_Warp`, whose derivatives of every order are warps and transposed warps.
-Every FIR convolution goes through `ops/upfirdn2d.py::conv2d`, so R1
-differentiates through the pipe without PyTorch's convolution double
-backward.
+The geometric step's up- and downsampling is `upfirdn2d` (on CUDA its
+kernel, whose gradient is upfirdn2d again); the imgfilter's per-sample
+convolutions go through `ops/upfirdn2d.py::conv2d`; so R1 differentiates
+through the pipe without PyTorch's convolution double backward.
 
 Draws come from a key (`utils.prng`), split into 32 keys taken in the JAX
 package's order (imgfilter splits its own), so a key gives JAX's draws.

@@ -161,6 +161,88 @@ def test_upfirdn2d_double_backward_is_not_per_channel():
     assert convs < c, convs
 
 
+def test_upfirdn2d_takes_the_plain_route_on_the_cpu(monkeypatch):
+    """A CPU tensor never reaches the kernel: the launch is not called, the
+    launch count stays, and the result is the plain version's."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("gnerf_tpu_torch.ops.upfirdn2d")
+
+    def no_launch(*args):
+        raise AssertionError("the kernel was launched for a CPU tensor")
+
+    monkeypatch.setattr(mod, "_launch", no_launch)
+    x = torch.randn(2, 3, 9, 7)
+    f = ops.setup_filter([1, 3, 3, 1])
+    before = ops.upfirdn2d.launches
+    for grad in (False, True):
+        xg = x.clone().requires_grad_(grad)
+        got = ops.upfirdn2d(xg, f, up=2, padding=(2, 1, 2, 1), gain=4)
+        want = mod._plain(x, f, (2, 2), (1, 1), (2, 1, 2, 1), False, 4.0)
+        torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    assert ops.upfirdn2d.launches == before
+    with pytest.raises(ValueError):
+        ops.upfirdn2d(x.to("meta"), f)
+
+
+def _upfirdn2d_filter(kind):
+    import torch
+
+    if kind == "none":
+        return None
+    if kind == "sep12":
+        return ops.setup_filter(list(np.random.RandomState(12).rand(12) + 0.5))
+    if kind == "asym":
+        return torch.tensor(np.random.RandomState(35).rand(3, 5), dtype=torch.float32)
+    return ops.setup_filter([1, 3, 3, 1])
+
+
+@pytest.mark.parametrize("kind,up,down,padding,flip", [
+    ("4x4", 2, 1, (3, 2, 3, 2), False),        # SR's up=2 conv0
+    ("4x4", 1, 2, (1, 1, 1, 1), False),        # D's FIR downsampling
+    ("4x4", 1, 2, (1, 1, 1, 1), True),         # the up=2 layers' gradient
+    ("4x4", 1, 1, (-1, 2, 2, -1), False),      # negative padding = crop
+    ("none", 1, 1, (1, 0, 2, -1), False),      # pad-only, no filter
+    ("sep12", 2, 1, (6, 5, 6, 5), False),      # ADA's 12 taps
+    ("sep12", 1, 2, (3, 2, -1, -2), True),
+    ("asym", (2, 1), (1, 3), (0, 1, 2, 0), False),
+])
+def test_upfirdn2d_gradient_formula_matches_autograd(monkeypatch, kind, up, down, padding,
+                                                     flip):
+    """The kernel's Function (`_Upfirdn2d`, its launch replaced by the plain
+    version, as the kernel has no CPU mode) in float64: its backward (up and
+    down swapped, filter flipped, padding derived) passes gradcheck and,
+    differentiated once more through itself, gradgradcheck, and equals
+    autograd through the plain version to the last bits of float64."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("gnerf_tpu_torch.ops.upfirdn2d")
+    monkeypatch.setattr(mod, "_launch", mod._plain)
+    f = _upfirdn2d_filter(kind)
+    up, down = mod._parse_scaling(up), mod._parse_scaling(down)
+    args = (up, down, mod._parse_padding(padding), flip, 2.0)
+    g = torch.Generator().manual_seed(len(kind) + sum(up) + sum(down))
+    x = torch.randn(1, 2, 16, 14, generator=g, dtype=torch.float64, requires_grad=True)
+
+    def fn(a):
+        return mod._Upfirdn2d.apply(a, f, *args)
+
+    assert torch.autograd.gradcheck(fn, (x,))
+    assert torch.autograd.gradgradcheck(fn, (x,))
+    out = {}
+    for name, route in (("function", fn), ("plain", lambda a: mod._plain(a, f, *args))):
+        y = route(x)
+        (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        (ggx,) = torch.autograd.grad(gx.square().sum(), x)
+        out[name] = (y, gx, ggx)
+    for a, b in zip(out["function"], out["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("stride,padding,size,groups", [(1, 1, 9, 1), (2, 0, 10, 1), (2, 0, 9, 1),
                                                          (1, 0, 8, 2)])
 def test_conv2d_twice_differentiated_matches_native(stride, padding, size, groups):
