@@ -21,6 +21,7 @@ from ..ops.interpolate import interpolate_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..parallel.sharding import draw, global_rows
 from ..utils import prng
+from ..utils.profiling import profiled_function
 from .stylegan2 import Discriminator
 
 
@@ -86,6 +87,7 @@ class DualDiscriminator(Discriminator):
             c = c + noise * global_rows(c).std(dim=0, correction=0) * self.disc_c_noise
         return super().forward(x, c, dtype=dtype)
 
+    @profiled_function("disc")
     def apply(self, img, c=None, rng=None, dtype=torch.float32) -> torch.Tensor:
         return self.forward(img, c, rng=rng, dtype=dtype)
 
@@ -107,5 +109,6 @@ class DummyDualDiscriminator(Discriminator):
         x = torch.cat([img["image"], _resized_raw(img, "antialiased") * raw_fade], dim=1)
         return super().forward(x, c, dtype=dtype)
 
+    @profiled_function("disc")
     def apply(self, img, c=None, raw_fade=1.0, dtype=torch.float32) -> torch.Tensor:
         return self.forward(img, c, raw_fade=raw_fade, dtype=dtype)

@@ -28,6 +28,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 
 def _size(group) -> int:
     return dist.get_world_size(group)
@@ -99,8 +101,9 @@ def pmean_grads(grads: Sequence[Optional[torch.Tensor]], group) -> list:
     for idx in by_dtype.values():
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
         if group is not None:
-            dist.all_reduce(flat, group=group)
-            flat.div_(_size(group))
+            with span("ddp.allreduce"):
+                dist.all_reduce(flat, group=group)
+                flat.div_(_size(group))
         torch.nan_to_num_(flat, nan=0.0, posinf=1e5, neginf=-1e5)
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             out[i] = part.view_as(grads[i])

@@ -59,6 +59,7 @@ from ..parallel.mesh import Mesh, active_mesh, use_mesh
 from ..parallel.sharding import data_mean, draw, global_rows, local_rows, mean_stats
 from ..utils import prng
 from ..utils.misc import ema_update
+from ..utils.profiling import profiled_function, span
 from .train_loop import checkpointed, ray_overrides
 
 @dataclasses.dataclass(frozen=True)
@@ -363,10 +364,11 @@ def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor) -> None:
     grads = torch.autograd.grad(loss, params, materialize_grads=True)
     mesh = active_mesh()
     grads = pmean_grads(grads, mesh.group if mesh is not None else None)
-    for p, gr in zip(params, grads):
-        p.grad = gr
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    with span("eg3d.optimizer"):
+        for p, gr in zip(params, grads):
+            p.grad = gr
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 @torch.no_grad()
@@ -383,7 +385,8 @@ def _finish_main(state: EG3DState, n: int) -> None:
     is this rank's rows; the batch is the global one."""
     mesh = active_mesh()
     n *= mesh.data if mesh is not None else 1
-    ema_update(state.g_ema.state_dict(), state.g.state_dict(), 0.5 ** (n / (10 * 1000.0)))
+    with span("eg3d.ema"):
+        ema_update(state.g_ema.state_dict(), state.g.state_dict(), 0.5 ** (n / (10 * 1000.0)))
     state.cur_nimg += n
 
 
@@ -495,6 +498,32 @@ def _on_mesh(step: Callable, mesh: Optional[Mesh]) -> Callable:
     return run
 
 
+@profiled_function("eg3d.gmain")
+def gmain_phase(run_g, run_d, state: EG3DState, batch, k_g, noise, blur_sigma, blur_size, res,
+                aug_p=0.0):
+    """Gmain of the lazy step: G's loss on fresh fakes, one Adam step of G
+    and the w_avg update; `k_g` splits into G's and the augmentation's
+    keys. Returns (the loss, stats)."""
+    k_gen, k_aug = prng.split(k_g)
+    loss_g, ws, stats = _g_main(run_g, run_d, state, batch, k_gen, k_aug, noise, blur_sigma,
+                                blur_size, res, aug_p)
+    _adam_step(state.opt_g, loss_g)
+    _update_w_avg(state.g, ws[:, 0].detach())
+    return loss_g.detach(), stats
+
+
+@profiled_function("eg3d.dmain")
+def dmain_phase(run_g, run_d, state: EG3DState, batch, k_d, noise, blur_sigma, blur_size, res,
+                aug_p=0.0):
+    """Dmain of the lazy step: D's loss on fakes of the updated G and on the
+    reals, and one Adam step of D; `k_d` splits into G's and the fakes' and
+    the reals' augmentation keys. Returns (the loss, stats)."""
+    loss_d, _, stats = _d_main(run_g, run_d, state, batch, prng.split(k_d, 3), noise,
+                               blur_sigma, blur_size, res, aug_p)
+    _adam_step(state.opt_d, loss_d)
+    return loss_d.detach(), stats
+
+
 def make_eg3d_train_step(cfg: EG3DLossConfig, rendering_overrides: Optional[dict] = None,
                          mesh: Optional[Mesh] = None) -> Callable:
     """The fused step (density reg and R1 in every step, no lazy scaling):
@@ -574,25 +603,21 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
         res = res or cfg.neural_rendering_resolution
         noise = rng is not None
         k_g, k_d = prng.split(rng if noise else _NO_KEY)
-        k_gen, k_aug = prng.split(k_g)
-        loss_g, ws, stats = _g_main(run_g, run_d, state, batch, k_gen, k_aug, noise, blur_sigma,
+        loss_g, stats = gmain_phase(run_g, run_d, state, batch, k_g, noise, blur_sigma,
                                     blur_size, res, aug_p)
-        _adam_step(state.opt_g, loss_g)
-        _update_w_avg(state.g, ws[:, 0].detach())
-        del ws
-        loss_d, _, d_stats = _d_main(run_g, run_d, state, batch, prng.split(k_d, 3), noise,
-                                     blur_sigma, blur_size, res, aug_p)
-        _adam_step(state.opt_d, loss_d)
+        loss_d, d_stats = dmain_phase(run_g, run_d, state, batch, k_d, noise, blur_sigma,
+                                      blur_size, res, aug_p)
         _finish_main(state, int(batch["z"].shape[0]))
         stats.update(d_stats)
-        stats["Loss/G/total"] = loss_g.detach()
-        stats["Loss/D/total"] = loss_d.detach()
+        stats["Loss/G/total"] = loss_g
+        stats["Loss/D/total"] = loss_d
         return state, stats
 
     greg_step = dreg_step = None
     if cfg.density_reg > 0:
         gain_g = float(max(cfg.g_reg_interval, 1))
 
+        @profiled_function("eg3d.greg")
         def greg_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None):
             """Fresh mapping under the swapped conditioning, no synthesis:
             the density TV at random points, times the lazy gain."""
@@ -607,6 +632,7 @@ def make_eg3d_phase_steps(cfg: EG3DLossConfig, rendering_overrides: Optional[dic
     if cfg.r1_gamma > 0:
         gain_d = float(max(cfg.d_reg_interval, 1))
 
+        @profiled_function("eg3d.dreg")
         def dreg_step(state: EG3DState, batch, rng: Optional[torch.Tensor] = None,
                       blur_sigma: float = 0.0, aug_p: float = 0.0, *, blur_size: int = 0,
                       res: Optional[int] = None):

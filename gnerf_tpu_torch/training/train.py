@@ -632,29 +632,65 @@ def eg3d_loss_config(rendering_kwargs, train_cfg, neural_rendering_resolution: i
         g_reg_interval=int(density_reg_every), d_reg_interval=int(d_reg_interval))
 
 
+def eg3d_loop_step(state, phases, cfg, host_batch: dict, seed: int, aug_p: float, ada, *,
+                   batch: int, device, mesh=None) -> tuple[dict, float]:
+    """One step of the EG3D loop at `state.cur_nimg`, as the CLI takes it:
+    Gmain + Dmain every step, Greg when sched_idx = cur_nimg // batch is a
+    multiple of g_reg_interval, Dreg when it is one of d_reg_interval.
+
+    `phases` is (main, greg, dreg) of `make_eg3d_phase_steps` (greg and
+    dreg None: the fused `make_eg3d_train_step` as main). `host_batch` is a
+    collated dataset batch (this rank's rows under `mesh`) and `batch` the
+    global batch. The step's key `step_key(seed, cur_nimg)` splits into z's
+    and the phases' (kz, ks); z is normal(fold_in(kz, 0)) at the global
+    batch, each rank keeping its rows (the JAX single-process mesh run,
+    whose process index is 0); Gmain + Dmain run on ks, Greg on
+    fold_in(ks, 1), Dreg on fold_in(ks, 2), under the blur and render
+    resolution of the schedules at cur_nimg and the ADA strength `aug_p`.
+    Returns (the phases' stats, the p the ADA controller `ada` gives the
+    next step)."""
+    from ..parallel import local_rows
+    from ..utils import prng
+    from .eg3d_loss import blur_kernel_size, blur_sigma_schedule, neural_resolution_schedule
+
+    main_fn, greg_fn, dreg_fn = phases
+    cur_nimg = state.cur_nimg
+    kz, ks = prng.split(step_key(seed, cur_nimg))
+    c = torch.from_numpy(np.asarray(host_batch["loss_c"], np.float32)).to(device)
+    real = torch.from_numpy(np.asarray(host_batch["loss_image"])).to(device)
+    # z for the global batch, as world 1 draws it; this rank's rows.
+    z = local_rows(prng.normal(prng.fold_in(kz, 0), (batch, state.g.z_dim), device=device),
+                   mesh)
+    gan_batch = {"z": z, "c": c, "real_image": real.float() / 127.5 - 1.0, "real_c": c}
+    sigma = blur_sigma_schedule(cur_nimg, cfg)
+    size = blur_kernel_size(sigma)
+    sigma = max(sigma, 1e-8)
+    res = neural_resolution_schedule(cur_nimg, cfg)
+    sched_idx = cur_nimg // batch
+    _, stats = main_fn(state, gan_batch, ks, sigma, aug_p, blur_size=size, res=res)
+    if greg_fn is not None and sched_idx % max(cfg.g_reg_interval, 1) == 0:
+        stats.update(greg_fn(state, gan_batch, prng.fold_in(ks, 1))[1])
+    if dreg_fn is not None and sched_idx % max(cfg.d_reg_interval, 1) == 0:
+        stats.update(dreg_fn(state, gan_batch, prng.fold_in(ks, 2), sigma, aug_p,
+                             blur_size=size, res=res)[1])
+    return stats, ada.report(stats["Loss/signs/real"])
+
+
 def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, dataset_name,
                 data, real_data, z_dim, w_dim, resume, eg3d, device, mesh):
     """EG3D adversarial pretraining (z, c) -> image at the JAX loop's
-    cadence: Gmain + Dmain every step, Greg when sched_idx = cur_nimg //
-    batch is a multiple of g_reg_interval, Dreg when it is one of
-    d_reg_interval. The step's key splits into z's and the phases' (kz, ks);
-    z is normal(fold_in(kz, 0)) at the global batch, each rank keeping its
-    rows (the JAX single-process mesh run, whose process index is 0);
-    Gmain + Dmain run on ks, Greg on fold_in(ks, 1), Dreg on fold_in(ks, 2).
-    Under
-    `--aug ada` the controller averages 'Loss/signs/real' over each window
-    of ada_interval steps and moves p with `ada_update_p` (a resumed run
-    starts a fresh window, as the JAX loop does). Each tick writes
+    cadence, one `eg3d_loop_step` a step. Under `--aug ada` the controller
+    averages 'Loss/signs/real' over each window of ada_interval steps and
+    moves p with `ada_update_p` (a resumed run starts a fresh window, as
+    the JAX loop does). Each tick writes
     `network-snapshot-latest.npz` (G_ema, G, D), every `--snap` ticks
     `network-snapshot-NNNNNN.npz`, and the full state with the live ADA p
     (`aug_p_live`) in its config; `--resume` restores both."""
-    from ..parallel import local_rows, put_replicated
+    from ..parallel import put_replicated
     from ..utils import checkpoint as ckpt_lib
-    from ..utils import prng
     from ..utils.stats import Collector
-    from .eg3d_loss import (AdaController, blur_kernel_size, blur_sigma_schedule,
-                            init_eg3d_state, make_eg3d_phase_steps, make_eg3d_train_step,
-                            neural_resolution_schedule)
+    from .eg3d_loss import (AdaController, init_eg3d_state, make_eg3d_phase_steps,
+                            make_eg3d_train_step)
     from .train_loop import load_train_state, save_train_state
 
     seed, batch = train_cfg.random_seed, train_cfg.batch_size
@@ -707,32 +743,15 @@ def _train_eg3d(run_dir, options, train_cfg, rendering_kwargs, img_resolution, d
     try:
         with _stop_on_signals() as stop_requested:
             while cur_nimg < total_nimg and not _any_rank(stop_requested["flag"], mesh, device):
-                kz, ks = prng.split(step_key(seed, cur_nimg))
-                c = torch.from_numpy(np.asarray(pending["loss_c"], np.float32)).to(device)
-                real = torch.from_numpy(np.asarray(pending["loss_image"])).to(device)
-                # z for the global batch, as world 1 draws it; this rank's rows.
-                z = local_rows(prng.normal(prng.fold_in(kz, 0), (batch, g.z_dim), device=device),
-                               mesh)
-                gan_batch = {"z": z, "c": c, "real_image": real.float() / 127.5 - 1.0,
-                             "real_c": c}
+                stats, next_aug_p = eg3d_loop_step(state, (main_fn, greg_fn, dreg_fn), cfg,
+                                                   pending, seed, cur_aug_p, ada, batch=batch,
+                                                   device=device, mesh=mesh)
                 pending = next(batches)
-                sigma = blur_sigma_schedule(cur_nimg, cfg)
-                size = blur_kernel_size(sigma)
-                sigma = max(sigma, 1e-8)
-                res = neural_resolution_schedule(cur_nimg, cfg)
-                sched_idx = cur_nimg // batch
-                _, stats = main_fn(state, gan_batch, ks, sigma, cur_aug_p, blur_size=size,
-                                   res=res)
-                if greg_fn is not None and sched_idx % max(cfg.g_reg_interval, 1) == 0:
-                    stats.update(greg_fn(state, gan_batch, prng.fold_in(ks, 1))[1])
-                if dreg_fn is not None and sched_idx % max(cfg.d_reg_interval, 1) == 0:
-                    stats.update(dreg_fn(state, gan_batch, prng.fold_in(ks, 2), sigma, cur_aug_p,
-                                         blur_size=size, res=res)[1])
                 cur_nimg = state.cur_nimg
                 for name, value in stats.items():
                     collector.report(name, value)
                 collector.report("Progress/augment", cur_aug_p)
-                cur_aug_p = ada.report(stats["Loss/signs/real"])
+                cur_aug_p = next_aug_p
                 if cur_nimg >= (tick_idx + 1) * tick_nimg or cur_nimg >= total_nimg:
                     tick_idx = max(tick_idx + 1, cur_nimg // tick_nimg)
                     if not lead:
