@@ -33,6 +33,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               pipe's, a synthesis network's noise, a mixed one of 40) against
               their single draws; one launch per ADA pipe call, backbone
               synthesis forward and SR forward.
+ 3d. triplane: the tri-plane sampling kernel (csrc/triplane_sample.cu) vs its
+              plain version, the F.grid_sample + transpose + cast route that
+              calls with a gradient take (also the library yardstick), on
+              the card, at the program's
+              no-gradient lookups on 32 x 256^2 planes: the orbit chunk (bf16,
+              N=1, M=15x64^2x96), the server micro-batch (bf16, N=4), EG3D's
+              Dmain fakes (fp32, N=4, M=64^2x48) and a shape-sweep chunk (fp32,
+              M=2^20), on ray-major orbit samples and voxel centres; fp32
+              within 1e-6, bf16 within one ulp; device and call ms beside the
+              byte bound (>= 60 % of it at the orbit chunk), and the plain
+              route's ms (as plain and as library ms).
   4. small:   a tiny generator on the card (fp32) vs the same weights on
               the CPU, through render + 8XDC, and through `sample_mixed`;
               the tiny G-NeRF train step with rng=None and seeded from a
@@ -166,7 +177,8 @@ The training phases draw from the CLI's step keys (`train.step_key`). The
 threefry and upfirdn2d kernels' launches are counted per path, each path's
 count set to 0 just before it; main, train, eg3d and eg3d_ada must launch
 threefry; every path must launch upfirdn2d, main exactly 12 for the identity
-prep and 4 a frame.
+prep and 4 a frame; triplane_sample launches twice a render call without a
+gradient (main exactly 2 a frame) and must launch on server and shapes.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
 table of one frame to FILE.
@@ -289,7 +301,7 @@ def phase_build():
     the instance precedes them)."""
     from gnerf_tpu_torch.ops import cuda_build
 
-    secs = cuda_build.build(["osg_decode", "threefry", "upfirdn2d"])
+    secs = cuda_build.build(["osg_decode", "threefry", "upfirdn2d", "triplane_sample"])
     for name, out in cuda_build.build_log.items():
         instance = name
         for line in out.splitlines():
@@ -612,6 +624,131 @@ def phase_upfirdn2d() -> dict:
         torch.cuda.empty_cache()
     frame = sum(results[k]["ms"] for k in results if k.startswith("orbit_")) / ORBIT_FRAMES
     log(f"[upfirdn2d] kernel device ms a frame (the 4 orbit calls / {ORBIT_FRAMES}): {frame:.4f}")
+    return results
+
+
+# (name, planes batch N, points M, dtype, points): the program's calls of
+# `sample_from_planes` without a gradient, at 32 x 256^2 planes.
+TRIPLANE_CASES = [
+    ("orbit_chunk_bf16", 1, ORBIT_FRAMES * MAIN_M, "bfloat16", "rays"),
+    ("server_mb4_bf16", 4, MAIN_M, "bfloat16", "rays"),
+    ("eg3d_dmain_f32", TRAIN_BATCH, TRAIN_M, "float32", "rays"),
+    ("shape_chunk_f32", 1, SHAPE_CHUNK, "float32", "grid"),
+]
+TRIPLANE_MIN_ROOFLINE = 0.60  # of the byte bound, at the orbit chunk
+
+
+def _triplane_points(n: int, m: int, kind: str, dev):
+    """[N, M, 3] points as the program makes them: `rays`, ray-major samples
+    of 64^2 rays from orbit cameras (FFHQ intrinsics, radius 2.7, yaw and
+    pitch spread as an orbit's), M / 4096 stratified depths in [2.25, 3.3],
+    the cameras folded into M when N = 1; `grid`, a middle chunk of the
+    256^3 sigma sweep's voxel centres."""
+    import torch
+
+    from gnerf_tpu_torch.infer.shape_utils import grid_points
+    from gnerf_tpu_torch.render.ray_sampler import sample_rays
+    from gnerf_tpu_torch.utils import camera
+
+    if kind == "grid":
+        lo = SHAPE_RES ** 3 // 2
+        return grid_points(SHAPE_RES, lo, lo + m, 1.0, device=dev)[None]
+    rays = 64 * 64
+    cams, depth = (m // MAIN_M, MAIN_M // rays) if n == 1 else (n, m // rays)
+    c2w = torch.cat([camera.lookat_sample(math.pi / 2 + 0.3 * math.sin(2 * math.pi * i / cams),
+                                          math.pi / 2 - 0.1 * math.cos(2 * math.pi * i / cams),
+                                          radius=2.7) for i in range(cams)])
+    intr = camera.FFHQ_INTRINSICS.expand(cams, 3, 3)
+    o, d = sample_rays(c2w.to(dev), intr.to(dev), 64)
+    t = torch.linspace(2.25, 3.3, depth, device=dev).reshape(1, 1, depth, 1)
+    pts = o[:, :, None] + t * d[:, :, None]  # [cams, rays, depth, 3]
+    return pts.reshape(n, m, 3)
+
+
+def _ulps_bf16(a, b) -> int:
+    """The largest distance in bf16 steps between same-signed values of the
+    bf16 tensors a and b."""
+    import torch
+
+    ia, ib = a.view(torch.int16).int(), b.view(torch.int16).int()
+    same = (ia < 0) == (ib < 0)
+    return int((ia - ib).abs()[same].max()) if bool(same.any()) else 0
+
+
+def phase_triplane() -> dict:
+    """The tri-plane sampling kernel (csrc/triplane_sample.cu, through
+    `ops.triplane_sample`) against its plain version on the card at
+    `TRIPLANE_CASES`, in the working type: `renderer.grid_sample_planes`,
+    the `F.grid_sample` + transpose + cast route that calls with a gradient
+    take and that no-gradient calls took before the kernel. fp32 within 1e-6
+    relative and 1e-6 of the largest output, bf16 within one ulp (and 1e-6
+    of the largest, for sums that cancel), with the count of elements that
+    differ. Each case with the kernel's device ms (torch.profiler over 20
+    calls; one launch a call), call ms (CUDA events: the channels-last copy
+    of the planes included), its byte bound (coordinates and planes read
+    once, the output written once, at the HBM rate) and the plain route's
+    ms, which is also the library yardstick. The orbit chunk's kernel must
+    reach TRIPLANE_MIN_ROOFLINE of its bound. Returns {name: row}."""
+    import torch
+
+    from gnerf_tpu_torch import ops
+    from gnerf_tpu_torch.render.renderer import grid_sample_planes
+
+    dev = torch.device("cuda")
+    c, side, box_warp = 32, 256, 1.0
+    results = {}
+    for name, n, m, dtype, kind in TRIPLANE_CASES:
+        dtype = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(n * m)
+        planes = torch.randn((n, 3, c, side, side), generator=gen, device=dev).to(dtype)
+        coords = _triplane_points(n, m, kind, dev)
+        before = ops.triplane_sample.launches
+        got = ops.triplane_sample(planes, coords, box_warp)
+        launched = ops.triplane_sample.launches - before
+        want = grid_sample_planes(planes, coords, box_warp)
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+        row = {"n": n, "m": m, "c": c, "h": side, "w": side, "dtype": str(dtype)[6:],
+               "of_largest": scale,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "differ": int((got != want).sum())}
+        if dtype == torch.bfloat16:
+            row["max_ulps"] = _ulps_bf16(got, want)
+        ok = (launched == 1 and got.shape == want.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=rtol, atol=1e-6 * scale))
+        del want, got
+        torch.cuda.empty_cache()
+        row["ms"], per_call = kernel_device_ms(
+            lambda: ops.triplane_sample(planes, coords, box_warp), 20, "triplane_sample_kernel")
+        row["call_ms"] = cuda_ms(lambda: ops.triplane_sample(planes, coords, box_warp),
+                                 iters=20, warmup=3)
+        row["plain_ms"] = row["library_ms"] = cuda_ms(
+            lambda: grid_sample_planes(planes, coords, box_warp), iters=5, warmup=1)
+        elt = planes.element_size()
+        row["bytes"] = n * m * (12 + 3 * c * elt) + planes.numel() * elt
+        row["bound_ms"] = row["bytes"] / H100_BYTES_PER_S * 1e3
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        ok = ok and per_call == 1
+        if name == "orbit_chunk_bf16":
+            ok = ok and row["roofline"] >= TRIPLANE_MIN_ROOFLINE
+        ulps = f", max {row['max_ulps']} ulp" if "max_ulps" in row else ""
+        log(f"[triplane] {name} N={n} M={m} C={c} {side}^2 {row['dtype']}: vs plain "
+            f"max_abs_err={row['max_abs_err']:.3e}, {row['differ']} differ{ulps} (of "
+            f"{scale:.3e}; rtol {rtol:g}, atol 1e-6 of the largest) kernel_ms={row['ms']:.4f} "
+            f"(device; call {row['call_ms']:.4f}) bound_ms={row['bound_ms']:.4f} (bytes) "
+            f"roofline={row['roofline']:.3f} plain_ms={row['plain_ms']:.4f} (the library "
+            "route)" + ("" if ok else " FAILED"))
+        if not ok:
+            raise SystemExit(f"chip_smoke: triplane_sample {name} disagrees with its plain "
+                             "version or misses its bound")
+        results[name] = row
+        del planes, coords
+        torch.cuda.empty_cache()
+    orbit = results["orbit_chunk_bf16"]
+    log(f"[triplane] ms a frame (2 orbit-chunk calls / {ORBIT_FRAMES}): kernel device "
+        f"{2 * orbit['ms'] / ORBIT_FRAMES:.4f}, plain route "
+        f"{2 * orbit['plain_ms'] / ORBIT_FRAMES:.4f}")
     return results
 
 
@@ -3214,20 +3351,23 @@ def main(argv=None) -> int:
     kern = phase_kernels()
     fir = phase_upfirdn2d()
     fry = phase_threefry()
+    tri = phase_triplane()
     phase_small()
     phase_prng()
     from gnerf_tpu_torch.ops.threefry import threefry_draw
+    from gnerf_tpu_torch.ops.triplane_sample import triplane_sample
     from gnerf_tpu_torch.ops.upfirdn2d import upfirdn2d
 
-    launches, fry_launches, fir_launches = {}, {}, {}
+    launches, fry_launches, fir_launches, tri_launches = {}, {}, {}, {}
 
     def path(name, fn, *a):
-        """Runs a path with the threefry and upfirdn2d counts set to 0 just
-        before it; keeps what each launched."""
-        threefry_draw.launches = upfirdn2d.launches = 0
+        """Runs a path with the threefry, upfirdn2d and triplane_sample
+        counts set to 0 just before it; keeps what each launched."""
+        threefry_draw.launches = upfirdn2d.launches = triplane_sample.launches = 0
         out = fn(*a)
         fry_launches[name] = threefry_draw.launches
         fir_launches[name] = upfirdn2d.launches
+        tri_launches[name] = triplane_sample.launches
         return out
 
     launches["main"], main_frames = path("main", phase_main, args.frames)
@@ -3256,6 +3396,17 @@ def main(argv=None) -> int:
     idle = [p for p, n in fir_launches.items() if not n]
     if idle:
         raise SystemExit(f"chip_smoke: the upfirdn2d kernel never launched on {idle}")
+    # A render call without a gradient samples the planes twice, coarse and
+    # fine (a frame on main, a batch or a 15-frame orbit chunk in the server);
+    # a sweep chunk once.
+    log(f"[triplane] launches by path (this process): {tri_launches} (main: want "
+        f"{launches['main']}, osg_decode's, 2 a render call)")
+    if tri_launches["main"] != launches["main"]:
+        raise SystemExit(f"chip_smoke: triplane_sample launched {tri_launches['main']} times on "
+                         f"main, want {launches['main']}")
+    idle = [p for p in ("server", "shapes") if not tri_launches[p]]
+    if idle:
+        raise SystemExit(f"chip_smoke: the triplane_sample kernel never launched on {idle}")
 
     log(f"[wall] chip_smoke.py: {time.perf_counter() - start:.1f} s from start to the results "
         "(host clock, the kernels' build included)")
@@ -3295,6 +3446,19 @@ def main(argv=None) -> int:
         "library_ms": fir["orbit_block1_bf16"]["library_ms"],
         "launches_by_path": fir_launches,
         "shapes": fir,
+    }, {
+        "name": "triplane_sample", "route": "cuda",
+        "source": "gnerf_tpu_torch/csrc/triplane_sample.cu",
+        "replaces": "none: JAX samples the planes with one XLA gather "
+                    "(gnerf_tpu/render/renderer.py::sample_from_planes)",
+        "launches": tri_launches["main"],
+        "max_abs_err": tri["orbit_chunk_bf16"]["max_abs_err"],
+        "ms": tri["orbit_chunk_bf16"]["ms"], "call_ms": tri["orbit_chunk_bf16"]["call_ms"],
+        "plain_ms": tri["orbit_chunk_bf16"]["plain_ms"],
+        "bound_ms": tri["orbit_chunk_bf16"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": tri["orbit_chunk_bf16"]["library_ms"],
+        "launches_by_path": tri_launches,
+        "shapes": tri,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ from .fma import fma
 from .fused_decoder import osg_decode, osg_decode_ref
 from .grid_sample import grid_sample_2d, grid_sample_3d
 from .interpolate import interpolate_bilinear
+from .triplane_sample import triplane_sample
 from .upfirdn2d import downsample2d, filter2d, setup_filter, upfirdn2d, upsample2d
 
 __all__ = [
     "activation_funcs", "bias_act", "conv2d_resample", "downsample2d", "filter2d",
     "filtered_lrelu", "fma", "grid_sample_2d", "grid_sample_3d", "interpolate_bilinear",
-    "osg_decode", "osg_decode_ref", "setup_filter", "upfirdn2d", "upsample2d",
+    "osg_decode", "osg_decode_ref", "setup_filter", "triplane_sample", "upfirdn2d", "upsample2d",
 ]

@@ -25,6 +25,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.triplane_sample import triplane_sample
 from ..parallel.collectives import all_gather, reduce_max
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw
@@ -53,12 +54,27 @@ def sample_from_planes(plane_features: torch.Tensor, coordinates: torch.Tensor,
     the planes (align_corners=False).
 
     Sampling runs in fp32 (bf16 planes are widened, the coordinates never
-    narrowed) and the result is rounded once to the planes' dtype."""
-    n, n_planes, c, h, w = plane_features.shape
-    m = coordinates.shape[1]
+    narrowed) and the result is rounded once to the planes' dtype. CUDA
+    tensors without a gradient to record take `ops.triplane_sample`, the
+    kernel; every other call `grid_sample_planes`."""
+    n = plane_features.shape[0]
     if coordinates.shape[0] != n:
         raise ValueError(f"planes batch {n} does not fit coordinates batch "
                          f"{coordinates.shape[0]} (run_model shares one identity's planes)")
+    needs_grad = torch.is_grad_enabled() and (plane_features.requires_grad
+                                              or coordinates.requires_grad)
+    if plane_features.is_cuda and not needs_grad:
+        return triplane_sample(plane_features, coordinates, box_warp)
+    return grid_sample_planes(plane_features, coordinates, box_warp)
+
+
+def grid_sample_planes(plane_features: torch.Tensor, coordinates: torch.Tensor,
+                       box_warp: float) -> torch.Tensor:
+    """`sample_from_planes` through `F.grid_sample` and its autograd: the
+    route of CPU tensors and of calls that need a gradient, and the plain
+    version the kernel is held to."""
+    n, n_planes, c, h, w = plane_features.shape
+    m = coordinates.shape[1]
     uv = project_onto_planes((2.0 / box_warp) * coordinates.float())  # [N, 3, M, 2]
     planes = plane_features.reshape(n * n_planes, c, h, w).float()
     out = F.grid_sample(planes, uv.reshape(n * n_planes, m, 1, 2), mode="bilinear",

@@ -133,6 +133,79 @@ def test_sample_from_planes_matches_jax_plain_and_packed():
     np.testing.assert_array_equal(uv, np.asarray(jrend.project_onto_planes(jnp.asarray(coords))))
 
 
+def _plane_points(rng, n, box_warp, h, w):
+    """[N, M, 3] points: random ones inside and outside the box, the planes'
+    edges (u = +-1) and just past them, and exact texel centres of the
+    H x W planes (powers of two, so the centres are exact in fp32)."""
+    half = box_warp / 2
+    pts = [rng.uniform(-1.3 * half, 1.3 * half, (300, 3))]
+    edges = np.array([-half, half, -half * (1 + 2 ** -20), half * (1 + 2 ** -20), 0.0])
+    pts.append(np.stack(np.meshgrid(edges, edges, edges), -1).reshape(-1, 3))
+    cx = ((2 * np.arange(w) + 1) / w - 1) * half  # texel centres along W and along H
+    cy = ((2 * np.arange(h) + 1) / h - 1) * half
+    pts.append(np.stack([np.repeat(cx, h), np.tile(cy, w), np.tile(cy, w)], -1))
+    one = np.concatenate(pts).astype(np.float32)
+    return np.stack([one] + [rng.permutation(one) for _ in range(n - 1)])
+
+
+@pytest.mark.parametrize("check,n,c,dtype,box_warp", [
+    ("jax", 1, 8, "float32", 1.0), ("jax", 2, 32, "float32", 0.75),
+    ("jax", 1, 32, "bfloat16", 1.0), ("jax", 2, 8, "bfloat16", 0.75),
+    ("route_cpu", 2, 32, "bfloat16", 1.0), ("route_grad", 2, 8, "float32", 0.75),
+])
+def test_triplane_sample(check, n, c, dtype, box_warp):
+    """`sample_from_planes` on the CPU (`grid_sample_planes`, the plain
+    version the CUDA kernel is held to) equals the JAX `sample_from_planes`
+    on points outside the box, on the planes' edges and at texel centres:
+    fp32 within the file's tolerance, bf16 planes within one bf16 rounding
+    of JAX on the widened planes. The route: CPU tensors launch no kernel,
+    with or without a gradient, and `ops.triplane_sample` refuses them; a
+    call that needs a gradient records one, and its values and gradients
+    equal JAX's."""
+    from gnerf_tpu_torch.ops import triplane_sample
+
+    rng = np.random.RandomState(40 + n * c)
+    h, w = 8, 16
+    planes = t(rng.randn(n, 3, c, h, w)).to(getattr(torch, dtype))
+    coords = t(_plane_points(rng, n, box_warp, h, w))
+    jplanes, jcoords = jnp.asarray(to_np(planes.float())), jnp.asarray(to_np(coords))
+    jwant = np.asarray(jrend.sample_from_planes(jplanes, jcoords, box_warp))
+    before = triplane_sample.launches
+    if check == "route_grad":
+        pg, cg = planes.clone().requires_grad_(), coords.clone().requires_grad_()
+        got = renderer.sample_from_planes(pg, cg, box_warp=box_warp)
+        assert got.grad_fn is not None
+        gy = rng.randn(*got.shape).astype(np.float32)
+        grads = torch.autograd.grad(got, [pg, cg], t(gy))
+        _, vjp = jax.vjp(lambda p, x: jrend.sample_from_planes(p, x, box_warp), jplanes, jcoords)
+        jgrads = vjp(jnp.asarray(gy))
+        np.testing.assert_allclose(to_np(got.detach()), jwant, **TOL)
+        np.testing.assert_allclose(to_np(grads[0]), np.asarray(jgrads[0]), **TOL)
+        # The coordinates' gradient jumps at texel centres (the corners
+        # change there): compare it at the random points only.
+        gx, jgx = to_np(grads[1])[:, :300], np.asarray(jgrads[1])[:, :300]
+        np.testing.assert_allclose(gx, jgx, rtol=1e-4, atol=1e-4 * np.abs(jgx).max())
+        assert triplane_sample.launches == before
+        return
+    got = renderer.sample_from_planes(planes, coords, box_warp=box_warp)
+    assert triplane_sample.launches == before  # the CPU launches no kernel
+    assert got.dtype == planes.dtype and got.shape == (n, 3, coords.shape[1], c)
+    assert got.is_contiguous() and got.grad_fn is None
+    if check == "route_cpu":
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            triplane_sample(planes, coords, box_warp)
+        traced = renderer.sample_from_planes(planes.clone().requires_grad_(), coords, box_warp)
+        assert traced.grad_fn is not None and triplane_sample.launches == before
+        torch.testing.assert_close(got, traced.detach(), rtol=0, atol=0)
+        return
+    zero = (got == 0).all(-1)  # a point outside a plane samples zeros there
+    assert bool(zero.any()) and not bool(zero.all())
+    if dtype == "float32":
+        np.testing.assert_allclose(to_np(got), jwant, **TOL)
+    else:  # one rounding of the fp32 samples to bf16
+        np.testing.assert_allclose(to_np(got.float()), jwant, rtol=2.0 ** -8, atol=1e-6)
+
+
 def test_unify_samples_is_stable_on_ties():
     rng = np.random.RandomState(4)
     d1 = np.sort(rng.uniform(2, 3, (1, 4, 6, 1)), axis=2).astype(np.float32)
