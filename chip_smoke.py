@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (gnerf_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--frames 8] [--profile FILE]
+    python3 chip_smoke.py [--frames 8]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. device:  requires CUDA; prints the card's name and power limit.
@@ -62,7 +62,6 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
               must have launched (osg_decode: twice per frame).
-  7. timing:  identity prep, render and SR ms, frames/s and peak memory.
  7b. ingest:  published weights into the port without JAX: the full-width G
               and E of phase main (`--seed-init 0`) pickled in the reference
               checkpoint's layout (`tests/_torch_ingest.py`), converted by
@@ -89,12 +88,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               (ResNeXt50 E in train mode, default G frozen, 48+48 samples,
               8XDC to 512^2, depth D with R1, VGG16-LPIPS at 256^2, batch 4,
               fp32, seed-init weights, SyntheticDataset batches): warm-up,
-              then timed steps (ms, images/s, peak memory, losses); every
-              loss finite, E, D and the BN buffers moved, G bitwise frozen,
-              osg_decode launched twice per step; a full-state save and load
-              gives the state back bit for bit, and the next step from both
-              agrees within tolerance; the threefry share of one step's
-              device time (torch.profiler, the prng calls in ranges).
+              then steps (peak memory, losses); every loss finite, E, D and
+              the BN buffers moved, G bitwise frozen, osg_decode launched
+              twice per step; a full-state save and load gives the state back
+              bit for bit, and the next step from both agrees within
+              tolerance.
  11. eg3d:    the EG3D objective at the full width of the `ffhq` preset (all
               of G trained against DualDiscriminator(c_dim=25, 512^2, 3),
               lazy regularization at the CLI's cadence: Gmain + Dmain every
@@ -108,8 +106,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               convolution double backward; a full-state save and load gives
               the state back bit for bit and the next step from both agrees
               within tolerance; under Freeze-D (2 layers) the frozen layers
-              stay bitwise through a main and a Dreg step; the threefry
-              share of each phase's device time and of the amortised step.
+              stay bitwise through a main and a Dreg step.
  12. eg3d_ada: the same EG3D run with `--aug ada` from p = 0.2 (2 warm-up +
               16 timed steps): phase ms, amortised step, images/s, peak
               memory, launches checked exactly; the controller's p after
@@ -117,7 +114,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               (R1 through grid_sample's backward, no convolution double
               backward); the pipe's forward ms on a [4, 6, 512, 512] pair;
               the share of 256 samples the pipe changes at p = 0.2 within
-              3 sigma of its expected value; the threefry share as in eg3d.
+              3 sigma of its expected value.
  13. pti:     `make_pti_step` on the full-width G (8XDC to 512^2, 48+48)
               with VGG16-LPIPS at 256^2, batch 4, fp32: 2 warm-up + 8 timed
               steps without and with the locality regularizer (step ms, peak
@@ -180,8 +177,7 @@ threefry; every path must launch upfirdn2d, main exactly 12 for the identity
 prep and 4 a frame; triplane_sample launches twice a render call without a
 gradient (main exactly 2 a frame) and must launch on server and shapes.
 Prints a {"kernels": [...]} line, then as its last line
-{"ok": true, "device": {...}}. `--profile FILE` also writes a torch.profiler
-table of one frame to FILE.
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -201,11 +197,9 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Optional
 
-H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
-H100_BF16_FLOPS = 989e12     # dense tensor cores
-H100_FP32_FLOPS = 67e12      # outside the tensor cores
+from benchmark.roofline import PEAK_BYTES_PER_S, PEAK_FLOPS, decoder_bytes
+
 # Instruction rates of an H100 SXM (132 SMs at 1.98 GHz boost): every SM
 # issues 4 warp instructions (128 threads) a clock; its ALU pipe, which runs
 # the funnel shifts and the logic (LOP3) operations, takes 64 threads a clock.
@@ -316,12 +310,6 @@ def phase_build():
     log(f"[build] built in {secs:.2f} s")
 
 
-def decoder_bytes(n, m, c, h, d, bf16: bool) -> int:
-    """Bytes the decoder must move: every input read once, the output written once."""
-    elem = 2 if bf16 else 4
-    return n * 3 * m * c * elem + c * h * elem + (h + h * d + d) * 4 + n * m * d * 4
-
-
 def decoder_bound_ms(n, m, c, h, d, bf16: bool) -> tuple[float, str]:
     """Least time on an H100: `decoder_bytes` at the HBM rate, vs the
     operations at the peak rate of their type (the first product on bf16
@@ -329,8 +317,8 @@ def decoder_bound_ms(n, m, c, h, d, bf16: bool) -> tuple[float, str]:
     product and the rest in fp32)."""
     l1 = 2.0 * n * m * c * h
     fp32_ops = 2.0 * n * m * c + 2.0 * n * m * h * d
-    t_ops = l1 / (H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS) + fp32_ops / H100_FP32_FLOPS
-    t_bytes = decoder_bytes(n, m, c, h, d, bf16) / H100_BYTES_PER_S
+    t_ops = l1 / PEAK_FLOPS["bf16" if bf16 else "fp32"] + fp32_ops / PEAK_FLOPS["fp32"]
+    t_bytes = decoder_bytes(n, m, c, h, d, bf16) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -494,7 +482,7 @@ def _train_gradients(feats, dec, row) -> bool:
     row["backward_ms"] = cuda_ms(lambda: osg_decode_backward(cot, feats, *weights),
                                  iters=10, warmup=2)
     moved = 2 * feats.numel() * feats.element_size() + cot.numel() * 4
-    row["backward_bound_ms"] = moved / H100_BYTES_PER_S * 1e3
+    row["backward_bound_ms"] = moved / PEAK_BYTES_PER_S * 1e3
     del got, want, out
     return ok
 
@@ -591,7 +579,7 @@ def phase_upfirdn2d() -> dict:
         row["library_ms"] = cuda_ms(_fir_library_call(x, f, up, down, padding, flip, gain),
                                     iters=20, warmup=3)
         row["bound_ms"] = ((x.numel() + got.numel()) * x.element_size()
-                           / H100_BYTES_PER_S * 1e3)
+                           / PEAK_BYTES_PER_S * 1e3)
         msg = (f"[upfirdn2d] {name} {list(shape)} {row['dtype']} up={up} down={down} "
                f"padding={padding} flip={flip} gain={gain}: max_abs_err={err:.3e} of "
                f"{scale:.3e} (rtol {slack:g}, atol {slack:g} of the largest) kernel_ms="
@@ -727,7 +715,7 @@ def phase_triplane() -> dict:
             lambda: grid_sample_planes(planes, coords, box_warp), iters=5, warmup=1)
         elt = planes.element_size()
         row["bytes"] = n * m * (12 + 3 * c * elt) + planes.numel() * elt
-        row["bound_ms"] = row["bytes"] / H100_BYTES_PER_S * 1e3
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
         row["roofline"] = row["bound_ms"] / row["ms"]
         ok = ok and per_call == 1
         if name == "orbit_chunk_bf16":
@@ -762,7 +750,7 @@ def threefry_bound_ms(n: int, kind: str = "bits") -> tuple[float, str]:
     if kind == "normal":
         ops += NORMAL_OPS
     t_ops = max(alu * n / H100_ALU_OPS, ops * n / H100_ISSUE_OPS)
-    t_bytes = (8 if kind == "pairs" else 4) * n / H100_BYTES_PER_S
+    t_bytes = (8 if kind == "pairs" else 4) * n / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1211,10 +1199,9 @@ def _small_train_step(devices=("cpu", "cuda"), seeded: bool = False):
     noise-strength gradients (sums of random-sign terms) differ between the
     card and the CPU by 5.24e-3 and 2.38e-3 of their largest, also when the
     CPU step takes the card's draws and initial weights bit for bit
-    (`tools/small_step_probe.py --card-draws` on the H100: PERF.md): the
-    gap comes from the step's sums, not from the draws, and a 1e-3 bound on
-    the largest element cannot tell it from a fault. The rng=None step
-    holds E's training."""
+    (on the H100: CHANGES.md): the gap comes from the step's sums, not from
+    the draws, and a 1e-3 bound on the largest element cannot tell it from a
+    fault. The rng=None step holds E's training."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1332,76 +1319,6 @@ def phase_main(frames: int):
         raise SystemExit(f"chip_smoke: osg_decode launched {launches} times, "
                          f"want {2 * frames}")
     return launches, f
-
-
-def phase_timing(frames: int, profile: Optional[str]):
-    import torch
-
-    from gnerf_tpu_torch.infer import gen_videos as gv
-
-    torch.cuda.reset_peak_memory_stats()
-    g, enc = gv.load_networks(None, seed_init=0, device="cuda")
-    ids = gv._load_images(None, None)
-    dtype = torch.bfloat16
-    prep_ms = cuda_ms(lambda: gv.prepare_identity(g, enc, ids, dtype=dtype), iters=3, warmup=1)
-    ws, planes = gv.prepare_identity(g, enc, ids, dtype=dtype)
-    labels = [gv.orbit_label(i, frames, "ffhq", g.rendering_kwargs).cuda() for i in range(frames)]
-
-    with torch.inference_mode():
-        feats = {}
-
-        def render(i):
-            feats[i] = g.render_planes(planes, labels[i], ws, neural_rendering_resolution=64,
-                                       dtype=dtype, superres=False)["feature_image"]
-
-        def sr(i):
-            x = feats[i]
-            return g.superresolution(x[:, :3], x, ws, noise_mode="none", dtype=dtype)
-
-        for i in range(frames):  # warm-up
-            render(i)
-            sr(i)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        render_ms = sr_ms = 0.0
-        for i in range(frames):
-            ev[0].record()
-            render(i)
-            ev[1].record()
-            sr(i)
-            ev[2].record()
-            torch.cuda.synchronize()
-            render_ms += ev[0].elapsed_time(ev[1]) / frames
-            sr_ms += ev[1].elapsed_time(ev[2]) / frames
-
-    def chunk():  # the generate_videos loop body: frames + one host copy
-        outs = [gv.render_frame(g, planes, ws, labels[i], 64, dtype)[0] for i in range(frames)]
-        return torch.stack(outs).cpu()
-
-    chunk()
-    fps_runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chunk()
-        fps_runs.append(frames / (time.perf_counter() - t0))
-    fps = sorted(fps_runs)[1]
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[timing] identity_prep_ms={prep_ms:.3f} render_ms={render_ms:.3f} "
-        f"sr_ms={sr_ms:.3f} frames_per_s={fps:.3f} (median of "
-        f"{', '.join(f'{x:.3f}' for x in fps_runs)}; chunks of {frames}, uint8 on host) "
-        f"max_memory_allocated={peak} bytes")
-
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            gv.render_frame(g, planes, ws, labels[0], 64, dtype)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(os.path.dirname(os.path.abspath(profile)), exist_ok=True)
-        with open(profile, "w") as fh:
-            fh.write(table)
-        log("[profile] one frame, top device ops:\n" + "\n".join(table.splitlines()[:18]))
 
 
 INGEST_FRAMES = 4
@@ -1898,71 +1815,9 @@ def _meta_built(tag: str, build):
     return out
 
 
-def _draw_share(tag, calls: dict) -> dict:
-    """Each of `calls` {name: fn} once under torch.profiler, with every
-    outermost call into `utils.prng` (split, fold_in, bits, uniform, normal,
-    randint, draw_many) inside a record_function range "prng_draw": {name: (the call's
-    device ms, the ranges' device ms, the number of prng calls)}, printed
-    with the share and the call's CUDA-event ms. The device ms are the
-    kernels' own (the profile's device events, each counted once); the
-    ranges' are the kernels launched inside them."""
-    import functools
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from gnerf_tpu_torch.utils import prng
-
-    depth, count = [0], [0]
-    names = ("split", "fold_in", "bits", "uniform", "normal", "randint", "draw_many")
-    orig = {n: getattr(prng, n) for n in names}
-
-    def wrap(fn):
-        @functools.wraps(fn)
-        def inner(*a, **k):
-            if depth[0]:
-                return fn(*a, **k)
-            depth[0] += 1
-            count[0] += 1
-            try:
-                with record_function("prng_draw"):
-                    return fn(*a, **k)
-            finally:
-                depth[0] -= 1
-        return inner
-
-    out = {}
-    for n in names:
-        setattr(prng, n, wrap(orig[n]))
-    try:
-        for name, fn in calls.items():
-            count[0] = 0
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ev[0].record()
-                fn()
-                ev[1].record()
-                torch.cuda.synchronize()
-            ka = prof.key_averages()
-            total = sum(_dev_ms(e, "self_cuda_time_total") for e in ka
-                        if e.device_type == DeviceType.CUDA)
-            draws = sum(_dev_ms(e, "cuda_time_total") for e in ka if e.key == "prng_draw")
-            out[name] = (total, draws, count[0])
-            log(f"[{tag}] threefry share of one {name}: {count[0]} prng calls, {draws:.3f} ms "
-                f"of {total:.3f} ms of kernel time ({100 * draws / max(total, 1e-9):.2f} %); "
-                f"{ev[0].elapsed_time(ev[1]):.3f} ms by CUDA events (profiled)")
-    finally:
-        for n in names:
-            setattr(prng, n, orig[n])
-    return out
-
-
 def phase_train(warmup: int = 2, steps: int = 6):
     """The full-width G-NeRF train step on the card (see the module
-    docstring). Step times are CUDA-event times of whole steps (data already
-    on the card), median and spread over `steps`."""
+    docstring), `warmup` + `steps` steps with the data already on the card."""
     import numpy as np
     import torch
 
@@ -1973,10 +1828,8 @@ def phase_train(warmup: int = 2, steps: int = 6):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     state, cfg = _full_width_trainer(0)
     step = make_train_step(cfg)
-    build_s = time.perf_counter() - t0
     batches = data_iterator(SyntheticDataset(resolution=SIDE, depth_resolution=64),
                             batch_size=TRAIN_BATCH, seed=0)
     host = [next(batches) for _ in range(warmup + steps + 1)]
@@ -1985,17 +1838,12 @@ def phase_train(warmup: int = 2, steps: int = 6):
               if k.split(".")[0] in ("g", "enc", "disc")}
 
     osg_decode.launches = 0
-    losses, ev = [], [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
     for i in range(warmup + steps):
-        if i == warmup:
-            ev[0].record()
         _, stats = step(state, dev[i], step_key(0, state.cur_nimg))
-        if i >= warmup:
-            ev[i - warmup + 1].record()
         losses.append(stats)
     torch.cuda.synchronize()
     launches = osg_decode.launches
-    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
     peak = torch.cuda.max_memory_allocated()
     losses = [{k: float(v) for k, v in s.items()} for s in losses]
     after = _state_tensors(state)
@@ -2009,12 +1857,8 @@ def phase_train(warmup: int = 2, steps: int = 6):
                    if k.startswith("g.") and k not in trained_g)
     finite = all(np.isfinite(v) for s in losses for v in s.values())
     want_launches = 2 * (warmup + steps) * (2 if cfg.remat_synthesis else 1)
-    med = statistics.median(step_ms)
-    log(f"[train] full width fp32, batch {TRAIN_BATCH}: build {build_s:.2f} s; step_ms median="
-        f"{med:.3f} min={min(step_ms):.3f} max={max(step_ms):.3f} (each: "
-        f"{', '.join(f'{x:.3f}' for x in step_ms)}) images_per_s={TRAIN_BATCH * 1e3 / med:.3f} "
-        f"max_memory_allocated={peak} bytes; remat_synthesis={cfg.remat_synthesis} "
-        f"remat_lpips={cfg.remat_lpips}; osg_decode launches={launches} (want {want_launches})")
+    log(f"[train] full width fp32, batch {TRAIN_BATCH}: max_memory_allocated={peak} bytes; "
+        f"remat_synthesis={cfg.remat_synthesis} remat_lpips={cfg.remat_lpips}; osg_decode launches={launches} (want {want_launches})")
     log("[train] losses, last step: " + " ".join(f"{k}={v:.5f}" for k, v in losses[-1].items()))
     log(f"[train] finite={finite} E moved={moved['enc']} D moved={moved['disc']} "
         f"BN buffers moved={bn_moved} G bitwise frozen={g_frozen} (outside the "
@@ -2023,7 +1867,6 @@ def phase_train(warmup: int = 2, steps: int = 6):
         raise SystemExit("chip_smoke: the train step did not update as it should")
     if launches != want_launches:
         raise SystemExit(f"chip_smoke: train path launched osg_decode {launches} times")
-    _draw_share("train", {"step": lambda: step(state, dev[0], step_key(0, state.cur_nimg))})
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "training-state.npz")
@@ -2222,32 +2065,12 @@ def phase_eg3d(warmup: int = 2, steps: int = 16):
     if not all(moved.values()):
         raise SystemExit("chip_smoke: the eg3d steps did not update as they should")
     del before, after
-    _eg3d_draw_share("eg3d", phases, state, batches[0])
-
     _eg3d_dreg_profile(phases, state, batches[0])
     _eg3d_save_load(phases, state, batches[warmup + steps])
     _eg3d_freeze(batches[0])
     del state, batches
     torch.cuda.empty_cache()
     return launches
-
-
-def _eg3d_draw_share(tag, phases, state, batch, aug_p=0.0):
-    """The threefry share of each phase (`_draw_share`) and of the lazy
-    schedule's amortised step (Gmain + Dmain + Greg / 4 + Dreg / 16)."""
-    from gnerf_tpu_torch.utils import prng
-
-    main, greg, dreg = phases
-    ks = prng.PRNGKey(state.cur_nimg)
-    out = _draw_share(tag, {"Gmain + Dmain": lambda: main(state, batch, ks, 0.0, aug_p),
-                            "Greg": lambda: greg(state, batch, prng.fold_in(ks, 1)),
-                            "Dreg": lambda: dreg(state, batch, prng.fold_in(ks, 2), 0.0, aug_p)})
-    weights = {"Gmain + Dmain": 1.0, "Greg": 0.25, "Dreg": 1 / 16}
-    total = sum(out[k][0] * w for k, w in weights.items())
-    draws = sum(out[k][1] * w for k, w in weights.items())
-    log(f"[{tag}] threefry share of the amortised step: {draws:.3f} ms of {total:.3f} ms "
-        f"device time ({100 * draws / max(total, 1e-9):.2f} %)")
-    return out
 
 
 def _ada_share(pipe, p: float, n: int = 256, chunk: int = 32):
@@ -2307,7 +2130,6 @@ def phase_eg3d_ada(warmup: int = 2, steps: int = 16, p0: float = 0.2):
         + "; ".join(f"{rt:+.4f} {got!r} {want!r}" for rt, got, want in windows))
     if len(windows) < 2 or any(got != want for _, got, want in windows):
         raise SystemExit("chip_smoke: the ADA controller's p disagrees with its arithmetic")
-    _eg3d_draw_share("eg3d_ada", phases, state, batches[0], aug_p=ada.p)
     _eg3d_dreg_profile(phases, state, batches[0], aug_p=ada.p, tag="eg3d_ada")
     _eg3d_save_load(phases, state, batches[1], tag="eg3d_ada", aug_p=ada.p)
 
@@ -3337,8 +3159,6 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     ap = argparse.ArgumentParser(description="Smoke run of gnerf_tpu_torch on one CUDA card")
     ap.add_argument("--frames", type=int, default=FRAMES_DEFAULT)
-    ap.add_argument("--profile", metavar="FILE", default=None,
-                    help="write a torch.profiler table of one frame to FILE")
     args = ap.parse_args(argv)
 
     phase_device()
@@ -3371,7 +3191,6 @@ def main(argv=None) -> int:
         return out
 
     launches["main"], main_frames = path("main", phase_main, args.frames)
-    phase_timing(args.frames, args.profile)
     launches["ingest"] = path("ingest", phase_ingest)
     launches["server"] = path("server", phase_server)
     launches["shapes"], volume = path("shapes", phase_shapes)

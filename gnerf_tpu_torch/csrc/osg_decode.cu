@@ -70,15 +70,13 @@
 //    so warps hide more than depth does: a third fp32 stage leaves room for
 //    9 warps only, which is slower; so are 14 warps (the most that fit),
 //    whose launch bounds leave ptxas 128 registers
-//    (tools/osg_decode_ablation.py --dtype float32 times both). No
+//    (H100 readings in CHANGES.md). No
 //    block-wide barrier follows the weight staging, so the
 //    copies, the products and the special-function work of different warps
 //    overlap. Persistent blocks, one per SM, walk over the tiles of all N.
 //  * Each warp tile's output (16 * D fp32, contiguous in out) is staged in
 //    shared memory and written with one cp.async.bulk, or with coalesced
 //    stores where its size or address is not a multiple of 16 bytes.
-// tools/osg_decode_ablation.py times either kernel with each of its parts
-// left out.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>

@@ -21,7 +21,7 @@ Device work runs on two long-lived threads: the micro-batch collector
 threads, one per request, only wait for them. cuDNN keeps its execution
 plans per thread, so device work on a fresh thread re-plans every
 convolution: identity prep takes ~100 ms on a fresh thread on an H100 host,
-against ~10 ms on a thread that already has them (tools/server_probe.py).
+against ~10 ms on a thread that already has them (the H100 reading in CHANGES.md).
 Each worker enters `torch.inference_mode` itself (the mode is thread-local). Single-frame requests from concurrent clients are
 micro-batched: the collector drains a bounded queue into one render whose
 batch stacks the identities' planes ([n, 3, 32, 256, 256]) at its real size
@@ -439,7 +439,7 @@ def make_handler(service: GNerfService):
                     buf = io.BytesIO()
                     # zlib level 1: the same pixels as PIL's default level 6
                     # in ~1/4 of the time (~22 ms vs ~90 ms for a 512^2
-                    # frame on an H100 host, tools/server_probe.py), for a
+                    # frame on an H100 host, CHANGES.md), for a
                     # slightly larger file.
                     Image.fromarray(frame).save(buf, format="PNG", compress_level=1)
                     self._bytes(200, buf.getvalue(), "image/png")
