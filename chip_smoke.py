@@ -44,6 +44,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               within 1e-6, bf16 within one ulp; device and call ms beside the
               byte bound (>= 60 % of it at the orbit chunk), and the plain
               route's ms (as plain and as library ms).
+ 3e. modconv: the channels-last route's kernels at a 15-frame orbit
+              chunk's superresolution shapes: the modulated convolutions'
+              epilogue (csrc/modconv_epilogue.cu) vs the plain chain
+              (demodulation, noise, bias_act, next styles, each in bf16)
+              and the channels-last upfirdn2d instance vs the NCHW kernel on
+              the input scaled the plain way, both bit for bit; device and
+              call ms beside the byte bound (the epilogue >= 60 % of it at
+              block1.conv1), the plain chain's ms; launches of the epilogue
+              by path (main 13 an identity's backbone + 6 a frame's SR;
+              train, eg3d and eg3d_ada, fp32 or with a gradient, 0).
   4. small:   a tiny generator on the card (fp32) vs the same weights on
               the CPU, through render + 8XDC, and through `sample_mixed`;
               the tiny G-NeRF train step with rng=None and seeded from a
@@ -295,7 +305,8 @@ def phase_build():
     the instance precedes them)."""
     from gnerf_tpu_torch.ops import cuda_build
 
-    secs = cuda_build.build(["osg_decode", "threefry", "upfirdn2d", "triplane_sample"])
+    secs = cuda_build.build(["osg_decode", "threefry", "upfirdn2d", "triplane_sample",
+                             "modconv_epilogue"])
     for name, out in cuda_build.build_log.items():
         instance = name
         for line in out.splitlines():
@@ -737,6 +748,145 @@ def phase_triplane() -> dict:
     log(f"[triplane] ms a frame (2 orbit-chunk calls / {ORBIT_FRAMES}): kernel device "
         f"{2 * orbit['ms'] / ORBIT_FRAMES:.4f}, plain route "
         f"{2 * orbit['plain_ms'] / ORBIT_FRAMES:.4f}")
+    return results
+
+
+# The channels-last route's epilogue calls at a 15-frame orbit chunk (name,
+# [N, C, H, W], next styles): the superresolution's convolutions, lrelu,
+# no noise or clamp (the orbit's SR noise is "none", its clamp None);
+# conv0's epilogue applies conv1's input styles.
+EPILOGUE_CASES = [
+    ("orbit_block1_conv1", (ORBIT_FRAMES, 128, 512, 512), False),
+    ("orbit_block1_conv0", (ORBIT_FRAMES, 128, 512, 512), True),
+    ("orbit_block0_conv1", (ORBIT_FRAMES, 256, 256, 256), False),
+    ("orbit_block0_conv0", (ORBIT_FRAMES, 256, 256, 256), True),
+    ("orbit_block64_conv1", (ORBIT_FRAMES, 32, 64, 64), False),
+]
+EPILOGUE_MIN_ROOFLINE = 0.60  # of the byte bound, at orbit_block1_conv1
+# The channels-last upfirdn2d calls at a chunk: the up layers' inputs, with
+# their styles (name, [N, C, H, W]); up 2, padding (3, 2, 3, 2), gain 4.
+FIR_NHWC_CASES = [
+    ("orbit_block1_conv0", (ORBIT_FRAMES, 256, 256, 256)),
+    ("orbit_block0_conv0", (ORBIT_FRAMES, 32, 128, 128)),
+]
+EPILOGUE_PREP_LAUNCHES = 13  # an identity's backbone: 1 for the 4^2 block, 2 for each of six
+EPILOGUE_FRAME_LAUNCHES = 6  # an SR forward: block64, block0 and block1, two convolutions each
+
+
+def phase_modconv() -> dict:
+    """The channels-last route's kernels on the card at an orbit chunk's
+    shapes. The epilogue (`ops.modconv_epilogue`, csrc/modconv_epilogue.cu)
+    at `EPILOGUE_CASES` against its plain version, the chain the NCHW route
+    runs (`* dcoefs`, `bias_act` with lrelu and gain sqrt(2), `* styles`):
+    bit for bit; its device ms (torch.profiler over 20 in-place calls),
+    call ms (CUDA events), byte bound (the tensor read and written once, its
+    per-(n, c) vectors read once, at the HBM rate) and the plain chain's ms.
+    block1.conv1 must reach EPILOGUE_MIN_ROOFLINE of its bound. The
+    channels-last upfirdn2d (`ops.upfirdn2d_channels_last`) at
+    `FIR_NHWC_CASES` against the NCHW kernel on the input scaled the plain
+    way: bit for bit; device and call ms, byte bound (input and styles read,
+    output written) and the NCHW route's ms (the style multiply and the
+    NCHW kernel). Returns {"epilogue": {name: row}, "upfirdn2d": {...}}."""
+    import importlib
+
+    import torch
+
+    from gnerf_tpu_torch import ops
+
+    epi = importlib.import_module("gnerf_tpu_torch.ops.modconv_epilogue")
+    fir = importlib.import_module("gnerf_tpu_torch.ops.upfirdn2d")
+    dev = torch.device("cuda")
+    gain = 2 ** 0.5
+    results = {"epilogue": {}, "upfirdn2d": {}}
+    for name, shape, with_styles in EPILOGUE_CASES:
+        n, c, h, w = shape
+        gen = torch.Generator(device="cuda").manual_seed(n * c + h)
+        y = (4 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        y = y.contiguous(memory_format=torch.channels_last)
+        dcoefs = torch.rand(n, c, generator=gen, device=dev) + 0.25
+        bias = torch.randn(c, generator=gen, device=dev)
+        styles = torch.randn(n, c, generator=gen, device=dev) if with_styles else None
+        want = epi._plain(y, dcoefs, None, bias, "lrelu", 0.2, gain, None, styles)
+        before = ops.modconv_epilogue.launches
+        got = ops.modconv_epilogue(y.clone(), dcoefs, None, bias, act="lrelu", styles=styles)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "next_styles": with_styles,
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "differ": int((got != want).sum())}
+        ok = (ops.modconv_epilogue.launches == before + 1 and torch.equal(got, want)
+              and got.is_contiguous(memory_format=torch.channels_last))
+        del got, want
+        torch.cuda.empty_cache()
+
+        def call():
+            return ops.modconv_epilogue(y, dcoefs, None, bias, act="lrelu", styles=styles)
+
+        row["ms"], per_call = kernel_device_ms(call, 20, "modconv_epilogue_kernel")
+        row["call_ms"] = cuda_ms(call, iters=20, warmup=3)
+        row["plain_ms"] = cuda_ms(
+            lambda: epi._plain(y, dcoefs, None, bias, "lrelu", 0.2, gain, None, styles),
+            iters=5, warmup=1)
+        row["bytes"] = 2 * y.numel() * 2 + (n * c * (2 if with_styles else 1) + c) * 2
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        ok = ok and per_call == 1
+        if name == "orbit_block1_conv1":
+            ok = ok and row["roofline"] >= EPILOGUE_MIN_ROOFLINE
+        log(f"[modconv] epilogue {name} {list(shape)} bf16 lrelu next_styles={with_styles}: "
+            f"vs plain chain {row['differ']} differ (max_abs_err {row['max_abs_err']:.3e}) "
+            f"kernel_ms={row['ms']:.4f} (device; call {row['call_ms']:.4f}) bound_ms="
+            f"{row['bound_ms']:.4f} (bytes) roofline={row['roofline']:.3f} plain_ms="
+            f"{row['plain_ms']:.4f}" + ("" if ok else " FAILED"))
+        if not ok:
+            raise SystemExit(f"chip_smoke: modconv_epilogue {name} differs from the plain chain "
+                             "or misses its bound")
+        results["epilogue"][name] = row
+        del y
+        torch.cuda.empty_cache()
+    f = ops.setup_filter([1, 3, 3, 1], device="cuda")
+    conf = dict(padding=(3, 2, 3, 2), gain=4)
+    for name, shape in FIR_NHWC_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        styles = torch.randn(shape[:2], generator=gen, device=dev)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        want = ops.upfirdn2d(fir._styled(x, styles), f, up=2, **conf)
+        before = ops.upfirdn2d.launches
+        got = ops.upfirdn2d_channels_last(xl, f, styles=styles, **conf)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "out": list(got.shape),
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "differ": int((got != want).sum())}
+        ok = ops.upfirdn2d.launches == before + 1 and torch.equal(got, want)
+        del want
+        torch.cuda.empty_cache()
+        row["ms"], per_call = kernel_device_ms(
+            lambda: ops.upfirdn2d_channels_last(xl, f, styles=styles, **conf), 20,
+            "upfirdn2d_nhwc_kernel")
+        row["call_ms"] = cuda_ms(lambda: ops.upfirdn2d_channels_last(xl, f, styles=styles, **conf),
+                                 iters=20, warmup=3)
+        row["plain_ms"] = cuda_ms(lambda: ops.upfirdn2d(fir._styled(x, styles), f, up=2, **conf),
+                                  iters=5, warmup=1)
+        row["bytes"] = (x.numel() + got.numel()) * 2 + styles.numel() * 2
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
+        row["roofline"] = row["bound_ms"] / row["ms"]
+        ok = ok and per_call == 1
+        log(f"[modconv] upfirdn2d_channels_last {name} {list(shape)} -> {row['out']} bf16 up=2 "
+            f"with styles: vs NCHW kernel {row['differ']} differ (max_abs_err "
+            f"{row['max_abs_err']:.3e}) kernel_ms={row['ms']:.4f} (device; call "
+            f"{row['call_ms']:.4f}) bound_ms={row['bound_ms']:.4f} (bytes) roofline="
+            f"{row['roofline']:.3f} plain_ms={row['plain_ms']:.4f} (NCHW: x * styles, then the "
+            "NCHW kernel)" + ("" if ok else " FAILED"))
+        if not ok:
+            raise SystemExit(f"chip_smoke: upfirdn2d_channels_last {name} differs from the NCHW "
+                             "kernel")
+        results["upfirdn2d"][name] = row
+        del x, xl, got
+        torch.cuda.empty_cache()
+    epi_rows = results["epilogue"]
+    frame = sum(r["ms"] for k, r in epi_rows.items() if k.startswith("orbit_block")) / ORBIT_FRAMES
+    log(f"[modconv] epilogue device ms a frame (the orbit chunk's calls above / {ORBIT_FRAMES}): "
+        f"{frame:.4f}")
     return results
 
 
@@ -3172,22 +3322,27 @@ def main(argv=None) -> int:
     fir = phase_upfirdn2d()
     fry = phase_threefry()
     tri = phase_triplane()
+    mod = phase_modconv()
     phase_small()
     phase_prng()
+    from gnerf_tpu_torch.ops.modconv_epilogue import modconv_epilogue
     from gnerf_tpu_torch.ops.threefry import threefry_draw
     from gnerf_tpu_torch.ops.triplane_sample import triplane_sample
     from gnerf_tpu_torch.ops.upfirdn2d import upfirdn2d
 
-    launches, fry_launches, fir_launches, tri_launches = {}, {}, {}, {}
+    launches, fry_launches, fir_launches, tri_launches, epi_launches = {}, {}, {}, {}, {}
 
     def path(name, fn, *a):
-        """Runs a path with the threefry, upfirdn2d and triplane_sample
-        counts set to 0 just before it; keeps what each launched."""
+        """Runs a path with the threefry, upfirdn2d, triplane_sample and
+        modconv_epilogue counts set to 0 just before it; keeps what each
+        launched."""
         threefry_draw.launches = upfirdn2d.launches = triplane_sample.launches = 0
+        modconv_epilogue.launches = 0
         out = fn(*a)
         fry_launches[name] = threefry_draw.launches
         fir_launches[name] = upfirdn2d.launches
         tri_launches[name] = triplane_sample.launches
+        epi_launches[name] = modconv_epilogue.launches
         return out
 
     launches["main"], main_frames = path("main", phase_main, args.frames)
@@ -3226,6 +3381,19 @@ def main(argv=None) -> int:
     idle = [p for p in ("server", "shapes") if not tri_launches[p]]
     if idle:
         raise SystemExit(f"chip_smoke: the triplane_sample kernel never launched on {idle}")
+    # The channels-last route: bf16 without autograd (main, server) launches
+    # the epilogue; fp32 or a gradient (train, eg3d, eg3d_ada) never does.
+    want_main = EPILOGUE_PREP_LAUNCHES + EPILOGUE_FRAME_LAUNCHES * args.frames
+    log(f"[modconv] epilogue launches by path (this process): {epi_launches} (main: want "
+        f"{want_main}, {EPILOGUE_PREP_LAUNCHES} an identity's backbone and "
+        f"{EPILOGUE_FRAME_LAUNCHES} a frame's SR; train, eg3d, eg3d_ada: want 0)")
+    if epi_launches["main"] != want_main:
+        raise SystemExit(f"chip_smoke: modconv_epilogue launched {epi_launches['main']} times "
+                         f"on main, want {want_main}")
+    stray = {p: epi_launches[p] for p in ("train", "eg3d", "eg3d_ada") if epi_launches[p]}
+    if stray or not epi_launches["server"]:
+        raise SystemExit(f"chip_smoke: modconv_epilogue launched on fp32 or gradient paths "
+                         f"{stray}, or never on server")
 
     log(f"[wall] chip_smoke.py: {time.perf_counter() - start:.1f} s from start to the results "
         "(host clock, the kernels' build included)")
@@ -3278,6 +3446,20 @@ def main(argv=None) -> int:
         "library_ms": tri["orbit_chunk_bf16"]["library_ms"],
         "launches_by_path": tri_launches,
         "shapes": tri,
+    }, {
+        "name": "modconv_epilogue", "route": "cuda",
+        "source": "gnerf_tpu_torch/csrc/modconv_epilogue.cu",
+        "replaces": "none: JAX leaves the modulated convolutions' elementwise chain to XLA "
+                    "(gnerf_tpu/models/stylegan2.py)",
+        "launches": epi_launches["main"],
+        "max_abs_err": mod["epilogue"]["orbit_block1_conv1"]["max_abs_err"],
+        "ms": mod["epilogue"]["orbit_block1_conv1"]["ms"],
+        "call_ms": mod["epilogue"]["orbit_block1_conv1"]["call_ms"],
+        "plain_ms": mod["epilogue"]["orbit_block1_conv1"]["plain_ms"],
+        "bound_ms": mod["epilogue"]["orbit_block1_conv1"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": epi_launches,
+        "shapes": mod,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

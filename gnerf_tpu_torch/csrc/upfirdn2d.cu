@@ -332,6 +332,99 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// The channels-last instance: x [N, H, W, C] bf16 upsampled by 2 on both
+// axes through 2-D 4x4 taps, optionally after a per-(n, c) input scale
+// rounded to bf16 (the plain chain's x * styles), into y [N, OH, OW, C]. At
+// up = 2 with 4 taps the two outputs of a row pair whose first window starts
+// on an inserted zero (odd ty) read the same two input rows, and likewise
+// for columns: a quad of 2 x 2 outputs reads a 2 x 2 window of inputs. A
+// thread takes 8 channels of one quad: four 16-byte loads, 16 sums of four
+// products each, four 16-byte stores. The sums are the NCHW body's (taps in
+// ascending ky, then kx, from 0, with fmaf), so from the same scaled input
+// the two instances are equal bit for bit. A block's threads in x cover a
+// quad's C / 8 channel slices, those in y neighbouring quads of a row.
+struct NhwcParams {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* y;
+  const __nv_bfloat16* styles;  // [N, C] or null
+  const float* f;               // the 4x4 filter as given (fp32)
+  int h, w, c, oh, ow;
+  int quads_y, quads_x;  // quad rows and columns
+  int shift_y, shift_x;  // output row (column) of quad 0's first, negated
+  int row0, col0;        // the first input row (column) of quad 0
+  float scale;           // gain
+};
+
+__global__ void __launch_bounds__(kThreads) upfirdn2d_nhwc_kernel(const NhwcParams p) {
+  constexpr int V = Io<__nv_bfloat16>::kVec;
+  const int qx = blockIdx.x * blockDim.y + threadIdx.y;
+  const int qy = blockIdx.y;
+  const int n = blockIdx.z;
+  if (qx >= p.quads_x) return;
+  const int c0 = threadIdx.x * V;
+  float tap[4][4];  // correlation taps, as the NCHW body's: the filter flipped, rounded
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    tap[i / 4][i % 4] = Io<__nv_bfloat16>::round(__fmul_rn(__ldg(p.f + 15 - i), p.scale));
+  }
+  float style[V];
+  if (p.styles != nullptr) {
+    Io<__nv_bfloat16>::unpack(
+        __ldg(reinterpret_cast<const uint4*>(p.styles + static_cast<size_t>(n) * p.c + c0)),
+        style);
+  }
+  const int iy0 = p.row0 + qy, ix0 = p.col0 + qx;
+  const __nv_bfloat16* x = p.x + static_cast<size_t>(n) * p.h * p.w * p.c + c0;
+  float in[2][2][V];  // [input row][input column][channel]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int iy = iy0 + r, ix = ix0 + s;
+      if (iy >= 0 && iy < p.h && ix >= 0 && ix < p.w) {
+        Io<__nv_bfloat16>::unpack(
+            __ldg(reinterpret_cast<const uint4*>(
+                x + (static_cast<size_t>(iy) * p.w + ix) * p.c)),
+            in[r][s]);
+        if (p.styles != nullptr) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            in[r][s][j] = Io<__nv_bfloat16>::round(in[r][s][j] * style[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) in[r][s][j] = 0.0f;
+      }
+    }
+  }
+  __nv_bfloat16* y = p.y + static_cast<size_t>(n) * p.oh * p.ow * p.c + c0;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int oy = 2 * qy - p.shift_y + a;
+    if (oy < 0 || oy >= p.oh) continue;
+    const int ky = 1 - a;  // the first input row's tap: 1 on an odd ty, 0 on an even one
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int ox = 2 * qx - p.shift_x + b;
+      if (ox < 0 || ox >= p.ow) continue;
+      const int kx = 1 - b;
+      float acc[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float sum = 0.0f;
+        sum = fmaf(tap[ky][kx], in[0][0][j], sum);
+        sum = fmaf(tap[ky][kx + 2], in[0][1][j], sum);
+        sum = fmaf(tap[ky + 2][kx], in[1][0][j], sum);
+        sum = fmaf(tap[ky + 2][kx + 2], in[1][1][j], sum);
+        acc[j] = sum;
+      }
+      *reinterpret_cast<uint4*>(y + (static_cast<size_t>(oy) * p.ow + ox) * p.c) =
+          Io<__nv_bfloat16>::pack(acc);
+    }
+  }
+}
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Tiles: a tile row of ~512 output bytes and ~16 groups a thread for an
@@ -427,4 +520,46 @@ extern "C" int upfirdn2d_launch(const void* x, void* y, const float* f, int bf16
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch<__nv_bfloat16>(p, s) : dispatch<float>(p, s);
+}
+
+// y[N, OH, OW, C] = upfirdn2d(x[N, H, W, C] * styles[N, C]) at up = 2, down
+// = 1 on both axes through the 2-D 4x4 filter `f` (fp32 on the card,
+// convolved: flip_filter false); x and y bf16, channels last, contiguous
+// and 16-byte aligned; `styles` bf16 [N, C] or null (no input scale).
+// padx0, pady0: the left and top padding of the upsampled image (negative
+// crops); oh and ow as the caller computed them. `scale`: gain. C a
+// multiple of 8 up to 2048, N at most 65535. Returns the launch's CUDA
+// error (0 on success).
+extern "C" int upfirdn2d_nhwc_launch(const void* x, void* y, const float* f, const void* styles,
+                                     int n, int h, int w, int c, int oh, int ow, int padx0,
+                                     int pady0, float scale, void* stream) {
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || oh < 1 || ow < 1 || c < 8 || c % 8 ||
+      c > 8 * kThreads || f == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  NhwcParams p{};
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.styles = static_cast<const __nv_bfloat16*>(styles);
+  p.h = h;
+  p.w = w;
+  p.c = c;
+  p.f = f;
+  p.oh = oh;
+  p.ow = ow;
+  p.scale = scale;
+  // Quad q's first output row is 2 q - shift_y, the row whose window starts
+  // on an odd upsampled row (ty = oy - pady0), and its input rows are
+  // row0 + q and row0 + q + 1.
+  p.shift_y = ((pady0 + 1) % 2 + 2) % 2;
+  p.shift_x = ((padx0 + 1) % 2 + 2) % 2;
+  p.row0 = (-p.shift_y - pady0 + 1) / 2;
+  p.col0 = (-p.shift_x - padx0 + 1) / 2;
+  p.quads_y = (oh + p.shift_y + 1) / 2;
+  p.quads_x = (ow + p.shift_x + 1) / 2;
+  const dim3 block(c / 8, kThreads / (c / 8));
+  const dim3 grid(ceil_div(p.quads_x, block.y), p.quads_y, n);
+  if (p.quads_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  upfirdn2d_nhwc_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,17 @@ from the call's key (`rng`), split per block and layer as the JAX `apply`
 splits it, so a key gives JAX's noise; a network's noise layers are drawn
 together in one launch (`draw_noise`). Every op is plain PyTorch, so the
 discriminator is twice differentiable, as the R1 penalty needs.
+
+The channels-last route. A synthesis block whose activations are bf16 on
+CUDA, in a call that autograd would not record (inference: the orbit, the
+server's batches, `generate_videos`), runs its modulated convolutions
+channels last (`channels_last_route`): cuDNN's NHWC convolutions with no
+layout transposes, each followed by one launch of `ops.modconv_epilogue`
+(demodulation, noise, bias, activation, gain, clamp and, inside a block,
+conv1's input styles, or ToRGB's in a stack's last block), the up layers'
+input styles applied inside the channels-last `upfirdn2d`, and ToRGB as one
+product over the channels.
+Every other call (fp32, a gradient, the CPU) runs the NCHW chain below.
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..ops.modconv_epilogue import modconv_epilogue
+from ..ops.upfirdn2d import downsample2d, setup_filter, upfirdn2d_channels_last, upsample2d
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import active_mesh
 from ..parallel.sharding import draw_many, local_rows
@@ -48,6 +60,23 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = 1, eps: float = 1e-8) -> to
     return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
 
 
+def demodulation(weight: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+    """The demodulation coefficients [N, O] of weight [O, I, kh, kw] under
+    styles [N, I], in fp32."""
+    w = weight[None] * styles[:, None, :, None, None]  # [N, O, I, kh, kw]
+    return torch.rsqrt(w.square().sum(dim=(2, 3, 4)) + 1e-8)
+
+
+def channels_last_route(dtype: torch.dtype, device: torch.device, *inputs) -> bool:
+    """Whether a synthesis block takes the channels-last route: bf16
+    activations on CUDA, in a call that autograd would not record (grad mode
+    off, or none of `inputs`, the block's input, ws and parameters, needs a
+    gradient)."""
+    return (dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and not (torch.is_grad_enabled()
+                     and any(t is not None and t.requires_grad for t in inputs)))
+
+
 def modulated_conv2d(
     x: torch.Tensor,                   # [N, C_in, H, W]
     weight: torch.Tensor,              # [C_out, C_in, kh, kw]
@@ -63,10 +92,7 @@ def modulated_conv2d(
     """Style-modulated convolution, scale-activations form: scale the input
     channels by the styles, convolve once, rescale the output channels by
     the demodulation coefficients (computed in fp32)."""
-    dcoefs = None
-    if demodulate:
-        w = weight[None] * styles[:, None, :, None, None]  # [N, O, I, kh, kw]
-        dcoefs = torch.rsqrt(w.square().sum(dim=(2, 3, 4)) + 1e-8)  # [N, O]
+    dcoefs = demodulation(weight, styles) if demodulate else None
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up, down=down,
                         padding=padding, flip_weight=flip_weight)
@@ -207,24 +233,56 @@ class SynthesisLayer(nn.Module):
                 gain: float = 1.0, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`noise`: this layer's standard normal draw [N, 1, r, r] for
         `noise_mode="random"` (`draw_noise`)."""
-        if noise_mode not in ("random", "const", "none"):
-            raise ValueError(f"unknown noise_mode {noise_mode!r}")
         styles = self.affine(w)
-        if self.use_noise and noise_mode == "random":
-            if noise is None:
-                raise ValueError("noise_mode='random' needs a key (rng)")
-            noise = noise * self.noise_strength
-        else:
-            noise = None
-        if self.use_noise and noise_mode == "const":
-            noise = self.noise_const * self.noise_strength
+        noise = self._noise(noise_mode, noise)
         f = self.resample_filter if self.up > 1 else None
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.kernel_size // 2, resample_filter=f,
                              flip_weight=self.up == 1)
-        act_gain = activation_funcs[self.activation].def_gain * gain
-        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        act_gain, act_clamp = self._act(gain)
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
+
+    def _noise(self, noise_mode: str, noise: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The noise to add, times its strength (fp32), or None."""
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"unknown noise_mode {noise_mode!r}")
+        if not self.use_noise or noise_mode == "none":
+            return None
+        if noise_mode == "const":
+            return self.noise_const * self.noise_strength
+        if noise is None:
+            raise ValueError("noise_mode='random' needs a key (rng)")
+        return noise * self.noise_strength
+
+    def _act(self, gain: float) -> tuple:
+        """(gain, clamp) of the activation."""
+        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        return activation_funcs[self.activation].def_gain * gain, act_clamp
+
+    def forward_channels_last(self, x: torch.Tensor, styles: torch.Tensor,
+                              next_styles: Optional[torch.Tensor] = None,
+                              noise_mode: str = "random",
+                              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer on the channels-last route: x [N, C, H, W] channels-last
+        bf16, already scaled by `styles` where the layer does not upsample
+        (the up layers scale it inside `upfirdn2d_channels_last`). The
+        convolution is cuDNN's NHWC one; `modconv_epilogue` then applies the
+        rest of the layer and, where given, the next layer's input styles."""
+        noise = self._noise(noise_mode, noise)
+        dcoefs = demodulation(self.weight, styles)
+        weight = self.weight.to(x.dtype)
+        padding = self.kernel_size // 2
+        if self.up > 1:  # conv2d_resample's up path: FIR upsampling, then a true convolution
+            fw = self.resample_filter.shape[-1]
+            p0, p1 = padding + (fw + self.up - 1) // 2, padding + (fw - self.up) // 2
+            x = upfirdn2d_channels_last(x, self.resample_filter, padding=(p0, p1, p0, p1),
+                                        gain=self.up ** 2, styles=styles)
+            weight, padding = weight.flip([2, 3]), 0
+        x = torch.nn.functional.conv2d(
+            x, weight.contiguous(memory_format=torch.channels_last), padding=padding)
+        act_gain, act_clamp = self._act(1.0)
+        return modconv_epilogue(x, dcoefs, noise, self.bias, act=self.activation, gain=act_gain,
+                                clamp=act_clamp, styles=next_styles)
 
 
 class ToRGBLayer(nn.Module):
@@ -242,10 +300,28 @@ class ToRGBLayer(nn.Module):
             prng.normal(k_weight, (out_channels, in_channels, kernel_size, kernel_size)))
         self.bias = nn.Parameter(zeros(out_channels, k_weight))
 
+    def styles(self, w: torch.Tensor) -> torch.Tensor:
+        """The layer's input styles [N, C] (fp32): the affine of w, times the
+        weight gain."""
+        return self.affine(w) * self.weight_gain
+
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False)
+        x = modulated_conv2d(x, self.weight, self.styles(w), demodulate=False)
         return bias_act(x, self.bias, clamp=self.conv_clamp)
+
+    def forward_channels_last(self, x: torch.Tensor, styles: torch.Tensor,
+                              scaled: bool = False) -> torch.Tensor:
+        """The layer on the channels-last route (a 1x1 kernel): x [N, C, H, W]
+        channels-last, multiplied by `styles` here unless `scaled` (conv1's
+        epilogue did it), then one batched product over the channels with the
+        bf16 weight, as the NCHW chain's 1x1 convolution takes x * styles,
+        into an NCHW result: [O, C] x [C, H * W] a sample."""
+        if not scaled:
+            x = x * styles.to(x.dtype)[:, :, None, None]
+        n, c, h, w = x.shape
+        weight = self.weight[:, :, 0, 0].to(x.dtype).expand(n, -1, -1)
+        y = torch.bmm(weight, x.permute(0, 2, 3, 1).reshape(n, h * w, c).transpose(1, 2))
+        return bias_act(y.reshape(n, -1, h, w), self.bias, clamp=self.conv_clamp)
 
 
 class SynthesisBlock(nn.Module):
@@ -286,11 +362,16 @@ class SynthesisBlock(nn.Module):
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 ws: torch.Tensor, noise_mode: str = "random",
                 noise: Optional[dict] = None,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, need_x: bool = True):
         """ws: [N, num_conv + num_torgb, w_dim]. Returns (x, img). `noise`:
-        this block's entry of `draw_noise` for `noise_mode="random"`."""
-        w_iter = iter(ws.unbind(dim=1))
+        this block's entry of `draw_noise` for `noise_mode="random"`.
+        `need_x=False`: the caller discards x (a stack's last block); the
+        channels-last route then returns None for it."""
         noise = noise or {}
+        if self.architecture != "resnet" and channels_last_route(
+                dtype, ws.device, x, ws, *self.parameters()):
+            return self._forward_channels_last(x, img, ws, noise_mode, noise, need_x)
+        w_iter = iter(ws.unbind(dim=1))
         if self.in_channels == 0:
             x = self.const.to(dtype)[None].expand(ws.shape[0], *self.const.shape)
             x = self.conv1(x, next(w_iter), noise_mode=noise_mode, noise=noise.get("conv1"))
@@ -311,6 +392,36 @@ class SynthesisBlock(nn.Module):
             y = self.torgb(x, next(w_iter)).float()
             img = img + y if img is not None else y
         return x, img
+
+    def _forward_channels_last(self, x, img, ws, noise_mode, noise, need_x):
+        """`forward` on the channels-last route (`channels_last_route`): x
+        comes back channels-last bf16. conv0's epilogue applies conv1's input
+        styles, and where x is not needed, conv1's applies ToRGB's (else
+        ToRGB scales x in a pass of its own); the block's first input is
+        scaled by one small pass where its layer does not upsample (the 4x4
+        constant, the 64^2 SR block)."""
+        w_iter = iter(ws.unbind(dim=1))
+        layers = [self.conv1] if self.in_channels == 0 else [self.conv0, self.conv1]
+        styles = [layer.affine(next(w_iter)) for layer in layers]
+        rgb_styles = self.torgb.styles(next(w_iter)) if self.num_torgb else None
+        fold = rgb_styles is not None and not need_x
+        styles.append(rgb_styles if fold else None)
+        if self.in_channels == 0:
+            x = self.const.to(torch.bfloat16)[None].expand(ws.shape[0], *self.const.shape)
+        else:
+            x = x.to(torch.bfloat16)
+        if layers[0].up == 1:
+            x = x * styles[0].to(x.dtype)[:, :, None, None]
+        x = x.contiguous(memory_format=torch.channels_last)
+        for i, (name, layer) in enumerate(zip(("conv0", "conv1")[-len(layers):], layers)):
+            x = layer.forward_channels_last(x, styles[i], styles[i + 1], noise_mode=noise_mode,
+                                            noise=noise.get(name))
+        if img is not None and self.up == 2:
+            img = upsample2d(img, self.resample_filter)
+        if self.num_torgb:
+            y = self.torgb.forward_channels_last(x, rgb_styles, scaled=fold).float()
+            img = img + y if img is not None else y
+        return (None if fold else x), img
 
 
 def draw_noise(blocks: Sequence[SynthesisBlock], rng: Optional[torch.Tensor], n: int,
@@ -370,7 +481,8 @@ class SynthesisNetwork(nn.Module):
                             ws.device)
         for block, noise in zip(blocks, noises):
             cur_ws = ws[:, w_idx: w_idx + block.num_conv + block.num_torgb]
-            x, img = block(x, img, cur_ws, noise_mode=noise_mode, noise=noise, dtype=dtype)
+            x, img = block(x, img, cur_ws, noise_mode=noise_mode, noise=noise, dtype=dtype,
+                           need_x=block is not blocks[-1])
             w_idx += block.num_conv
         return img
 

@@ -74,9 +74,11 @@ class _SRBase(nn.Module):
         return draw_noise(blocks, rng if noise_mode == "random" else None, x.shape[0], x.device)
 
     def _blocks(self, names, x, rgb, ws, noises, **kw):
-        for name, noise in zip(names, noises):
-            x, rgb = getattr(self, name)(x, rgb, ws, noise=noise, **kw)
-        return x, rgb
+        """The blocks `names` in turn: the image (every caller discards the
+        last block's x)."""
+        for i, (name, noise) in enumerate(zip(names, noises)):
+            x, rgb = getattr(self, name)(x, rgb, ws, noise=noise, need_x=i + 1 < len(names), **kw)
+        return rgb
 
 
 class _DualConditioned(_SRBase):
@@ -95,7 +97,7 @@ class _DualConditioned(_SRBase):
             # ORIGINAL x (not x_raw), while rgb aliases image_raw.
             rgb = image_raw
         names = [name for name, *_ in self.BLOCKS[1:]]
-        _, rgb = self._blocks(names, x, rgb, ws, noises[1:], **kw)
+        rgb = self._blocks(names, x, rgb, ws, noises[1:], **kw)
         return rgb, image_raw
 
 
@@ -143,8 +145,8 @@ class _Resized(_SRBase):
         image_raw = rgb
         if self._needs_resize(x.shape[-1]):
             x, rgb = self._resize(x, rgb, self.sr_antialias and self.ANTIALIAS)
-        _, rgb = self._blocks(("block0", "block1"), x, rgb, ws, self._noise(rng, noise_mode, x),
-                              noise_mode=noise_mode, dtype=dtype)
+        rgb = self._blocks(("block0", "block1"), x, rgb, ws, self._noise(rng, noise_mode, x),
+                           noise_mode=noise_mode, dtype=dtype)
         return rgb, image_raw
 
 
@@ -188,7 +190,7 @@ class SuperresolutionHybrid2X(_SRBase):
         x_raw, image_raw = self.block64(x, rgb, ws, noise=noises[0], **kw)
         # block0 sees the accumulated raw image, not the input rgb (the
         # reference's in-place torgb add aliases the two).
-        _, rgb = self._blocks(("block0", "block1"), x_raw, image_raw, ws, noises[1:], **kw)
+        rgb = self._blocks(("block0", "block1"), x_raw, image_raw, ws, noises[1:], **kw)
         return rgb, image_raw
 
 

@@ -13,6 +13,11 @@ gradient is `_Upfirdn2d`: upfirdn2d again with up and down swapped, the
 filter flipped and the padding derived, through the same Function, so it
 is differentiable twice (R1), as the JAX op's `custom_vjp`.
 `upfirdn2d.launches` counts the kernel's launches.
+
+`upfirdn2d_channels_last` is the kernel's channels-last instance for the
+modulated convolutions' up layers without a gradient (`models/stylegan2.py`,
+the channels-last route): bf16 [N, H, W, C] up 2 through the 4x4 filter,
+the convolution's input styles applied on the way in.
 """
 
 from __future__ import annotations
@@ -160,6 +165,9 @@ def _library():
     lib.upfirdn2d_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
                                      + [ctypes.c_float, ctypes.c_void_p])
     lib.upfirdn2d_launch.restype = ctypes.c_int
+    lib.upfirdn2d_nhwc_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                                          + [ctypes.c_float, ctypes.c_void_p])
+    lib.upfirdn2d_nhwc_launch.restype = ctypes.c_int
     return lib
 
 
@@ -260,6 +268,60 @@ def upfirdn2d(
 
 _count_lock = threading.Lock()
 upfirdn2d.launches = 0
+
+
+def _styled(x: torch.Tensor, styles: Optional[torch.Tensor]) -> torch.Tensor:
+    """x * styles [N, C], rounded to x's dtype, as `modulated_conv2d` scales
+    its input."""
+    return x if styles is None else x * styles.to(x.dtype)[:, :, None, None]
+
+
+def upfirdn2d_channels_last(x: torch.Tensor, f: torch.Tensor, padding=0, gain: float = 1,
+                            styles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`upfirdn2d(x * styles, f, up=2, padding=padding, gain=gain)` of
+    channels-last bf16 images [N, C, H, W] through a 4x4 filter, without a
+    gradient, as a channels-last tensor. `styles` [N, C], when given, scales
+    the input first, rounded to bf16 as the plain chain's `x * styles`. A
+    CUDA tensor takes one launch of the kernel's channels-last instance (or
+    a ValueError), counted in `upfirdn2d.launches`; a CPU tensor takes the
+    plain version."""
+    if x.dim() != 4 or f is None or tuple(f.shape) != (4, 4):
+        raise ValueError(f"upfirdn2d_channels_last takes [N, C, H, W] images and a 4x4 filter, "
+                         f"not {tuple(x.shape)} and {None if f is None else tuple(f.shape)}")
+    if styles is not None and tuple(styles.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"styles {tuple(styles.shape)} do not fit {tuple(x.shape)}")
+    padding = _parse_padding(padding)
+    if x.device.type != "cuda":
+        y = _plain(_styled(x, styles), f, (2, 2), (1, 1), padding, False, float(gain))
+        return y.contiguous(memory_format=torch.channels_last)
+    n, c, h, w = x.shape
+    padx0, padx1, pady0, pady1 = padding
+    oh, ow = h * 2 + pady0 + pady1 - 3, w * 2 + padx0 + padx1 - 3
+    if x.dtype != torch.bfloat16 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"upfirdn2d_channels_last's kernel takes channels-last bfloat16, not "
+                         f"{x.dtype} with strides {x.stride()}")
+    if c % 8 or c > 2048 or n > 65535 or x.data_ptr() % 16:
+        raise ValueError(f"upfirdn2d_channels_last's kernel takes a multiple of 8 channels up "
+                         f"to 2048, N up to 65535, 16-byte aligned; not {tuple(x.shape)}")
+    if oh < 1 or ow < 1 or (oh + 2) // 2 > 65535 or max(h * w * c, oh * ow * c) >= 1 << 31:
+        raise ValueError(f"upfirdn2d_channels_last: {tuple(x.shape)} at padding {padding} "
+                         "is out of the kernel's range")
+    if torch.is_grad_enabled() and (x.requires_grad or (styles is not None
+                                                         and styles.requires_grad)):
+        raise ValueError("upfirdn2d_channels_last records no gradient")
+    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    f = f.to(device=x.device, dtype=torch.float32).contiguous()
+    s = None if styles is None else styles.to(device=x.device, dtype=x.dtype).contiguous()
+    args = (x.data_ptr(), y.data_ptr(), f.data_ptr(), 0 if s is None else s.data_ptr(),
+            n, h, w, c, oh, ow, padx0, pady0, float(gain))
+    with span("upfirdn2d"), torch.cuda.device(x.device):
+        err = _library().upfirdn2d_nhwc_launch(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"upfirdn2d channels-last kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        upfirdn2d.launches += 1
+    return y
 
 
 def filter2d(x, f, padding=0, flip_filter=False, gain=1):

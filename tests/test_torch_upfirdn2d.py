@@ -185,3 +185,56 @@ def test_superresolution_forward_launches_the_kernel(card):
     torch.cuda.synchronize()
     assert tuple(img.shape) == (1, 3, 64, 64) and bool(torch.isfinite(img).all())
     assert ops.upfirdn2d.launches == before + 4
+
+
+# (name, shape [N, C, H, W], padding, styles): the channels-last instance's
+# calls, the route's up layers (`models/stylegan2.py`) at the orbit chunk's
+# shapes, and the other paddings' quads.
+CHANNELS_LAST_CASES = [
+    ("orbit_block1_conv0", (15, 256, 256, 256), (3, 2, 3, 2), True),
+    ("orbit_block0_conv0", (15, 32, 128, 128), (3, 2, 3, 2), True),
+    ("backbone_b8_conv0", (1, 512, 4, 4), (3, 2, 3, 2), True),
+    ("even_padding_no_styles", (2, 8, 17, 23), (2, 1, 2, 1), False),
+    ("crop_and_mixed_parity", (3, 16, 9, 7), (-1, 2, 0, 3), True),
+    ("odd_and_even_padding", (2, 24, 6, 5), (3, 2, 1, 4), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHANNELS_LAST_CASES, ids=[c[0] for c in CHANNELS_LAST_CASES])
+def test_channels_last_instance_equals_nchw_kernel(card, case):
+    """`upfirdn2d_channels_last` (one launch of the channels-last instance,
+    the styles applied on the way in) equals the NCHW kernel on the input
+    scaled the plain way (`x * styles` in bf16), bit for bit, as a
+    channels-last tensor."""
+    _, shape, padding, with_styles = case
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+    styles = torch.randn(shape[:2], generator=g, device=card) if with_styles else None
+    f = ops.setup_filter([1, 3, 3, 1]).to(card)
+    want = ops.upfirdn2d(mod._styled(x, styles), f, up=2, padding=padding, gain=4)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    before = ops.upfirdn2d.launches
+    got = ops.upfirdn2d_channels_last(xl, f, padding=padding, gain=4, styles=styles)
+    torch.cuda.synchronize()
+    assert ops.upfirdn2d.launches == before + 1
+    assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+def test_channels_last_plain_version():
+    """On the CPU `upfirdn2d_channels_last` is the plain version of
+    `upfirdn2d(x * styles, up=2)` (styles rounded to x's dtype first), as a
+    channels-last tensor; it refuses a filter that is not 4x4."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 8, 6, 7, generator=g).to(torch.bfloat16)
+    styles = torch.randn(2, 8, generator=g)
+    f = ops.setup_filter([1, 3, 3, 1])
+    got = ops.upfirdn2d_channels_last(x.contiguous(memory_format=torch.channels_last), f,
+                                      padding=(3, 2, 3, 2), gain=4, styles=styles)
+    want = ops.upfirdn2d(x * styles.to(x.dtype)[:, :, None, None], f, up=2,
+                         padding=(3, 2, 3, 2), gain=4)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        ops.upfirdn2d_channels_last(x, ops.setup_filter([1, 2, 1]), padding=1)
