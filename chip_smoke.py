@@ -71,17 +71,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   6. main:    `generate_videos` at the full width of the default
               TriPlaneGenerator and ResNeXt50 encoder (seed-init weights,
               bf16, 96+96 samples, 8XDC to 512^2); every kernel of the path
-              must have launched (osg_decode: twice per frame).
+              must have launched (osg_decode: twice per frame). Its frames
+              after the first replay a CUDA graph, which no wrapper's
+              `.launches` sees: the path's launches are the kernels of a
+              device trace of the call (`device_launches`).
  7b. ingest:  published weights into the port without JAX: the full-width G
               and E of phase main (`--seed-init 0`) pickled in the reference
               checkpoint's layout (`tests/_torch_ingest.py`), converted by
               `python -m gnerf_tpu_torch.tools.convert_reference_pkl` in a
               process where `import jax` fails, then `generate_videos` on the
               npz (4 bf16 frames) equal bit for bit to the seed-init frames,
-              osg_decode launched twice per frame; a full-width VGG16 LPIPS
-              oracle saved with `torch.jit.save`, converted and calibrated on
-              the card by `convert_vgg16_lpips`, `load_lpips` of it within
-              rtol 5e-3 of the oracle on 4 pairs; a random
+              osg_decode run twice per frame on the device; a full-width
+              VGG16 LPIPS oracle saved with `torch.jit.save`, converted and
+              calibrated on the card by `convert_vgg16_lpips`, `load_lpips`
+              of it within rtol 5e-3 of the oracle on 4 pairs; a random
               `inception_v3_google` state dict through `convert_inception`
               and `load_inception`, every tensor equal. Conversion seconds and
               npz bytes.
@@ -232,6 +235,10 @@ ORBIT_FRAMES = 15            # frames per /orbit chunk (GNerfService.frames_per_
 SHAPE_CHUNK = 1 << 20        # points per shape-sweep chunk (extract_sigma_grid max_batch)
 SHAPE_RES = 256              # voxels per side of the shapes phase (512^3 runs through the CLI)
 SIDE = 512                   # frame side of the full-width model (8XDC output)
+# Parts of the hand kernels' names in a device trace.
+KERNEL_NAMES = {"osg_decode": "osg_decode_t", "threefry": "threefry_table",
+                "upfirdn2d": "upfirdn2d", "triplane_sample": "triplane_sample_kernel",
+                "modconv_epilogue": "modconv_epilogue_kernel"}
 
 
 def log(msg: str) -> None:
@@ -1440,25 +1447,47 @@ def _small_eg3d_ada(devices=("cpu", "cuda"), aug_p: float = 0.5):
                          "with the CPU")
 
 
-def phase_main(frames: int):
+def device_launches(fn, *args, **kwargs):
+    """fn(*args, **kwargs) under torch.profiler: (its result, the kernels of
+    each of KERNEL_NAMES that ran on the device, counted from the trace).
+    A replayed CUDA graph's kernel nodes count there, although no wrapper
+    launched them; a capture's recording runs nothing."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for kernel, part in KERNEL_NAMES.items():
+                counts[kernel] += part in e.name
+    return out, counts
+
+
+def phase_main(frames: int):
+    """Returns osg_decode's launches, the frames and every hand kernel's
+    launches on the device (`device_launches`)."""
     from gnerf_tpu_torch.infer.gen_videos import generate_videos
     from gnerf_tpu_torch.ops.fused_decoder import osg_decode
 
     with tempfile.TemporaryDirectory() as tmp:
-        osg_decode.launches = 0
+        wrapped = osg_decode.launches
         t0 = time.perf_counter()
-        res = generate_videos(None, seed_init=0, frames=frames, res=64,
-                              video_out_path=tmp, device="cuda")
-        torch.cuda.synchronize()
+        res, device = device_launches(generate_videos, None, seed_init=0, frames=frames,
+                                      res=64, video_out_path=tmp, device="cuda")
         wall = time.perf_counter() - t0
-        launches = osg_decode.launches
+        launches = device["osg_decode"]
         video_ok = os.path.exists(res["video"]) and os.path.exists(res["video_raw"])
     f = res["frames"]
     log(f"[main] generate_videos: {frames} frames {f.shape} {f.dtype} in {wall:.2f} s "
-        f"(first call, setup and warm-up included); finite={res['finite']} "
-        f"video={os.path.basename(res['video'])} osg_decode launches={launches}")
+        f"(first call, setup, warm-up and the profiler included); finite={res['finite']} "
+        f"video={os.path.basename(res['video'])} on the device {device}; the wrappers' "
+        f"osg_decode.launches moved by {osg_decode.launches - wrapped} (the first frame, "
+        f"eager, and the graph's capture)")
     if f.shape != (frames, 512, 512, 3) or f.dtype.name != "uint8":
         raise SystemExit(f"chip_smoke: frames are {f.shape} {f.dtype}")
     if res["frames_raw"].shape != (frames, 64, 64, 3):
@@ -1468,7 +1497,7 @@ def phase_main(frames: int):
     if launches != 2 * frames:
         raise SystemExit(f"chip_smoke: osg_decode launched {launches} times, "
                          f"want {2 * frames}")
-    return launches, f
+    return launches, f, device
 
 
 INGEST_FRAMES = 4
@@ -1492,7 +1521,6 @@ def phase_ingest() -> int:
     import torch
 
     from gnerf_tpu_torch.infer import gen_videos as gv
-    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.training.inception import load_inception
     from gnerf_tpu_torch.training.losses import load_lpips
 
@@ -1513,10 +1541,9 @@ def phase_ingest() -> int:
         os.remove(pkl)
 
         common = dict(frames=INGEST_FRAMES, res=64, device="cuda")
-        osg_decode.launches = 0
-        got = gv.generate_videos(npz, video_out_path=os.path.join(tmp, "npz"), **common)
-        torch.cuda.synchronize()
-        launches = osg_decode.launches
+        got, device = device_launches(gv.generate_videos, npz,
+                                      video_out_path=os.path.join(tmp, "npz"), **common)
+        launches = device["osg_decode"]
         want = gv.generate_videos(None, seed_init=0, video_out_path=os.path.join(tmp, "seed"),
                                   **common)
         gap = max(int(np.abs(got[k].astype(int) - want[k].astype(int)).max())
@@ -1786,13 +1813,12 @@ def phase_shapes():
     shape_res = SHAPE_RES
     chunks = -(-shape_res ** 3 // SHAPE_CHUNK)
     with tempfile.TemporaryDirectory() as tmp:
-        osg_decode.launches = 0
         t0 = time.perf_counter()
-        res = gv.generate_videos(None, seed_init=0, frames=2, gen_shapes=True,
-                                 shape_res=shape_res, video_out_path=tmp, outdir=tmp,
-                                 device="cuda")
+        res, device = device_launches(gv.generate_videos, None, seed_init=0, frames=2,
+                                      gen_shapes=True, shape_res=shape_res,
+                                      video_out_path=tmp, outdir=tmp, device="cuda")
         wall = time.perf_counter() - t0
-        launches = osg_decode.launches
+        launches = device["osg_decode"]
         vol = shape_utils.read_mrc(res["mrc"])
         pad, pad_top = int(30 * shape_res / 256), int(38 * shape_res / 256)
         inner = vol[pad:-pad, pad:-pad_top, pad:-pad]
@@ -1804,7 +1830,8 @@ def phase_shapes():
         mesh_s = time.perf_counter() - t1
         ply_bytes = os.path.getsize(ply)
     log(f"[shapes] generate_videos(gen_shapes) {shape_res}^3: {wall:.2f} s (2 frames + sweep, "
-        f"first call); osg_decode launches={launches} (want {2 * 2} + {chunks}); volume "
+        f"first call, profiled); osg_decode launches on the device={launches} "
+        f"(want {2 * 2} + {chunks}); volume "
         f"{vol.shape} finite={bool(np.isfinite(vol).all())} inside mask [{lo:.4g}, {hi:.4g}]; "
         f"mesh at {(lo + hi) / 2:.4g}: {len(verts)} vertices, {len(faces)} faces, "
         f"{ply_bytes} PLY bytes, {mesh_s:.2f} s on the host")
@@ -2990,7 +3017,6 @@ def _infer_rank(rank: int, world: int, port: int, tmp: str, frames: int) -> None
 
     from gnerf_tpu_torch.infer import shape_utils
     from gnerf_tpu_torch.infer.gen_videos import generate_videos
-    from gnerf_tpu_torch.ops.fused_decoder import osg_decode
     from gnerf_tpu_torch.utils.device import resolve_device
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -3002,13 +3028,12 @@ def _infer_rank(rank: int, world: int, port: int, tmp: str, frames: int) -> None
         run_dir = os.path.join(tmp, f"{name}-rank{rank}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        osg_decode.launches = 0
         t0 = time.perf_counter()
-        res = generate_videos(None, seed_init=0, frames=frames, res=64, ray_shards=rays,
-                              gen_shapes=shapes, shape_res=SHAPE_RES, video_out_path=run_dir,
-                              outdir=run_dir, device="cuda")
-        torch.cuda.synchronize()
-        row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": osg_decode.launches,
+        res, device = device_launches(generate_videos, None, seed_init=0, frames=frames,
+                                      res=64, ray_shards=rays, gen_shapes=shapes,
+                                      shape_res=SHAPE_RES, video_out_path=run_dir,
+                                      outdir=run_dir, device="cuda")
+        row = {"ms": (time.perf_counter() - t0) * 1e3, "launches": device["osg_decode"],
                "peak": torch.cuda.max_memory_allocated()}
         if res is not None:
             row.update(frames=res["frames"], finite=res["finite"])
@@ -3057,13 +3082,11 @@ def phase_infer_ddp(frames: int, main_frames, volume):
     dist.init_process_group("nccl", rank=0, world_size=1)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            osg_decode.launches = 0
             t0 = time.perf_counter()
-            res = gv.generate_videos(None, seed_init=0, frames=frames, res=64,
-                                     video_out_path=tmp, device="cuda")
-            torch.cuda.synchronize()
+            res, device = device_launches(gv.generate_videos, None, seed_init=0, frames=frames,
+                                          res=64, video_out_path=tmp, device="cuda")
             wall = (time.perf_counter() - t0) * 1e3
-            launches_a = osg_decode.launches
+            launches_a = device["osg_decode"]
     finally:
         dist.destroy_process_group()
     equal = bool(np.array_equal(res["frames"], main_frames))
@@ -3345,7 +3368,14 @@ def main(argv=None) -> int:
         epi_launches[name] = modconv_epilogue.launches
         return out
 
-    launches["main"], main_frames = path("main", phase_main, args.frames)
+    launches["main"], main_frames, device = path("main", phase_main, args.frames)
+    # Main's frames replay a CUDA graph: its launches are read from the device.
+    log(f"[main] the wrappers' launch counters (the first frame, eager, and the graph's "
+        f"capture): threefry {fry_launches['main']}, upfirdn2d {fir_launches['main']}, "
+        f"triplane_sample {tri_launches['main']}, modconv_epilogue {epi_launches['main']}")
+    fry_launches["main"], fir_launches["main"] = device["threefry"], device["upfirdn2d"]
+    tri_launches["main"] = device["triplane_sample"]
+    epi_launches["main"] = device["modconv_epilogue"]
     launches["ingest"] = path("ingest", phase_ingest)
     launches["server"] = path("server", phase_server)
     launches["shapes"], volume = path("shapes", phase_shapes)

@@ -2,10 +2,11 @@
 
 Port of `gnerf_tpu/infer/gen_videos.py`: encode the identity photo(s) with
 E, map to ws and build the tri-planes ONCE, then render the camera orbit
-frame by frame (8 frames per host round trip, uint8 conversion on the
-device) and write `<name>.mp4` + `<name>_raw.mp4` (or the fallback formats
-of `video_io`). Sampling density is doubled at load, as in the reference.
-Photos are decoded and resized to 512^2 by the native loader
+frame by frame (`render_video`: 8 frames per host round trip, uint8
+conversion on the device) and write `<name>.mp4` + `<name>_raw.mp4` (or the
+fallback formats of `video_io`). Sampling density is doubled at load, as in
+the reference. Photos are decoded and resized to 512^2 (under `--dataset
+shapenet` to G's output side, 128^2) by the native loader
 (`utils/native_loader.py`, PIL bilinear without the library), or
 FFHQ-aligned first when `--align_lm` names a folder of landmark files;
 `--gen_shapes true` also writes the sigma volume `<outdir>/<name>/<frames-1>.mrc`.
@@ -27,10 +28,13 @@ the result. The sigma sweep splits each chunk's points over every rank.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import math
 import os
 import time
+import weakref
 from typing import Optional
 
 import click
@@ -39,6 +43,7 @@ import torch
 
 from ..utils import camera, prng
 from ..utils.device import resolve_device
+from ..utils.profiling import profiled_function, span
 
 CHUNK = 8  # frames per device -> host copy
 
@@ -169,6 +174,7 @@ def load_networks(network: Optional[str], seed_init: Optional[int] = None, devic
 
 
 @torch.inference_mode()
+@profiled_function("video.identity")
 def prepare_identity(g, enc, id_images: np.ndarray, truncation_psi: float = 1.0,
                      dtype: torch.dtype = torch.bfloat16):
     """Identity-level compute, once: uint8 photos -> (ws, planes)."""
@@ -192,6 +198,153 @@ def render_frame(g, planes, ws, c, res: int, dtype: torch.dtype = torch.bfloat16
                           noise_mode="const", dtype=dtype, rendering_kwargs=rendering_kwargs)
     finite = torch.isfinite(out["image"]).all() & torch.isfinite(out["image_raw"]).all()
     return u8(out["image"]), u8(out["image_raw"]), finite
+
+
+# G -> its `_FrameGraph`: a graph and its memory pool live as long as their G.
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream the frame graphs of `device` are warmed up and
+    captured on: cuBLAS and cuDNN set up their workspaces for it once,
+    outside any capture."""
+    return torch.cuda.Stream(device)
+
+
+class _FrameGraph:
+    """`render_frame`'s work for one G, captured as a CUDA graph from a
+    memory pool of its own, reading static copies of (planes, ws, label).
+    The first frame runs eagerly on the side stream before the capture, so
+    that every lazy set-up (kernel builds, workspaces, cached resize
+    weights) happens outside it; its outputs are `first`. Not for
+    concurrent use: inputs and outputs are copied in and out around each
+    replay, on one thread."""
+
+    def __init__(self, key, fn, owner, planes, ws, label):
+        self.key, self.bound = key, weakref.ref(owner)
+        self.planes, self.ws, self.label = planes.clone(), ws.clone(), label.clone()
+        side = _capture_stream(planes.device)
+        current = torch.cuda.current_stream(planes.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.first = fn(self.planes, self.ws, self.label)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            self.outputs = fn(self.planes, self.ws, self.label)
+        current.wait_stream(side)
+        for t in self.first:
+            t.record_stream(current)
+
+    def replay(self, owner, planes, ws, label) -> tuple:
+        """The outputs (copies) for `label` and `owner`'s (planes, ws); these
+        are copied in only where another owner's are in place."""
+        if self.bound() is not owner:
+            self.planes.copy_(planes)
+            self.ws.copy_(ws)
+            self.bound = weakref.ref(owner)
+        self.label.copy_(label)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.outputs)
+
+
+class IdentityFrames:
+    """`render_frame` for one identity's (planes, ws) under one camera label
+    after another; planes and ws are read once, so they must not change
+    while it is in use. On CUDA, without ray sharding, frames replay G's
+    CUDA graph of the frame's work (one launch a frame in place of several
+    hundred, so that the host no longer paces the card). The graph is
+    captured at the first frame that finds none of this key (G's storage,
+    the inputs' shapes and the rendering options), that frame running
+    eagerly, and serves later videos of the same key; another key's capture
+    replaces it. A replay runs the eager frame's kernels on the same
+    inputs, but the kernels' `.launches` counters see only the eager frame
+    and the capture. Elsewhere every frame runs eagerly."""
+
+    def __init__(self, g, planes, ws, res: int, dtype: torch.dtype = torch.bfloat16,
+                 rendering_kwargs=None):
+        self.args = (g, planes, ws)
+        self.res, self.dtype, self.rendering_kwargs = res, dtype, rendering_kwargs
+        self.key = None
+        if planes.is_cuda and rendering_kwargs is None:
+            # G's storage (a graph reads its weights where they were), the
+            # inputs' shapes and the rendering options.
+            self.key = (tuple(t.data_ptr() for t in itertools.chain(g.parameters(), g.buffers())),
+                        planes.device, tuple(planes.shape), planes.dtype, tuple(ws.shape),
+                        ws.dtype, res, dtype, repr(sorted(g.rendering_kwargs.items())))
+
+    @torch.inference_mode()
+    def __call__(self, c: torch.Tensor):
+        """(image, image_raw) uint8 NCHW on the device and the finite flag,
+        as `render_frame` gives them, for the label c [1, 25] (on the
+        planes' device)."""
+        g, planes, ws = self.args
+        if self.key is None:
+            return render_frame(g, planes, ws, c, self.res, self.dtype, self.rendering_kwargs)
+        graph = _GRAPHS.get(g)
+        if graph is None or graph.key != self.key:
+            _GRAPHS.pop(g, None)  # the old graph and its pool go before the next capture
+            graph = _GRAPHS[g] = _FrameGraph(self.key, lambda p, w, label: render_frame(
+                g, p, w, label, self.res, self.dtype), self, planes, ws, c)
+            first, graph.first = graph.first, None
+            return first
+        return graph.replay(self, planes, ws, c)
+
+
+def render_video(g, planes, ws, labels: torch.Tensor, res: int,
+                 dtype: torch.dtype = torch.bfloat16, mesh=None):
+    """The video's frame loop: one frame's work a label (`IdentityFrames`:
+    `render_frame`, replayed from a CUDA graph on the card), one copy to the
+    host a chunk of `CHUNK` frames. Yields, per chunk, (image [F, H,
+    W * n_ids, 3], image_raw likewise: uint8 numpy arrays, the identities
+    side by side; None on ranks other than 0) and the chunk's finite flag
+    for this rank's frames (a device bool).
+
+    Under a mesh each chunk is ceil(min(CHUNK, frames) / data) * data
+    frames, the tail padded with the last label; each data rank renders its
+    contiguous part and the frames are gathered, padding dropped, before
+    rank 0 copies them. Spans: `video.frame` (a frame's launches),
+    `video.to_host` (a chunk's copy). `render_video.frames` and
+    `render_video.chunks` count this rank's rendered frames and chunks."""
+    from ..parallel import all_gather, process_info
+
+    rank = process_info()[0]
+    frames = labels.shape[0]
+    data = mesh.data if mesh is not None else 1
+    chunk = math.ceil(min(CHUNK, frames) / data) * data
+    per_rank = chunk // data
+    rk = {"ray_sharding": mesh} if mesh is not None and mesh.rays > 1 else None
+    frame = IdentityFrames(g, planes, ws, res, dtype, rk)
+    labels = labels.to(planes.device)  # one copy: a copy from the host waits for the card
+    for start in range(0, frames, chunk):
+        n_valid = min(chunk, frames - start)
+        ids = [min(i, frames - 1) for i in range(start, start + (chunk if mesh else n_valid))]
+        if mesh is not None:
+            ids = ids[mesh.data_rank * per_rank:(mesh.data_rank + 1) * per_rank]
+        imgs, raws = [], []
+        finite = torch.ones((), dtype=torch.bool, device=planes.device)
+        for i in ids:
+            with span("video.frame"):
+                img, raw, ok = frame(labels[i: i + 1])
+            imgs.append(img)
+            raws.append(raw)
+            finite &= ok
+        render_video.frames += len(ids)
+        render_video.chunks += 1
+        imgs, raws = torch.stack(imgs), torch.stack(raws)
+        if mesh is not None:  # every data rank's frames, in chunk order; padding dropped
+            imgs = all_gather(imgs, mesh.data_group)[:n_valid]
+            raws = all_gather(raws, mesh.data_group)[:n_valid]
+        if rank != 0:
+            yield None, None, finite
+            continue
+        with span("video.to_host"):
+            imgs = imgs.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+            raws = raws.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
+        yield imgs, raws, finite
+
+
+render_video.frames = render_video.chunks = 0
 
 
 def generate_videos(
@@ -219,7 +372,7 @@ def generate_videos(
     rays. Returns, on rank 0, {'video', 'video_raw': output paths, 'frames',
     'frames_raw': uint8 [F, H, W * n_ids, 3], 'finite': bool} and, with
     `gen_shapes`, 'mrc': the sigma volume's path; None on the other ranks."""
-    from ..parallel import all_gather, all_reduce, init_distributed, make_mesh, process_info
+    from ..parallel import all_reduce, init_distributed, make_mesh, process_info
     from .video_io import VideoWriter
 
     device = resolve_device(device)
@@ -232,10 +385,13 @@ def generate_videos(
     if world % ray_shards:  # refused, not clamped, as the JAX CLI and train.py do
         raise ValueError(f"--ray_shards {ray_shards} must divide device count {world}")
     mesh = make_mesh(data=world // ray_shards, rays=ray_shards)  # None without a group
-    id_images = _load_images(id_image, prepared, align_lm=align_lm)
     g, enc = load_networks(network, seed_init, device)
     if enc is None:
         raise ValueError(f"{network} holds no encoder E")
+    # ShapeNet photos reach E at G's output side, unresized from the SRN
+    # renders' 128^2, as the reference reads them; other photos at 512^2.
+    side = g.superresolution.img_resolution if dataset == "shapenet" else 512
+    id_images = _load_images(id_image, prepared, align_lm=align_lm, size=side)
     dtype = torch.float32 if fp32 else torch.bfloat16
     ws, planes = prepare_identity(g, enc, id_images, truncation_psi, dtype)
 
@@ -254,34 +410,12 @@ def generate_videos(
         os.makedirs(video_out_path, exist_ok=True)
         writer = VideoWriter(os.path.join(video_out_path, name + ".mp4"), fps=30)
         writer_raw = VideoWriter(os.path.join(video_out_path, name + "_raw.mp4"), fps=30)
-    data = mesh.data if mesh is not None else 1
-    chunk = math.ceil(min(CHUNK, frames) / data) * data
-    per_rank = chunk // data
-    rk = {"ray_sharding": mesh} if mesh is not None and mesh.rays > 1 else None
     finite = torch.ones((), dtype=torch.bool, device=device)
     all_imgs, all_raws = [], []
-    for start in range(0, frames, chunk):
-        n_valid = min(chunk, frames - start)
-        # Under a mesh the chunk is padded with the last label; this data
-        # rank renders its contiguous part of it.
-        ids = [min(i, frames - 1) for i in range(start, start + (chunk if mesh else n_valid))]
-        if mesh is not None:
-            ids = ids[mesh.data_rank * per_rank:(mesh.data_rank + 1) * per_rank]
-        imgs, raws = [], []
-        for i in ids:
-            img, raw, ok = render_frame(g, planes, ws, labels[i: i + 1], res, dtype, rk)
-            imgs.append(img)
-            raws.append(raw)
-            finite &= ok
-        imgs, raws = torch.stack(imgs), torch.stack(raws)
-        if mesh is not None:  # every data rank's frames, in chunk order; padding dropped
-            imgs = all_gather(imgs, mesh.data_group)[:n_valid]
-            raws = all_gather(raws, mesh.data_group)[:n_valid]
+    for imgs, raws, ok in render_video(g, planes, ws, labels, res, dtype, mesh):
+        finite &= ok
         if rank != 0:
             continue
-        # One device -> host copy per chunk; identities side by side.
-        imgs = imgs.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
-        raws = raws.permute(0, 3, 1, 4, 2).flatten(2, 3).cpu().numpy()
         for img, raw in zip(imgs, raws):
             writer.append_data(img)
             writer_raw.append_data(raw)

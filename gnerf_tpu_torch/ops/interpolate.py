@@ -40,13 +40,25 @@ def _resize_weights(in_size: int, out_size: int, antialias: bool) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _weights(in_size: int, out_size: int, antialias: bool, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """`_resize_weights` as a tensor on `device`, made once: a copy from the
+    host waits for the card, and a CUDA graph cannot hold one. Never evicted,
+    since a captured graph reads it where it is. Never an inference tensor,
+    so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(_resize_weights(in_size, out_size, antialias), dtype=dtype,
+                            device=device)
+
+
 def interpolate_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                          antialias: bool = False) -> torch.Tensor:
     """Resize [N, C, H, W] -> [N, C, out_h, out_w]."""
     _, _, h, w = x.shape
     if h == out_h and w == out_w:
         return x
-    mh = torch.tensor(_resize_weights(h, out_h, antialias), dtype=x.dtype, device=x.device)
-    mw = torch.tensor(_resize_weights(w, out_w, antialias), dtype=x.dtype, device=x.device)
+    mh = _weights(h, out_h, antialias, x.dtype, x.device)
+    mw = _weights(w, out_w, antialias, x.dtype, x.device)
     x = torch.einsum("oh,nchw->ncow", mh, x)
     return torch.einsum("pw,ncow->ncop", mw, x)
